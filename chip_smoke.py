@@ -1,4 +1,4 @@
-"""Drive collie_tpu_torch's serving path on one CUDA card and check it.
+"""Drive collie_tpu_torch's serving and training paths on one CUDA card.
 
 Run from the root of a checkout on a machine with an NVIDIA card (written
 for the H100):
@@ -9,11 +9,15 @@ Phases, each ending in ``torch.cuda.synchronize()``; any failure exits
 non-zero before the result line:
 
 1. device: card name and power limit, TF32 switched off for matmuls and cuDNN;
-2. build: every CUDA kernel of the path, compiled from ``collie_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the edge shapes of the JAX package's own tests, a tie case, and the
-   serving shape, with times for the kernel, the plain version and one
-   library call that computes the same function;
+2. build: every CUDA kernel of the paths, compiled from
+   ``collie_tpu_torch/csrc`` (one nvcc per source, all started together);
+3. kernels: ``topk_tile`` against its plain PyTorch version at the edge
+   shapes of the JAX package's tests, a tie case and the serving shape;
+   ``fused_mf_epoch`` against its plain version at edge shapes (every loss
+   kind, metadata, weight decay, K=1, duplicate ids, B not a power of two)
+   and at the ML-10M training shape after 3 steps and after one full
+   epoch of the engine's real batches; times for each kernel, its plain
+   version and (where one exists) one library call of the same function;
 4. serving: an MF model at the repo's serving scale (2,000,000 items,
    ``embedding_dim=64``, random weights from the seed) is built from seeded
    interactions, saved to npz and loaded back, then answers four
@@ -21,7 +25,17 @@ non-zero before the result line:
    path, shown by the launch counter) and two with it (the blockwise path),
    each checked against a dense stable top-k, and runs
    ``evaluate_in_batches`` on 2,048 test users;
-5. the kernels line (one JSON object), the card's name and power limit, and
+5. training: (a) the quality-gate configuration of ``bench.py`` (943 users
+   x 1,682 items, ``embedding_dim=10``, batch 1,024, adaptive hinge, K=10)
+   fit for 10 epochs through ``CollieTrainer``, whose ``evaluate_in_batches``
+   MAP@10, MRR and AUC must clear ``benchmarks/gates.json``; (b) the
+   ML-10M-scale configuration of ``benchmarks/bench_ml10m_scale.py`` (72,000
+   users x 10,000 items, 10M generated interactions, 90/5/5 split,
+   ``embedding_dim=32``, batch 65,536) fit for 3 epochs, with examples/s,
+   each epoch's time split into epoch building and kernel, peak memory, and
+   a trained-beats-untrained MAP@10 check.  The fused kernel's launch
+   counter must equal the epochs the two fits ran;
+6. the kernels line (one JSON object), the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 """
 import argparse
@@ -43,6 +57,7 @@ PEAK_BYTES_PER_S = 3.35e12
 
 RTOL = 1e-5
 ATOL = 1e-5
+DEVICE = 'cuda'
 
 NUM_USERS = 100_000
 NUM_ITEMS = 2_000_000            # benchmarks/retrieval_results.json catalog_2000000
@@ -51,6 +66,41 @@ NUM_INTERACTIONS = 5_000_000
 REQUEST_USERS = 256
 EVAL_USERS = 2_048
 K = 10
+
+# training: the quality-gate configuration of bench.py:24-49 and the
+# ML-10M-scale configuration of benchmarks/bench_ml10m_scale.py:34-72
+GATE_DATA = dict(num_users=943, num_items=1682, num_interactions=100_000,
+                 num_negative_samples=10, seed=42)
+GATE_EPOCHS = 10
+ML10M_DATA = dict(num_users=72_000, num_items=10_000, num_interactions=10_000_000,
+                  num_negative_samples=10, affinity_bias=3.0, seed=7)
+ML10M_BATCH = 65_536
+ML10M_DIM = 32
+ML10M_EPOCHS = 3
+ML10M_EVAL_USERS = 5_000
+SPLIT = ('shuffle_ms', 'sample_ms', 'train_ms')     # CollieTrainer.epoch_log
+
+# fused_mf_epoch against its plain version: tables and moments within
+# EPOCH_RTOL * |ref| + EPOCH_ATOL_SCALE * max|ref| per tensor (atomics sum
+# duplicate ids in a run-dependent order), per-step losses within
+# EPOCH_RTOL.  At the ML-10M shape a rounding-level score difference can
+# flip an example's hardest-negative choice, which moves that example's
+# rows by an Adam step; there at most MAX_FLIPPED_FRACTION of each tensor's
+# elements may fall outside the tolerance.
+EPOCH_RTOL = 1e-4
+EPOCH_ATOL_SCALE = 1e-5
+MAX_FLIPPED_FRACTION = 1e-3
+# (loss_kind, adaptive, K, B, D, metadata fields, weight decay, duplicate ids)
+EPOCH_EDGES = [
+    ('hinge', False, 1, 7, 10, 0, 0.0, False),
+    ('hinge', True, 4, 100, 10, 0, 0.0, False),
+    ('bpr', False, 4, 100, 33, 0, 0.0, False),
+    ('bpr', True, 4, 37, 64, 0, 1e-3, False),
+    ('warp', False, 5, 100, 32, 0, 0.0, False),
+    ('hinge', True, 4, 100, 16, 2, 0.0, True),
+    ('warp', False, 6, 61, 8, 2, 1e-3, True),
+    ('bpr', False, 1, 1, 256, 1, 0.0, False),
+]
 
 
 def log(*args):
@@ -239,6 +289,288 @@ def phase_kernels():
     }
 
 
+def epoch_inputs(seed, U=37, I=53, D=10, S=3, B=7, K=1, F=0, dup=False):
+    """Tables, moments and batches of ``fused_mf_epoch`` on the card, from a
+    numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=0.1):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    users = rng.integers(0, U, (S, B)).astype(np.int32)
+    pos = rng.integers(0, I, (S, B)).astype(np.int32)
+    negs = rng.integers(0, I, (S, B, K)).astype(np.int32)
+    if dup:
+        users[:, :(B + 1) // 2] = users[:, :1]
+        pos[:, :(B + 1) // 2] = pos[:, :1]
+    mask = np.ones((S, B), np.float32)
+    mask[-1, B // 2:] = 0.0
+    arrays = [f(U, D), f(I, D), f(I), f(U, D, scale=1e-3), np.abs(f(U, D, scale=1e-4)),
+              f(I, D, scale=1e-3), np.abs(f(I, D, scale=1e-4))]
+    tensors = [torch.from_numpy(a).to(DEVICE) for a in arrays]
+    tensors.append(torch.tensor(5, dtype=torch.int32, device=DEVICE))
+    tensors += [torch.from_numpy(a).to(DEVICE) for a in (users, pos, negs, mask)]
+    tensors += [0.05, 0.01]
+    meta = torch.from_numpy(rng.integers(0, 3, (F, I)).astype(np.int32)).to(DEVICE) if F else None
+    return tensors, meta
+
+
+def compare_epoch(label, out, ref, max_flipped=0.0, quiet=False):
+    """Hold ``fused_mf_epoch``'s outputs to the plain version's; returns the
+    max abs error over tables and moments."""
+    names = ['user_emb', 'item_emb', 'item_bias', 'mu_u', 'nu_u', 'mu_i', 'nu_i']
+    max_err, report = 0.0, []
+    for name, a, b in zip(names, out[:7], ref[:7]):
+        diff = (a - b).abs()
+        tol = EPOCH_RTOL * b.abs() + EPOCH_ATOL_SCALE * b.abs().max()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f'{label}: non-finite {name}')
+        flipped = float((diff > tol).float().mean())
+        if flipped > max_flipped:
+            raise AssertionError(f'{label}: {name} differs beyond tolerance in {flipped:.3%} '
+                                 f'of elements (max abs {float(diff.max()):.3g})')
+        max_err = max(max_err, float(diff.max()))
+        report.append(f'{name} {flipped:.2e}')
+    if int(out[7]) != int(ref[7]):
+        raise AssertionError(f'{label}: count {int(out[7])} vs {int(ref[7])}')
+    if not torch.allclose(out[8], ref[8], rtol=EPOCH_RTOL, atol=1e-7):
+        raise AssertionError(f'{label}: per-step losses differ: {out[8][:5].tolist()} vs '
+                             f'{ref[8][:5].tolist()}')
+    if not quiet:
+        log(f'  {label}: max_abs_err={max_err:.3g}; share of elements beyond tolerance: '
+            + ', '.join(report))
+    return max_err
+
+
+def ml10m_data():
+    """The ML-10M-scale configuration's data, as bench_ml10m_scale.py builds
+    it: generated interactions, then a 90/5/5 stratified split."""
+    from collie_tpu_torch.data import stratified_split
+    from collie_tpu_torch.data.synthetic import generate_implicit_interactions
+
+    start = time.perf_counter()
+    inter = generate_implicit_interactions(**ML10M_DATA)
+    train, val, test = stratified_split(inter, val_p=0.05, test_p=0.05, seed=7,
+                                        force_split=True)
+    log(f'ML-10M-scale data: {train.num_interactions} train / {val.num_interactions} val / '
+        f'{test.num_interactions} test interactions, {train.num_users} users x '
+        f'{train.num_items} items ({time.perf_counter() - start:.1f}s on the host)')
+    return train, val, test
+
+
+def ml10m_model(train):
+    from collie_tpu_torch import InteractionsDataLoader, MatrixFactorizationModel
+
+    loader = InteractionsDataLoader(interactions=train, batch_size=ML10M_BATCH, shuffle=True,
+                                    seed=7)
+    return MatrixFactorizationModel(train=loader, embedding_dim=ML10M_DIM, lr=1e-1,
+                                    loss='adaptive', seed=7)
+
+
+def phase_kernel_fused_epoch(ml10m):
+    """fused_mf_epoch against its plain version; returns the kernel's record."""
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_epoch,
+                                                             fused_mf_epoch_plain)
+    from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns
+
+    log(f'kernel fused_mf_epoch vs plain (rtol={EPOCH_RTOL}, atol={EPOCH_ATOL_SCALE} x '
+        f'max|ref|)')
+    max_err = 0.0
+    for loss_kind, adaptive, K, B, D, F, wd, dup in EPOCH_EDGES:
+        args, meta = epoch_inputs(K * 100 + B + D, D=D, B=B, K=K, F=F, dup=dup)
+        kw = dict(K=K, adaptive=adaptive, loss_kind=loss_kind,
+                  meta_weights=(0.3, 0.2)[:F] if F != 1 else (0.5,), wd_emb=wd, wd_bias=wd)
+        ref = fused_mf_epoch_plain(*args, meta, **kw)
+        out = fused_mf_epoch(*[a.clone() if torch.is_tensor(a) else a for a in args], meta,
+                             **kw)
+        torch.cuda.synchronize()
+        label = (f'{loss_kind} adaptive={adaptive} K={K} B={B} D={D} F={F} wd={wd} '
+                 f'dup={dup}')
+        max_err = max(max_err, compare_epoch(label, out, ref))
+
+    # the ML-10M shape: the engine's real first epoch, fresh Adam state
+    model = ml10m_model(ml10m[0])
+    specs = model.optimizer_specs()
+    epoch_fn, _, S, _ = build_scan_epoch_fns(model, specs, [True] * len(specs),
+                                             model.train_loader, shuffle=True)
+    batches = epoch_fn.epoch_batches(7, 1)
+    params = model.params
+    U, D = params['user_embeddings'].shape
+    I = params['item_embeddings'].shape[0]
+    B, K = ML10M_BATCH, ML10M_DATA['num_negative_samples']
+    kw = dict(K=K, adaptive=True, loss_kind='hinge')
+
+    def state():
+        return [params['user_embeddings'].clone(), params['item_embeddings'].clone(),
+                params['item_biases'].clone(),
+                *[torch.zeros_like(params[k]) for k in ('user_embeddings', 'user_embeddings',
+                                                        'item_embeddings', 'item_embeddings')],
+                torch.zeros((), dtype=torch.int32, device=DEVICE)]
+
+    def epoch_args(start, stop):
+        return [batches[k][start:stop] for k in ('users', 'pos_items', 'neg_items', 'mask')] \
+            + [0.1, 0.01, None]
+
+    shape = f'U={U} I={I} D={D} B={B} K={K}'
+    ref = fused_mf_epoch_plain(*state(), *epoch_args(0, 3), **kw)
+    out = fused_mf_epoch(*state(), *epoch_args(0, 3), **kw)
+    torch.cuda.synchronize()
+    max_err = max(max_err, compare_epoch(f'ML-10M shape, 3 steps, {shape}', out, ref,
+                                         max_flipped=MAX_FLIPPED_FRACTION))
+    # one full epoch, step by step: each step of the kernel starts from the
+    # plain version's state before that step, so every step of the epoch is
+    # held to the tolerance without the divergence of two trajectories
+    # (a flipped hardest negative moves an item row that ~70 examples of the
+    # next step score against, and at lr 0.1 the two runs part within a few
+    # steps; measured below for the single-call epoch)
+    worst = 0.0
+    current = state()
+    plain_losses = []
+    for step in range(S):
+        ref = fused_mf_epoch_plain(*current, *epoch_args(step, step + 1), **kw)
+        out = fused_mf_epoch(*[t.clone() for t in current], *epoch_args(step, step + 1), **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_epoch(f'ML-10M shape, step {step}', out, ref,
+                                         max_flipped=MAX_FLIPPED_FRACTION, quiet=True))
+        plain_losses.append(float(ref[8][0]))
+        current = list(ref[:8])
+        del out
+    max_err = max(max_err, worst)
+    log(f'  ML-10M shape, one epoch ({S} steps) held step by step, {shape}: '
+        f'max_abs_err={worst:.3g}')
+    out = fused_mf_epoch(*state(), *epoch_args(0, S), **kw)
+    torch.cuda.synchronize()
+    kernel_losses = out[8].tolist()
+    if not all(np.isfinite(kernel_losses)):
+        raise AssertionError('ML-10M one-call epoch: non-finite losses')
+    parted = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses))
+    log(f'  ML-10M shape, the same epoch as one call: per-step losses within '
+        f'{parted:.3%} of the plain trajectory (first {kernel_losses[0]:.6f} vs '
+        f'{plain_losses[0]:.6f}, last {kernel_losses[-1]:.6f} vs {plain_losses[-1]:.6f}); '
+        f'user_emb max abs difference {float((out[0] - current[0]).abs().max()):.3g}')
+    del out, current, ref
+
+    tables = state()
+    kernel_ms = cuda_median_ms(lambda: fused_mf_epoch(*tables, *epoch_args(0, S), **kw),
+                               warmup=1, runs=5)
+    plain_ms = cuda_median_ms(lambda: fused_mf_epoch_plain(*state(), *epoch_args(0, S), **kw),
+                              warmup=0, runs=1)
+    # least traffic per step: the dense update streams the tables, both
+    # moments and the accumulator (read + write: 32 (U + I) D bytes), the
+    # item bias and its gradient (16 I), and the step's ids and mask
+    nbytes = S * (32.0 * (U + I) * D + 16.0 * I + 4.0 * B * (K + 3))
+    ops = S * 6.0 * B * (K + 1) * D
+    ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f'  ML-10M epoch ({S} steps): kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} '
+        f'bound_ms={bound_ms:.4f} (operations {ops_ms:.4f}, bytes {bytes_ms:.4f}); '
+        f'library_ms=null: no single PyTorch call computes an epoch of sampled-negative '
+        f'MF training with Adam')
+    del tables, batches, epoch_fn, model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {
+        'name': 'fused_mf_epoch',
+        'route': 'cuda',
+        'source': 'collie_tpu_torch/csrc/fused_mf_epoch.cu',
+        'replaces': 'collie_tpu/ops/pallas/fused_mf_epoch.py:148',
+        'launches': 0,
+        'max_abs_err': max_err,
+        'ms': kernel_ms,
+        'plain_ms': plain_ms,
+        'bound_ms': bound_ms,
+        'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
+        'library_ms': None,
+        'checked': True,
+    }
+
+
+def phase_training(ml10m, record: dict):
+    """The training path: the gate configuration for 10 epochs, then the
+    ML-10M-scale configuration for 3, both through ``CollieTrainer``."""
+    from collie_tpu_torch import (CollieTrainer, Interactions, InteractionsDataLoader,
+                                  MatrixFactorizationModel, auc, evaluate_in_batches, mapk,
+                                  mrr, stratified_split)
+    from collie_tpu_torch.data.synthetic import generate_implicit_interactions
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch
+
+    with open(os.path.join('benchmarks', 'gates.json')) as f:
+        gates = {name: spec['gate'] for name, spec in json.load(f).items()}
+
+    # (a) the quality-gate configuration
+    train, test = stratified_split(generate_implicit_interactions(**GATE_DATA), test_p=0.2,
+                                   seed=42, force_split=True)
+    loader = InteractionsDataLoader(interactions=train, batch_size=1024, shuffle=True, seed=42)
+    model = MatrixFactorizationModel(train=loader, embedding_dim=10, lr=1e-1, loss='adaptive',
+                                     seed=42)
+    fused_mf_epoch.launches = 0
+    trainer = CollieTrainer(model, max_epochs=GATE_EPOCHS, verbosity=0, seed=42)
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    launches = fused_mf_epoch.launches
+    epochs = trainer.num_epochs_completed
+    if launches != epochs or epochs != GATE_EPOCHS:
+        raise AssertionError(f'gate fit: {launches} kernel launches for {epochs} epochs')
+    map_k, mrr_v, auc_v = evaluate_in_batches([mapk, mrr, auc], test, model, k=K,
+                                              batch_size=256, verbose=False)
+    log(f'gate config fit ({train.num_interactions} train interactions, {GATE_EPOCHS} '
+        f'epochs): {trainer.last_fit_examples_per_sec:,.0f} examples/s; per epoch ms '
+        f'(shuffle, sampler, kernel): '
+        f'{[tuple(round(e[k], 3) for k in SPLIT) for e in trainer.epoch_log]}; '
+        f'MAP@{K}={map_k:.5f} MRR={mrr_v:.5f} AUC={auc_v:.5f} (gates {gates["mapk"]:.5f}, '
+        f'{gates["mrr"]:.5f}, {gates["auc"]:.5f}); fused_mf_epoch launches {launches}')
+    for name, value in (('mapk', map_k), ('mrr', mrr_v), ('auc', auc_v)):
+        if not value > gates[name]:
+            raise AssertionError(f'gate config: {name}={value} does not clear {gates[name]}')
+    del model, trainer
+
+    # (b) the ML-10M-scale configuration
+    train, _, test = ml10m
+    model = ml10m_model(train)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = CollieTrainer(model, max_epochs=ML10M_EPOCHS, verbosity=0, seed=7)
+    start = time.perf_counter()
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - start
+    epochs += trainer.num_epochs_completed
+    launches = fused_mf_epoch.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != epochs or trainer.num_epochs_completed != ML10M_EPOCHS:
+        raise AssertionError(f'{launches} kernel launches for {epochs} epochs')
+    log(f'ML-10M-scale fit ({train.num_interactions} train interactions, batch {ML10M_BATCH}, '
+        f'{ML10M_EPOCHS} epochs): {fit_s:.2f}s incl. epoch-data build, '
+        f'{trainer.last_fit_examples_per_sec:,.0f} examples/s, peak device memory '
+        f'{peak_gb:.3f} GB')
+    for e in trainer.epoch_log:
+        host_ms = e['seconds'] * 1e3 - sum(e[k] for k in SPLIT)
+        log(f'  epoch {e["epoch"]}: {e["seconds"] * 1e3:.3f} ms = shuffle {e["shuffle_ms"]:.3f} '
+            f'+ sampler {e["sample_ms"]:.3f} + kernel {e["train_ms"]:.3f} + host {host_ms:.3f}')
+
+    rng = np.random.default_rng(0)
+    sample = np.sort(rng.choice(np.unique(test.mat.row), ML10M_EVAL_USERS, replace=False))
+    keep = np.isin(test.mat.row, sample)
+    sub = Interactions(users=test.mat.row[keep], items=test.mat.col[keep],
+                       num_users=test.num_users, num_items=test.num_items,
+                       allow_missing_ids=True, check_num_negative_samples_is_valid=False,
+                       seed=0)
+    map_k, mrr_v, auc_v = evaluate_in_batches([mapk, mrr, auc], sub, model, k=K,
+                                              batch_size=512, verbose=False)
+    untrained = MatrixFactorizationModel(train=model.train_loader, embedding_dim=ML10M_DIM,
+                                         lr=1e-1, loss='adaptive', seed=99)
+    untrained_map = evaluate_in_batches([mapk], sub, untrained, k=K, batch_size=512,
+                                        verbose=False)
+    torch.cuda.synchronize()
+    log(f'  {ML10M_EVAL_USERS} test users: MAP@{K}={map_k:.5f} MRR={mrr_v:.5f} AUC={auc_v:.5f} '
+        f'(untrained MAP@{K}={untrained_map:.5f}); fused_mf_epoch launches over both fits '
+        f'{launches} for {epochs} epochs')
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in (map_k, mrr_v, auc_v)):
+        raise AssertionError(f'metrics out of range: {map_k}, {mrr_v}, {auc_v}')
+    if not map_k > untrained_map:
+        raise AssertionError(f'trained MAP@{K} {map_k} does not beat untrained {untrained_map}')
+    record['launches'] = launches
+
+
 def serving_data(seed: int):
     """Seeded implicit interactions at the serving scale, split per user."""
     from collie_tpu_torch.data import Interactions, stratified_split
@@ -381,11 +713,14 @@ def main(argv=None):
 
     smi = phase_device()
     phase_build()
-    record = phase_kernels()
-    phase_serving(args.seed, record)
+    topk = phase_kernels()
+    ml10m = ml10m_data()
+    fused = phase_kernel_fused_epoch(ml10m)
+    phase_serving(args.seed, topk)
+    phase_training(ml10m, fused)
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
-    print(json.dumps({'kernels': [record]}))
+    print(json.dumps({'kernels': [topk, fused]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -7,12 +7,14 @@ the JAX param names.  Compute keeps the JAX functional form:
 ``score(params, users, items)`` takes a dict of tensors (``model.params``),
 so parity tests compare like with like.
 
-Ported here: construction and hyperparameter capture, loss-name validation
-(the ``_is_implicit`` hparam; the loss functions themselves come with
-training), ``embeddings_dtype`` storage, full-catalog and tile scoring, the
-prediction and similarity APIs, and ``save_model`` / ``load_model_path`` in
-the JAX package's npz format (``param:<name>`` arrays plus ``hparams_json``),
-so a model saved by either package loads in the other.
+Ported here: construction and hyperparameter capture, loss resolution (the
+``_is_implicit`` hparam; ``loss_function`` is the resolved loss's name in
+``ops/losses.LOSSES``), the training half (``calculate_loss``'s dense
+branch and ``optimizer_specs``' dual adam-embeddings / sgd-biases layout),
+``embeddings_dtype`` storage, full-catalog and tile scoring, the prediction
+and similarity APIs, and ``save_model`` / ``load_model_path`` in the JAX
+package's npz format (``param:<name>`` arrays plus ``hparams_json``), so a
+model saved by either package loads in the other.
 
 Device: models live on ``cuda`` unless ``map_location`` asks for another
 device (``'cpu'`` in the tests); with no GPU and no explicit device,
@@ -21,7 +23,7 @@ construction raises.
 import json
 import warnings
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import pandas as pd
@@ -30,6 +32,9 @@ from torch import nn
 
 from collie_tpu_torch.data import (BaseInteractions, ExplicitInteractions, Interactions,
                                    InteractionsDataLoader)
+from collie_tpu_torch.ops import losses as loss_lib
+from collie_tpu_torch.training.optimizers import (OptimizerSpec, build_transform,
+                                                  split_bias_keys)
 from collie_tpu_torch.utils import get_random_seed
 
 INTERACTIONS_LIKE_INPUT = Union[BaseInteractions, InteractionsDataLoader, None]
@@ -309,6 +314,121 @@ class BasePipeline(nn.Module):
                 self.loss_function = 'hinge'
             return
         raise ValueError(f'{self.loss} is not a valid loss function.')
+
+    # ---------------------------------------------------------- loss compute
+
+    def _loss_fn(self) -> Callable:
+        """The resolved loss as a function."""
+        if callable(self.loss_function):
+            return self.loss_function
+        return loss_lib.LOSSES[self.loss_function]
+
+    def loss_metadata(self) -> Optional[Dict[str, torch.Tensor]]:
+        """``metadata_for_loss`` as tensors on the model's device, converted
+        once and reused while the arrays stay the same objects."""
+        if not self.metadata_for_loss:
+            return None
+        cached = getattr(self, '_loss_metadata_cache', None)
+        source = tuple((k, id(v)) for k, v in self.metadata_for_loss.items())
+        if cached is None or cached[0] != source or cached[2] != self.device:
+            tensors = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                       for k, v in self.metadata_for_loss.items()}
+            self._loss_metadata_cache = cached = (source, tensors, self.device)
+        return cached[1]
+
+    def calculate_loss(self,
+                       params: Dict[str, torch.Tensor],
+                       batch: Dict[str, torch.Tensor],
+                       training: bool = True) -> torch.Tensor:
+        """Batch-shape-dispatched loss (reference ``base_pipeline.py:582-654``).
+
+        Implicit batches carry ``neg_items [B, K]``, explicit ones
+        ``ratings``.  The implicit branch is the JAX package's dense form:
+        every negative scored with the params it is differentiated against.
+        """
+        mask = batch.get('mask')
+        if 'neg_items' in batch:
+            if self.hparams.get('_is_implicit') is False:
+                raise ValueError('Explicit loss with implicit data is invalid!')
+            users = batch['users'].long()
+            pos_items = batch['pos_items'].long()
+            neg_items = batch['neg_items'].long().T  # [K, B], the reference's convention
+            K = neg_items.shape[0]
+            pos_preds = self.score(params, users, pos_items)
+            neg_preds = self.pairwise_scores(params, users, neg_items)
+            if K == 1:
+                neg_preds = neg_preds[0]
+                neg_items = neg_items[0]
+            return self._loss_fn()(
+                pos_preds, neg_preds,
+                num_items=self.hparams['num_items'],
+                positive_items=pos_items,
+                negative_items=neg_items,
+                metadata=self.loss_metadata(),
+                metadata_weights=self.metadata_for_loss_weights,
+                sample_weights=mask,
+            )
+        if 'ratings' in batch:
+            if self.hparams.get('_is_implicit') is True:
+                raise ValueError('Implicit loss with explicit data is invalid!')
+            preds = self.score(params, batch['users'].long(), batch['items'].long())
+            return self._loss_fn()(preds, batch['ratings'].float(), sample_weights=mask)
+        raise ValueError(f'Unexpected format for batch with keys: {sorted(batch)}.')
+
+    def pairwise_scores(self,
+                        params: Dict[str, torch.Tensor],
+                        users: torch.Tensor,
+                        items: torch.Tensor) -> torch.Tensor:
+        """Scores ``[R, B]`` of users ``[B]`` against item ids ``[R, B]``.
+        Default: the pairwise ``score`` over the tiled users."""
+        R, B = items.shape
+        return self.score(params, users.repeat(R), items.reshape(-1)).reshape(R, B)
+
+    _DROPOUT_HPARAMS = ('dropout_p', 'dense_dropout_p', 'embedding_dropout_p')
+
+    def _score_is_deterministic(self) -> bool:
+        """True when ``score()`` has no active dropout."""
+        return all(not self.hparams.get(name) for name in self._DROPOUT_HPARAMS)
+
+    # ----------------------------------------------------------- optimizers
+
+    def optimizer_specs(self) -> List[OptimizerSpec]:
+        """Optimizer layout consumed by the trainer: single optimizer, or the
+        reference's dual bias/non-bias scheme when ``bias_optimizer`` is set
+        (``base_pipeline.py:342-479``)."""
+        keys = sorted(self.params.keys())
+        lr = self.hparams['lr']
+        weight_decay = self.hparams.get('weight_decay', 0.0)
+
+        if self.bias_optimizer is not None:
+            bias_optimizer = self.bias_optimizer
+            if bias_optimizer == 'infer':
+                bias_optimizer = self.optimizer
+            bias_lr = self.hparams.get('bias_lr', 'infer')
+            if bias_lr == 'infer':
+                bias_lr = lr
+            bias_keys, rest_keys = split_bias_keys(keys)
+            specs = []
+            if rest_keys:
+                specs.append(OptimizerSpec(
+                    name='all_but_bias',
+                    transform=build_transform(self.optimizer, lr, weight_decay),
+                    keys=rest_keys))
+            if bias_keys:
+                specs.append(OptimizerSpec(
+                    name='bias',
+                    transform=build_transform(bias_optimizer, bias_lr, weight_decay),
+                    keys=bias_keys))
+            return specs
+
+        return [OptimizerSpec(name='all',
+                              transform=build_transform(self.optimizer, lr, weight_decay),
+                              keys=keys)]
+
+    @property
+    def current_stage(self) -> Optional[str]:
+        """Single-stage models have no stage."""
+        return None
 
     # ------------------------------------------------------------- inference
 

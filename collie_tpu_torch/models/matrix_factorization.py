@@ -1,4 +1,4 @@
-"""Matrix factorization: the flagship model, serving subset.
+"""Matrix factorization: the flagship model.
 
 Port of ``collie_tpu/models/matrix_factorization.py`` (reference
 ``collie/model/matrix_factorization.py:12-167``):
@@ -6,9 +6,10 @@ Port of ``collie_tpu/models/matrix_factorization.py`` (reference
 ``y_range`` sigmoid rescale.  The constructor keeps collie's separate, slower
 SGD optimizer settings for the bias terms (``bias_lr=1e-2``,
 ``bias_optimizer='sgd'``) and the default ``ReduceLROnPlateau(patience=1)``
-schedule as hyperparameters; dropout and the pairwise training scores come
-with training.  Full-catalog and tile scoring are one matmul each, in full
-float32 (TF32 stays off).
+schedule as hyperparameters.  ``pairwise_scores`` scores the K negatives of
+a training batch.  Embedding dropout is not ported yet (training with
+``dropout_p > 0`` raises).  Full-catalog and tile scoring are one matmul
+each, in full float32 (TF32 stays off).
 """
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -83,6 +84,15 @@ class MatrixFactorizationModel(BasePipeline):
         preds = ((embedding_lookup(params['user_embeddings'], users)
                   * embedding_lookup(params['item_embeddings'], items)).sum(dim=1)
                  + params['user_biases'][users] + params['item_biases'][items])
+        return self._apply_y_range(preds)
+
+    def pairwise_scores(self, params, users, items):
+        """Scores ``[R, B]`` of users ``[B]`` against item ids ``[R, B]``: user
+        rows gathered once, item rows ``[R, B, d]`` once."""
+        user_emb = embedding_lookup(params['user_embeddings'], users)
+        item_emb = embedding_lookup(params['item_embeddings'], items)
+        preds = ((user_emb[None] * item_emb).sum(dim=-1)
+                 + params['user_biases'][users][None, :] + params['item_biases'][items])
         return self._apply_y_range(preds)
 
     def _apply_y_range(self, preds):

@@ -27,8 +27,21 @@ def _imported_modules(path):
 @pytest.mark.parametrize('path', PROGRAM_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_neither_jax_nor_the_jax_package(path):
     banned = [name for name in _imported_modules(path)
-              if name.split('.')[0] in ('jax', 'jaxlib', 'collie_tpu')]
+              if name.split('.')[0] in ('jax', 'jaxlib', 'optax', 'collie_tpu')]
     assert not banned, f'{path.name} imports {banned}'
+
+
+TRAINING_SLICE = ['ops/shuffle.py', 'ops/device_sampling.py', 'ops/losses.py',
+                  'ops/kernels/fused_mf_epoch.py', 'training/optimizers.py',
+                  'training/scan_engine.py', 'training/trainer.py', 'weights.py']
+
+
+@pytest.mark.parametrize('module', TRAINING_SLICE)
+def test_training_slice_modules_are_checked(module):
+    """The training slice's modules are among the files the import rule
+    above covers, and the fused epoch's CUDA source is in the package."""
+    assert PACKAGE / module in PROGRAM_FILES
+    assert (PACKAGE / 'csrc' / 'fused_mf_epoch.cu').is_file()
 
 
 def test_every_module_imports_with_jax_and_collie_tpu_blocked():
@@ -36,7 +49,7 @@ def test_every_module_imports_with_jax_and_collie_tpu_blocked():
                for p in PACKAGE.rglob('*.py')]
     script = (
         'import sys, importlib\n'
-        "for name in ('jax', 'jaxlib', 'collie_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'optax', 'collie_tpu'):\n"
         '    sys.modules[name] = None\n'
         f'for name in {sorted(modules) + ["chip_smoke"]!r}:\n'
         '    importlib.import_module(name)\n'
