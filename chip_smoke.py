@@ -16,8 +16,13 @@ non-zero before the result line:
    ``fused_mf_epoch`` against its plain version at edge shapes (every loss
    kind, metadata, weight decay, K=1, duplicate ids, B not a power of two)
    and at the ML-10M training shape after 3 steps and after one full
-   epoch of the engine's real batches; times for each kernel, its plain
-   version and (where one exists) one library call of the same function;
+   epoch of the engine's real batches; ``fused_mf_explicit_epoch`` against
+   its plain version at edge shapes (MSE and MAE, ``y_range``, weight decay,
+   duplicate ids, a masked pad tail, B = 1, D up to 256) and at the explicit
+   ML-10M shape after 3 steps and after one whole epoch as one call; times
+   for each kernel, its plain version and (where one exists) one library
+   call of the same function, and for the explicit kernel the generic
+   autograd epoch (``fused=False``) beside it;
 4. serving: an MF model at the repo's serving scale (2,000,000 items,
    ``embedding_dim=64``, random weights from the seed) is built from seeded
    interactions, saved to npz and loaded back, then answers four
@@ -34,7 +39,17 @@ non-zero before the result line:
    ``embedding_dim=32``, batch 65,536) fit for 3 epochs, with examples/s,
    each epoch's time split into epoch building and kernel, peak memory, and
    a trained-beats-untrained MAP@10 check.  The fused kernel's launch
-   counter must equal the epochs the two fits ran;
+   counter must equal the epochs the two fits ran.  Explicit ratings: (c)
+   the explicit quality-gate configuration of
+   ``benchmarks/calibrate_gates.py:84-97`` (943 x 1,682 generated ratings,
+   ``embedding_dim=10``, lr 0.01, MSE, ``y_range=(1, 5)``, batch 1,024) fit
+   for 10 epochs, whose ``explicit_evaluate_in_batches`` test MSE must clear
+   ``benchmarks/gates.json``; (d) the ML-10M-scale data with its ratings
+   kept (72,000 x 10,000, 10M generated ratings, 90/5/5 split,
+   ``embedding_dim=32``, batch 65,536, MSE, ``y_range=(1, 5)``) fit for 3
+   epochs, with examples/s, the epoch split, peak memory and a
+   trained-beats-untrained test MSE check.  The explicit kernel's launch
+   counter must equal the epochs of (c) and (d);
 6. the kernels line (one JSON object), the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -79,6 +94,12 @@ ML10M_DIM = 32
 ML10M_EPOCHS = 3
 ML10M_EVAL_USERS = 5_000
 SPLIT = ('shuffle_ms', 'sample_ms', 'train_ms')     # CollieTrainer.epoch_log
+# explicit ratings: the explicit gate configuration of
+# benchmarks/calibrate_gates.py:84-97, and the ML-10M-scale data of
+# benchmarks/bench_ml10m_scale.py:59-64 with its ratings kept
+EXPLICIT_GATE_DATA = dict(num_users=943, num_items=1682, seed=42)
+EXPLICIT_LR = 1e-2
+Y_RANGE = (1, 5)
 
 # fused_mf_epoch against its plain version: tables and moments within
 # EPOCH_RTOL * |ref| + EPOCH_ATOL_SCALE * max|ref| per tensor (atomics sum
@@ -90,6 +111,19 @@ SPLIT = ('shuffle_ms', 'sample_ms', 'train_ms')     # CollieTrainer.epoch_log
 EPOCH_RTOL = 1e-4
 EPOCH_ATOL_SCALE = 1e-5
 MAX_FLIPPED_FRACTION = 1e-3
+# fused_mf_explicit_epoch at the explicit ML-10M shape: a popular item's row
+# sums ~7 examples a step with atomics in run-dependent order, and its
+# near-zero elements carry that (in-tolerance) absolute difference as a large
+# relative one into the gradients of the users who rated it; where such a
+# gradient is near Adam's eps (1e-8) the step direction amplifies it.  Two
+# runs of the kernel differ by as much as kernel and plain version do, so
+# over several steps at most EXPLICIT_DRIFT_FRACTION of each tensor's
+# elements may fall outside the tolerance; one step from the same state
+# must hold exactly.
+EXPLICIT_DRIFT_FRACTION = 1e-4
+IMPLICIT_STATE = ['user_emb', 'item_emb', 'item_bias', 'mu_u', 'nu_u', 'mu_i', 'nu_i']
+EXPLICIT_STATE = ['user_emb', 'item_emb', 'user_bias', 'item_bias', 'mu_u', 'nu_u', 'mu_i',
+                  'nu_i']
 # (loss_kind, adaptive, K, B, D, metadata fields, weight decay, duplicate ids)
 EPOCH_EDGES = [
     ('hinge', False, 1, 7, 10, 0, 0.0, False),
@@ -101,10 +135,34 @@ EPOCH_EDGES = [
     ('warp', False, 6, 61, 8, 2, 1e-3, True),
     ('bpr', False, 1, 1, 256, 1, 0.0, False),
 ]
+# (loss_kind, y_range, B, D, weight decay, duplicate ids, masked pad tail)
+EXPLICIT_EDGES = [
+    ('mse', None, 7, 10, 0.0, False, False),
+    ('mae', None, 100, 33, 0.0, False, False),
+    ('mse', Y_RANGE, 37, 64, 1e-3, True, False),
+    ('mae', Y_RANGE, 61, 8, 0.0, True, False),
+    ('mse', None, 1, 256, 0.0, False, False),
+    ('mse', Y_RANGE, 100, 32, 0.0, False, True),
+]
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, each with its ``launches`` count."""
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_epoch,
+                                                             fused_mf_explicit_epoch)
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import mf_topk_retrieve
+
+    return mf_topk_retrieve, fused_mf_epoch, fused_mf_explicit_epoch
+
+
+def reset_launch_counts():
+    """Zero every kernel's launch count, just before a path is driven."""
+    for wrapper in kernel_wrappers():
+        wrapper.launches = 0
 
 
 def nvidia_smi() -> str:
@@ -315,12 +373,14 @@ def epoch_inputs(seed, U=37, I=53, D=10, S=3, B=7, K=1, F=0, dup=False):
     return tensors, meta
 
 
-def compare_epoch(label, out, ref, max_flipped=0.0, quiet=False):
-    """Hold ``fused_mf_epoch``'s outputs to the plain version's; returns the
-    max abs error over tables and moments."""
-    names = ['user_emb', 'item_emb', 'item_bias', 'mu_u', 'nu_u', 'mu_i', 'nu_i']
+def compare_epoch(label, out, ref, max_flipped=0.0, quiet=False, names=IMPLICIT_STATE):
+    """Hold a fused epoch's outputs ``(*state, count, losses)`` to the plain
+    version's; ``names`` names the state tensors (``IMPLICIT_STATE`` for
+    ``fused_mf_epoch``, ``EXPLICIT_STATE`` for ``fused_mf_explicit_epoch``).
+    Returns the max abs error over the state."""
+    n = len(names)
     max_err, report = 0.0, []
-    for name, a, b in zip(names, out[:7], ref[:7]):
+    for name, a, b in zip(names, out[:n], ref[:n]):
         diff = (a - b).abs()
         tol = EPOCH_RTOL * b.abs() + EPOCH_ATOL_SCALE * b.abs().max()
         if not torch.isfinite(a).all():
@@ -331,11 +391,11 @@ def compare_epoch(label, out, ref, max_flipped=0.0, quiet=False):
                                  f'of elements (max abs {float(diff.max()):.3g})')
         max_err = max(max_err, float(diff.max()))
         report.append(f'{name} {flipped:.2e}')
-    if int(out[7]) != int(ref[7]):
-        raise AssertionError(f'{label}: count {int(out[7])} vs {int(ref[7])}')
-    if not torch.allclose(out[8], ref[8], rtol=EPOCH_RTOL, atol=1e-7):
-        raise AssertionError(f'{label}: per-step losses differ: {out[8][:5].tolist()} vs '
-                             f'{ref[8][:5].tolist()}')
+    if int(out[n]) != int(ref[n]):
+        raise AssertionError(f'{label}: count {int(out[n])} vs {int(ref[n])}')
+    if not torch.allclose(out[n + 1], ref[n + 1], rtol=EPOCH_RTOL, atol=1e-7):
+        raise AssertionError(f'{label}: per-step losses differ: {out[n + 1][:5].tolist()} vs '
+                             f'{ref[n + 1][:5].tolist()}')
     if not quiet:
         log(f'  {label}: max_abs_err={max_err:.3g}; share of elements beyond tolerance: '
             + ', '.join(report))
@@ -344,18 +404,35 @@ def compare_epoch(label, out, ref, max_flipped=0.0, quiet=False):
 
 def ml10m_data():
     """The ML-10M-scale configuration's data, as bench_ml10m_scale.py builds
-    it: generated interactions, then a 90/5/5 stratified split."""
-    from collie_tpu_torch.data import stratified_split
-    from collie_tpu_torch.data.synthetic import generate_implicit_interactions
+    it: generated ratings, converted to implicit interactions as
+    ``generate_implicit_interactions`` does (``'implicit'``) and kept as
+    ratings (``'explicit'``), each split 90/5/5.  The ratings are generated
+    once for both."""
+    from collie_tpu_torch.data import ExplicitInteractions, Interactions, stratified_split
+    from collie_tpu_torch.data.synthetic import generate_interactions_df
+    from collie_tpu_torch.utils import convert_to_implicit
 
     start = time.perf_counter()
-    inter = generate_implicit_interactions(**ML10M_DATA)
-    train, val, test = stratified_split(inter, val_p=0.05, test_p=0.05, seed=7,
-                                        force_split=True)
-    log(f'ML-10M-scale data: {train.num_interactions} train / {val.num_interactions} val / '
-        f'{test.num_interactions} test interactions, {train.num_users} users x '
-        f'{train.num_items} items ({time.perf_counter() - start:.1f}s on the host)')
-    return train, val, test
+    df = generate_interactions_df(**{k: v for k, v in ML10M_DATA.items()
+                                     if k != 'num_negative_samples'})
+    shape = dict(num_users=ML10M_DATA['num_users'], num_items=ML10M_DATA['num_items'],
+                 allow_missing_ids=True)
+    kept = convert_to_implicit(df)
+    implicit = Interactions(users=kept['user_id'].values, items=kept['item_id'].values,
+                            ratings=kept['rating'].values,
+                            num_negative_samples=ML10M_DATA['num_negative_samples'],
+                            seed=ML10M_DATA['seed'], **shape)
+    explicit = ExplicitInteractions(users=df['user_id'].values, items=df['item_id'].values,
+                                    ratings=df['rating'].values, **shape)
+    splits = {}
+    for name, inter in (('implicit', implicit), ('explicit', explicit)):
+        train, val, test = splits[name] = stratified_split(inter, val_p=0.05, test_p=0.05,
+                                                           seed=7, force_split=True)
+        log(f'ML-10M-scale {name} data: {train.num_interactions} train / '
+            f'{val.num_interactions} val / {test.num_interactions} test interactions, '
+            f'{train.num_users} users x {train.num_items} items')
+    log(f'ML-10M-scale data built in {time.perf_counter() - start:.1f}s on the host')
+    return splits
 
 
 def ml10m_model(train):
@@ -485,6 +562,194 @@ def phase_kernel_fused_epoch(ml10m):
     }
 
 
+def explicit_epoch_inputs(seed, U=37, I=53, D=10, S=3, B=7, dup=False, tail=False):
+    """Tables, biases, moments and rating batches of
+    ``fused_mf_explicit_epoch`` on the card, from a numpy seed; ``tail``
+    masks the second half of the last step, whose ids repeat its first."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=0.1):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    users = rng.integers(0, U, (S, B)).astype(np.int32)
+    items = rng.integers(0, I, (S, B)).astype(np.int32)
+    if dup:
+        users[:, :(B + 1) // 2] = users[:, :1]
+        items[:, :(B + 1) // 2] = items[:, :1]
+    ratings = rng.integers(1, 6, (S, B)).astype(np.float32)
+    mask = np.ones((S, B), np.float32)
+    if tail:
+        users[-1, B // 2:] = users[-1, 0]
+        items[-1, B // 2:] = items[-1, 0]
+        mask[-1, B // 2:] = 0.0
+    arrays = [f(U, D), f(I, D), f(U), f(I), f(U, D, scale=1e-3), np.abs(f(U, D, scale=1e-4)),
+              f(I, D, scale=1e-3), np.abs(f(I, D, scale=1e-4))]
+    tensors = [torch.from_numpy(a).to(DEVICE) for a in arrays]
+    tensors.append(torch.tensor(5, dtype=torch.int32, device=DEVICE))
+    tensors += [torch.from_numpy(a).to(DEVICE) for a in (users, items, ratings, mask)]
+    return tensors + [0.05, 0.01]
+
+
+def ml10m_explicit_model(train, seed=7):
+    from collie_tpu_torch import InteractionsDataLoader, MatrixFactorizationModel
+
+    loader = InteractionsDataLoader(interactions=train, batch_size=ML10M_BATCH, shuffle=True,
+                                    seed=7)
+    return MatrixFactorizationModel(train=loader, embedding_dim=ML10M_DIM, lr=EXPLICIT_LR,
+                                    loss='mse', y_range=Y_RANGE, seed=seed)
+
+
+def phase_kernel_explicit_epoch(ml10m_explicit):
+    """fused_mf_explicit_epoch against its plain version, and its epoch
+    against the generic autograd epoch; returns the kernel's record."""
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_explicit_epoch,
+                                                             fused_mf_explicit_epoch_plain)
+    from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns
+
+    log(f'kernel fused_mf_explicit_epoch vs plain (rtol={EPOCH_RTOL}, atol={EPOCH_ATOL_SCALE} '
+        f'x max|ref|)')
+    reset_launch_counts()
+    calls = 0
+    max_err = 0.0
+    for loss_kind, y_range, B, D, wd, dup, tail in EXPLICIT_EDGES:
+        args = explicit_epoch_inputs(B * 10 + D, D=D, B=B, dup=dup, tail=tail)
+        kw = dict(loss_kind=loss_kind, y_range=y_range, wd_emb=wd, wd_bias=wd)
+        ref = fused_mf_explicit_epoch_plain(*args, **kw)
+        out = fused_mf_explicit_epoch(*[a.clone() if torch.is_tensor(a) else a for a in args],
+                                      **kw)
+        calls += 1
+        torch.cuda.synchronize()
+        label = f'{loss_kind} y_range={y_range} B={B} D={D} wd={wd} dup={dup} tail={tail}'
+        max_err = max(max_err, compare_epoch(label, out, ref, names=EXPLICIT_STATE))
+
+    # the explicit ML-10M shape: the engine's real first epoch, fresh Adam state
+    model = ml10m_explicit_model(ml10m_explicit[0])
+    specs = model.optimizer_specs()
+    epoch_fn, data, S, _ = build_scan_epoch_fns(model, specs, [True] * len(specs),
+                                                model.train_loader, shuffle=True)
+    batches = epoch_fn.epoch_batches(7, 1)
+    params = model.params
+    U, D = params['user_embeddings'].shape
+    I = params['item_embeddings'].shape[0]
+    B = ML10M_BATCH
+    kw = dict(loss_kind='mse', y_range=Y_RANGE)
+    names = ('user_embeddings', 'item_embeddings', 'user_biases', 'item_biases')
+
+    def state():
+        return [params[k].clone() for k in names] \
+            + [torch.zeros_like(params[k]) for k in ('user_embeddings', 'user_embeddings',
+                                                     'item_embeddings', 'item_embeddings')] \
+            + [torch.zeros((), dtype=torch.int32, device=DEVICE)]
+
+    def epoch_args(start, stop):
+        return [batches[k][start:stop] for k in ('users', 'items', 'ratings', 'mask')] \
+            + [EXPLICIT_LR, 1e-2]
+
+    shape = f'U={U} I={I} D={D} B={B}'
+    ref = fused_mf_explicit_epoch_plain(*state(), *epoch_args(0, 3), **kw)
+    out = fused_mf_explicit_epoch(*state(), *epoch_args(0, 3), **kw)
+    again = fused_mf_explicit_epoch(*state(), *epoch_args(0, 3), **kw)
+    calls += 2
+    torch.cuda.synchronize()
+    max_err = max(max_err, compare_epoch(f'explicit ML-10M shape, 3 steps, {shape}', out, ref,
+                                         max_flipped=EXPLICIT_DRIFT_FRACTION,
+                                         names=EXPLICIT_STATE))
+    compare_epoch('  the same 3 steps, kernel against a second kernel run', again, out,
+                  max_flipped=EXPLICIT_DRIFT_FRACTION, names=EXPLICIT_STATE)
+    del again
+    # one whole epoch, step by step: each kernel step starts from the plain
+    # version's state before that step and must hold the tolerance exactly
+    worst = 0.0
+    current = state()
+    plain_losses = []
+    for step in range(S):
+        ref = fused_mf_explicit_epoch_plain(*current, *epoch_args(step, step + 1), **kw)
+        out = fused_mf_explicit_epoch(*[t.clone() for t in current],
+                                      *epoch_args(step, step + 1), **kw)
+        calls += 1
+        torch.cuda.synchronize()
+        worst = max(worst, compare_epoch(f'explicit ML-10M shape, step {step}', out, ref,
+                                         quiet=True, names=EXPLICIT_STATE))
+        plain_losses.append(float(ref[9][0]))
+        current = list(ref[:9])
+        del out
+    max_err = max(max_err, worst)
+    log(f'  explicit ML-10M shape, one epoch ({S} steps) held step by step, {shape}: '
+        f'max_abs_err={worst:.3g}')
+    # the same epoch as one call: MSE makes no discrete choice, so the two
+    # trajectories part only by the drift above; the per-step losses must
+    # agree within EPOCH_RTOL
+    out = fused_mf_explicit_epoch(*state(), *epoch_args(0, S), **kw)
+    calls += 1
+    torch.cuda.synchronize()
+    kernel_losses = out[9].tolist()
+    parted = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses))
+    drift = [float(((a - b).abs() > EPOCH_RTOL * b.abs() + EPOCH_ATOL_SCALE * b.abs().max())
+                   .float().mean()) for a, b in zip(out[:8], current[:8])]
+    log(f'  explicit ML-10M shape, the same epoch as one call: per-step losses within '
+        f'{parted:.3%} of the plain trajectory (first {kernel_losses[0]:.6f} vs '
+        f'{plain_losses[0]:.6f}, last {kernel_losses[-1]:.6f} vs {plain_losses[-1]:.6f}); '
+        f'share of elements beyond tolerance: '
+        + ', '.join(f'{n} {d:.2e}' for n, d in zip(EXPLICIT_STATE, drift)))
+    if not all(np.isfinite(kernel_losses)) or parted > EPOCH_RTOL:
+        raise AssertionError(f'explicit ML-10M one-call epoch: losses part by {parted:.3%}')
+    del out, ref, current
+
+    tables = state()
+    kernel_runs = dict(warmup=1, runs=5)
+    kernel_ms = cuda_median_ms(lambda: fused_mf_explicit_epoch(*tables, *epoch_args(0, S), **kw),
+                               **kernel_runs)
+    calls += sum(kernel_runs.values())
+    plain_ms = cuda_median_ms(
+        lambda: fused_mf_explicit_epoch_plain(*state(), *epoch_args(0, S), **kw),
+        warmup=0, runs=1)
+    # the generic autograd epoch (what the JAX package's auto gate runs for
+    # explicit data): its train span, without the epoch building
+    generic_fn, generic_data, _, _ = build_scan_epoch_fns(
+        model, specs, [True] * len(specs), model.train_loader, shuffle=True, fused=False)
+    opt_states = tuple(spec.transform.init({k: params[k] for k in spec.keys})
+                       for spec in specs)
+    generic = []
+    for _ in range(3):
+        generic_fn(dict(params), opt_states, generic_data, 7, 1)
+        generic.append(generic_fn.split_ms()['train_ms'])
+    generic_ms = statistics.median(generic[1:])
+    if fused_mf_explicit_epoch.launches != calls or generic_fn.fused:
+        raise AssertionError(f'{fused_mf_explicit_epoch.launches} explicit kernel launches for '
+                             f'{calls} calls; the fused=False epoch launched the kernel')
+    # least traffic per step: the dense update streams both tables, both
+    # moments and the accumulators (read + write: 32 (U + I) D bytes), both
+    # bias vectors and their gradients (16 (U + I)), and the step's ids,
+    # ratings and mask (16 B)
+    nbytes = S * (32.0 * (U + I) * D + 16.0 * (U + I) + 16.0 * B)
+    ops = S * 8.0 * B * D
+    ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f'  explicit ML-10M epoch ({S} steps): kernel_ms={kernel_ms:.4f} '
+        f'plain_ms={plain_ms:.4f} generic_ms={generic_ms:.4f} (fused=False, train span; runs '
+        f'{[round(t, 3) for t in generic]}) bound_ms={bound_ms:.4f} (operations '
+        f'{ops_ms:.4f}, bytes {bytes_ms:.4f}); library_ms=null: no single PyTorch call '
+        f'computes an epoch of MF training with Adam')
+    del tables, batches, epoch_fn, generic_fn, data, generic_data, model, opt_states
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {
+        'name': 'fused_mf_explicit_epoch',
+        'route': 'cuda',
+        'source': 'collie_tpu_torch/csrc/fused_mf_epoch.cu',
+        'replaces': 'collie_tpu/ops/pallas/fused_mf_epoch.py:337',
+        'launches': 0,
+        'max_abs_err': max_err,
+        'ms': kernel_ms,
+        'plain_ms': plain_ms,
+        'bound_ms': bound_ms,
+        'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
+        'library_ms': None,
+        'generic_epoch_ms': generic_ms,
+        'checked': True,
+    }
+
+
 def phase_training(ml10m, record: dict):
     """The training path: the gate configuration for 10 epochs, then the
     ML-10M-scale configuration for 3, both through ``CollieTrainer``."""
@@ -503,7 +768,7 @@ def phase_training(ml10m, record: dict):
     loader = InteractionsDataLoader(interactions=train, batch_size=1024, shuffle=True, seed=42)
     model = MatrixFactorizationModel(train=loader, embedding_dim=10, lr=1e-1, loss='adaptive',
                                      seed=42)
-    fused_mf_epoch.launches = 0
+    reset_launch_counts()
     trainer = CollieTrainer(model, max_epochs=GATE_EPOCHS, verbosity=0, seed=42)
     trainer.fit(model)
     torch.cuda.synchronize()
@@ -568,6 +833,90 @@ def phase_training(ml10m, record: dict):
         raise AssertionError(f'metrics out of range: {map_k}, {mrr_v}, {auc_v}')
     if not map_k > untrained_map:
         raise AssertionError(f'trained MAP@{K} {map_k} does not beat untrained {untrained_map}')
+    record['launches'] = launches
+
+
+def phase_explicit_training(ml10m_explicit, record: dict):
+    """The explicit training path: (c) the explicit gate configuration for
+    10 epochs, (d) the explicit ML-10M-scale configuration for 3, both
+    through ``CollieTrainer`` and ``explicit_evaluate_in_batches``."""
+    from collie_tpu_torch import (CollieTrainer, ExplicitInteractions,
+                                  MatrixFactorizationModel, explicit_evaluate_in_batches,
+                                  stratified_split)
+    from collie_tpu_torch.data.synthetic import generate_interactions_df
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_explicit_epoch
+
+    with open(os.path.join('benchmarks', 'gates.json')) as f:
+        mse_gate = json.load(f)['mse']['gate']
+
+    def report(label, trainer, examples):
+        log(f'{label} fit ({examples} train ratings, {trainer.num_epochs_completed} epochs): '
+            f'{trainer.last_fit_examples_per_sec:,.0f} examples/s')
+        for e in trainer.epoch_log:
+            host_ms = e['seconds'] * 1e3 - sum(e[k] for k in SPLIT)
+            log(f'  epoch {e["epoch"]}: {e["seconds"] * 1e3:.3f} ms = shuffle '
+                f'{e["shuffle_ms"]:.3f} + batch gather {e["sample_ms"]:.3f} + kernel '
+                f'{e["train_ms"]:.3f} + host {host_ms:.3f}')
+
+    # (c) the explicit quality-gate configuration
+    df = generate_interactions_df(seed=EXPLICIT_GATE_DATA['seed'])
+    ratings = ExplicitInteractions(users=df['user_id'].values, items=df['item_id'].values,
+                                   ratings=df['rating'].values, allow_missing_ids=True,
+                                   num_users=EXPLICIT_GATE_DATA['num_users'],
+                                   num_items=EXPLICIT_GATE_DATA['num_items'])
+    train, test = stratified_split(ratings, test_p=0.2, seed=42, force_split=True)
+    model = MatrixFactorizationModel(train=train, embedding_dim=10, lr=EXPLICIT_LR, loss='mse',
+                                     y_range=Y_RANGE, seed=0)
+    reset_launch_counts()
+    trainer = CollieTrainer(model, max_epochs=GATE_EPOCHS, verbosity=0, seed=0)
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    epochs = trainer.num_epochs_completed
+    if fused_mf_explicit_epoch.launches != epochs or epochs != GATE_EPOCHS:
+        raise AssertionError(f'explicit gate fit: {fused_mf_explicit_epoch.launches} kernel '
+                             f'launches for {epochs} epochs')
+    mse, mae = explicit_evaluate_in_batches(['mse', 'mae'], test, model, verbose=False)
+    report('explicit gate config', trainer, train.num_interactions)
+    stars = model([0] * 5, list(range(5)))
+    log(f'  test MSE={mse:.5f} MAE={mae:.5f} (gate: MSE < {mse_gate:.5f}); predicted stars '
+        f'for user 0, items 0-4: {[round(float(v), 3) for v in stars]}; '
+        f'fused_mf_explicit_epoch launches {fused_mf_explicit_epoch.launches}')
+    if not mse < mse_gate:
+        raise AssertionError(f'explicit gate config: test MSE {mse} does not clear {mse_gate}')
+    if not (np.all(np.isfinite(stars)) and np.all((stars >= Y_RANGE[0]) & (stars <= Y_RANGE[1]))):
+        raise AssertionError(f'predicted stars outside y_range: {stars}')
+    del model, trainer
+
+    # (d) the explicit ML-10M-scale configuration
+    train, _, test = ml10m_explicit
+    model = ml10m_explicit_model(train)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = CollieTrainer(model, max_epochs=ML10M_EPOCHS, verbosity=0, seed=7)
+    start = time.perf_counter()
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - start
+    epochs += trainer.num_epochs_completed
+    launches = fused_mf_explicit_epoch.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != epochs or trainer.num_epochs_completed != ML10M_EPOCHS:
+        raise AssertionError(f'{launches} explicit kernel launches for {epochs} epochs')
+    report(f'explicit ML-10M-scale (batch {ML10M_BATCH})', trainer, train.num_interactions)
+    log(f'  fit {fit_s:.2f}s incl. epoch-data build; peak device memory {peak_gb:.3f} GB')
+    eval_kw = dict(batch_size=ML10M_BATCH, verbose=False)
+    start = time.perf_counter()
+    mse, mae = explicit_evaluate_in_batches(['mse', 'mae'], test, model, **eval_kw)
+    eval_s = time.perf_counter() - start
+    untrained = ml10m_explicit_model(train, seed=99)
+    untrained_mse = explicit_evaluate_in_batches(['mse'], test, untrained, **eval_kw)
+    torch.cuda.synchronize()
+    log(f'  {test.num_interactions} test ratings: MSE={mse:.5f} MAE={mae:.5f} in {eval_s:.2f}s '
+        f'(untrained MSE={untrained_mse:.5f}); fused_mf_explicit_epoch launches over both '
+        f'fits {launches} for {epochs} epochs')
+    if not all(np.isfinite(v) for v in (mse, mae)):
+        raise AssertionError(f'explicit metrics not finite: {mse}, {mae}')
+    if not mse < untrained_mse:
+        raise AssertionError(f'trained MSE {mse} is not below untrained {untrained_mse}')
     record['launches'] = launches
 
 
@@ -642,7 +991,7 @@ def phase_serving(seed: int, record: dict):
     rng = np.random.default_rng(seed + 1)
     seen_csr = train.mat.tocsr()
     torch.cuda.reset_peak_memory_stats()
-    mf_topk_retrieve.launches = 0
+    reset_launch_counts()
     timings = {False: [], True: []}
     requests = [(False, rng.choice(NUM_USERS, REQUEST_USERS, replace=False)) for _ in range(4)]
     requests += [(True, rng.choice(NUM_USERS, REQUEST_USERS, replace=False)) for _ in range(2)]
@@ -715,12 +1064,14 @@ def main(argv=None):
     phase_build()
     topk = phase_kernels()
     ml10m = ml10m_data()
-    fused = phase_kernel_fused_epoch(ml10m)
+    fused = phase_kernel_fused_epoch(ml10m['implicit'])
+    explicit = phase_kernel_explicit_epoch(ml10m['explicit'])
     phase_serving(args.seed, topk)
-    phase_training(ml10m, fused)
+    phase_training(ml10m['implicit'], fused)
+    phase_explicit_training(ml10m['explicit'], explicit)
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
-    print(json.dumps({'kernels': [topk, fused]}))
+    print(json.dumps({'kernels': [topk, fused, explicit]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

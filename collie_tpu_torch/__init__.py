@@ -6,9 +6,10 @@ the same hyperparameters, flat param names and npz model format.  It runs on
 a CUDA device unless the caller asks for the CPU (``map_location='cpu'``),
 and its kernels are hand-written CUDA (``csrc/``).  Ported so far: the
 serving path of ``MatrixFactorizationModel`` (data, model construction and
-npz load, ``recommend``, ``evaluate_in_batches``) and its training path
-(``CollieTrainer.fit`` on in-memory implicit loaders, through the fused
-epoch kernel on the card).
+npz load, ``recommend``, ``evaluate_in_batches``) and its training paths
+(``CollieTrainer.fit`` on in-memory implicit loaders and on explicit ratings
+with MSE/MAE and ``y_range``, through the fused epoch kernels on the card;
+``explicit_evaluate_in_batches``).
 
 Everything is re-exported flat from this module.
 """
@@ -23,7 +24,8 @@ from collie_tpu_torch.data import (BaseInteractions,
                                    NegativeSampler,
                                    random_split,
                                    stratified_split)
-from collie_tpu_torch.evaluate import evaluate_in_batches, get_preds
+from collie_tpu_torch.evaluate import (evaluate_in_batches, explicit_evaluate_in_batches,
+                                      get_preds)
 from collie_tpu_torch.models import BasePipeline, MatrixFactorizationModel
 from collie_tpu_torch.ops import auc, mapk, mrr
 from collie_tpu_torch.retrieval import build_retrieval_fn, recommend
@@ -40,6 +42,7 @@ __all__ = [
     'BasePipeline', 'CollieMinimalTrainer', 'CollieTrainer', 'ExplicitInteractions', 'Interactions', 'InteractionsDataLoader',
     'MatrixFactorizationModel', 'NegativeSampler', 'ReduceLROnPlateau', 'StepLR',
     'auc', 'build_retrieval_fn', 'convert_to_implicit', 'evaluate_in_batches',
+    'explicit_evaluate_in_batches',
     'get_init_arguments', 'get_preds', 'get_random_seed', 'mapk',
     'merge_docstrings', 'mrr', 'optimizer_state_from_jax', 'params_from_jax', 'random_split', 'recommend',
     'stratified_split',

@@ -1,17 +1,19 @@
-"""Batched full-catalog evaluation.
+"""Batched evaluation: full-catalog ranking metrics and explicit errors.
 
 Port of ``collie_tpu/evaluate.py`` (single device; the mesh tier is not
-ported yet).  Per user block the device work is one ``score_all_items``
-matmul followed by the rank-count metrics; the host only slices CSR target
-rows.  The JAX version scans the user blocks inside one jitted program; here
-the scan is a Python loop over the same blocks.
+ported yet).  ``evaluate_in_batches``: per user block the device work is one
+``score_all_items`` matmul followed by the rank-count metrics; the host only
+slices CSR target rows.  The JAX version scans the user blocks inside one
+jitted program; here the scan is a Python loop over the same blocks.
+``explicit_evaluate_in_batches``: rating errors summed on the device over the
+test loader's batches, read once at the end.
 """
 from typing import Any, Callable, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
 
-from collie_tpu_torch.data import Interactions
+from collie_tpu_torch.data import ExplicitInteractions, Interactions, InteractionsDataLoader
 from collie_tpu_torch.ops import metrics as metrics_lib
 
 # cap on the [block, num_items] score block the fused evaluator holds
@@ -105,6 +107,95 @@ def _fused_evaluate(metric_list, test_users, targets, model, k: int,
             totals += per_user.sum(dim=1)
     totals = totals.cpu().numpy()
     return [float(totals[metric_row[m]]) / U for m in metric_list]
+
+
+def explicit_evaluate_in_batches(
+    metric_list: Iterable[Union[str, Callable]],
+    test_interactions: ExplicitInteractions,
+    model,
+    logger: Optional[Any] = None,
+    verbose: bool = True,
+    **kwargs,
+) -> Union[float, List[float]]:
+    """Explicit evaluation (reference ``metrics.py:398-502``).
+
+    Scores the valid rows of each batch of an ``InteractionsDataLoader``
+    over ``test_interactions`` (``kwargs`` go to the loader).  Accepted
+    metrics:
+
+    * the strings ``'mse'`` / ``'mae'``: squared and absolute errors summed
+      on the device, read once after the last batch;
+    * stateful metric objects with the torchmetrics protocol:
+      ``update(preds, ratings)`` per batch with tensors on the model's
+      device, ``compute()`` at the end, and (if present) ``reset()`` always
+      called in a ``finally``;
+    * plain callables ``(preds, ratings) -> float``: they get numpy arrays of
+      every prediction and rating, gathered from the device once at the end.
+    """
+    if not isinstance(test_interactions, ExplicitInteractions):
+        raise ValueError(
+            '``test_interactions`` must be of type ``ExplicitInteractions``, not '
+            f'{type(test_interactions)}. Try using ``evaluate_in_batches`` instead.'
+        )
+
+    def _is_stateful(metric):
+        return hasattr(metric, 'update') and hasattr(metric, 'compute')
+
+    loader = InteractionsDataLoader(interactions=test_interactions, **kwargs)
+    device = model.device
+    params = model.params
+    error_sums = torch.zeros(2, dtype=torch.float64, device=device)   # squared, absolute
+    count = 0
+    custom_preds: List[torch.Tensor] = []
+    custom_ratings: List[torch.Tensor] = []
+    needs_raw = any(callable(m) and not _is_stateful(m) for m in metric_list)
+    stateful = [m for m in metric_list if _is_stateful(m)]
+
+    try:
+        with torch.no_grad():
+            for batch in loader:
+                # the pad rows are masked on the host: no device-side select
+                valid = batch['mask'].astype(bool)
+                preds = model.score(params, model._ids(batch['users'][valid]),
+                                    model._ids(batch['items'][valid]))
+                ratings = torch.as_tensor(batch['ratings'][valid], device=device)
+                err = preds - ratings
+                error_sums += torch.stack([err.square().sum(dtype=torch.float64),
+                                           err.abs().sum(dtype=torch.float64)])
+                count += len(ratings)
+                for metric in stateful:
+                    metric.update(preds, ratings)
+                if needs_raw:
+                    custom_preds.append(preds)
+                    custom_ratings.append(ratings)
+        sq_sum, abs_sum = error_sums.tolist()
+        if needs_raw:
+            raw_preds = torch.cat(custom_preds).cpu().numpy()
+            raw_ratings = torch.cat(custom_ratings).cpu().numpy()
+
+        all_scores = []
+        for metric in metric_list:
+            if metric == 'mse':
+                all_scores.append(sq_sum / count)
+            elif metric == 'mae':
+                all_scores.append(abs_sum / count)
+            elif _is_stateful(metric):
+                all_scores.append(float(metric.compute()))
+            elif callable(metric):
+                all_scores.append(float(metric(raw_preds, raw_ratings)))
+            else:
+                raise ValueError(f'Unrecognized explicit metric: {metric!r}')
+    finally:
+        for metric in stateful:
+            reset = getattr(metric, 'reset', None)
+            if callable(reset):
+                reset()
+
+    if logger is not None:
+        _log_metrics(model=model, logger=logger, metric_list=metric_list,
+                     all_scores=all_scores, verbose=verbose)
+
+    return all_scores[0] if len(all_scores) == 1 else all_scores
 
 
 def _log_metrics(model, logger, metric_list, all_scores, verbose: bool) -> None:

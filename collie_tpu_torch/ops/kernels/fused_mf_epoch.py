@@ -1,26 +1,34 @@
-"""One epoch of implicit MF training: the fused kernel and its plain twin.
+"""One epoch of MF training, implicit or explicit: the fused kernels and
+their plain twins.
 
-Port of ``collie_tpu/ops/pallas/fused_mf_epoch.py``.  The Pallas TPU kernel
-``_epoch_kernel`` (``:148``, launched by ``fused_mf_epoch`` at ``:563``)
-becomes the hand-written CUDA kernel in
-``collie_tpu_torch/csrc/fused_mf_epoch.cu`` (see its header for the design
-and the bound).  Per step of the epoch: scores of the positive and the K
-negatives, the hinge / BPR / adaptive / WARP loss with optional
-partial-credit metadata, the composite reduction, gradients, then dense
-optax-exact Adam on both embedding tables and SGD on the item bias, with
-torch-coupled weight decay.
+Port of ``collie_tpu/ops/pallas/fused_mf_epoch.py``.  Both Pallas TPU
+kernels become hand-written CUDA kernels in
+``collie_tpu_torch/csrc/fused_mf_epoch.cu`` (see its header for the designs
+and the bounds):
 
-``fused_mf_epoch`` has the JAX signature and return order.  It launches the
-kernel for CUDA tensors and raises on anything it does not take; it runs
-``fused_mf_epoch_plain`` only for tensors that lie on the CPU.  On CUDA it
-updates the tables and moments IN PLACE (the JAX call aliases them,
-``:662-663``) and returns those same tensors.  ``fused_mf_epoch.launches``
-counts kernel launches (one per epoch call).
+* ``_epoch_kernel`` (``:148``, launched by ``fused_mf_epoch`` at ``:563``),
+  implicit data.  Per step: scores of the positive and the K negatives, the
+  hinge / BPR / adaptive / WARP loss with optional partial-credit metadata,
+  the composite reduction, gradients, then dense optax-exact Adam on both
+  embedding tables and SGD on the item bias, with torch-coupled weight decay.
+* ``_explicit_epoch_kernel`` (``:337``, launched by
+  ``fused_mf_explicit_epoch`` at ``:501``), explicit ratings.  Per step:
+  ``u . i + b_u + b_i`` with the optional ``y_range`` sigmoid, the MSE or MAE
+  weighted mean, gradients to both tables and both biases, then Adam on the
+  tables and SGD on both bias vectors.
 
-``fused_mf_epoch_plain`` is the same function as a Python loop over steps:
-scores and losses through ``collie_tpu_torch.ops.losses`` under autograd, and
-the hand-written optax update of ``collie_tpu_torch.training.optimizers`` —
-independent of the kernel's closed-form gradients.  It returns new tensors.
+``fused_mf_epoch`` and ``fused_mf_explicit_epoch`` have the JAX signatures
+and return orders.  Each launches its kernel for CUDA tensors and raises on
+anything it does not take; it runs its ``*_plain`` version only for tensors
+that lie on the CPU.  On CUDA they update the tables, biases and moments IN
+PLACE (the JAX calls alias them) and return those same tensors.
+``<wrapper>.launches`` counts kernel launches (one per epoch call).
+
+The plain versions are the same functions as Python loops over steps: the
+forward pass and the loss through ``collie_tpu_torch.ops.losses`` under
+autograd, and the hand-written optax update of
+``collie_tpu_torch.training.optimizers`` (``_optax_step``, shared by both) —
+independent of the kernels' closed-form gradients.  They return new tensors.
 """
 import ctypes
 from typing import Optional, Sequence, Tuple
@@ -36,6 +44,7 @@ SOURCE = 'fused_mf_epoch.cu'
 #: the kernel holds an embedding row in at most 8 floats per lane of a warp
 MAX_DIM = 256
 LOSS_KINDS = {'hinge': 0, 'bpr': 1, 'warp': 2}
+EXPLICIT_LOSS_KINDS = {'mse': 0, 'mae': 1}
 
 
 def _check_inputs(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count,
@@ -89,6 +98,26 @@ def _select_loss(loss_kind: str, adaptive: bool):
     return L.adaptive_bpr_loss if adaptive else L.bpr_loss
 
 
+def _optax_step(tables, biases, t, lr_emb: float, lr_bias: float, wd_emb: float,
+                wd_bias: float) -> None:
+    """One optimizer step in place, the plain versions' one copy of the
+    update: optax Adam (step count ``t``) with torch-coupled decay on each
+    ``(table, mu, nu, grad)``, sgd with coupled decay on each ``(bias, grad)``."""
+    with torch.no_grad():
+        bc1, bc2 = adam_bias_corrections(t)
+        for emb, mu, nu, g in tables:
+            if wd_emb:
+                g = g + wd_emb * emb
+            new_mu, new_nu = adam_moments(g, mu, nu)
+            mu.copy_(new_mu)
+            nu.copy_(new_nu)
+            emb.add_(adam_direction(new_mu, new_nu, bc1, bc2) * (-lr_emb))
+        for bias, g in biases:
+            if wd_bias:
+                g = g + wd_bias * bias
+            bias.add_(g * (-lr_bias))
+
+
 def fused_mf_epoch_plain(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count,
                          users, pos, negs, mask, lr_emb, lr_bias,
                          meta_rows: Optional[torch.Tensor] = None, *,
@@ -127,18 +156,8 @@ def fused_mf_epoch_plain(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, 
                        sample_weights=mask[s])
         g_u, g_i, g_b = torch.autograd.grad(loss, (ue_g, ie_g, ib_g))
         losses[s] = loss.detach()
-        with torch.no_grad():
-            bc1, bc2 = adam_bias_corrections(count + 1 + s)
-            for emb, mu, nu, g in ((ue, mu_u, nu_u, g_u), (ie, mu_i, nu_i, g_i)):
-                if wd_emb:
-                    g = g + wd_emb * emb
-                new_mu, new_nu = adam_moments(g, mu, nu)
-                mu.copy_(new_mu)
-                nu.copy_(new_nu)
-                emb.add_(adam_direction(new_mu, new_nu, bc1, bc2) * (-lr_emb))
-            if wd_bias:
-                g_b = g_b + wd_bias * ib
-            ib.add_(g_b * (-lr_bias))
+        _optax_step(((ue, mu_u, nu_u, g_u), (ie, mu_i, nu_i, g_i)), ((ib, g_b),),
+                    count + 1 + s, lr_emb, lr_bias, wd_emb, wd_bias)
     return ue, ie, ib, mu_u, nu_u, mu_i, nu_i, count + S, losses
 
 
@@ -149,18 +168,21 @@ def _library() -> ctypes.CDLL:
     lib.collie_fused_mf_epoch.argtypes = (
         [p] * 7 + [p] * 4 + [p, p, i] + [p] * 3 + [p] * 4 + [i] * 8 + [f] * 4 + [p])
     lib.collie_fused_mf_epoch.restype = i
+    lib.collie_fused_mf_explicit_epoch.argtypes = [p] * 20 + [i] * 7 + [f] * 6 + [p]
+    lib.collie_fused_mf_explicit_epoch.restype = i
     lib.collie_fused_mf_epoch_max_dim.argtypes = []
     lib.collie_fused_mf_epoch_max_dim.restype = i
+    if lib.collie_fused_mf_epoch_max_dim() != MAX_DIM:
+        raise RuntimeError('csrc/fused_mf_epoch.cu and its wrapper disagree on MAX_DIM')
     return lib
 
 
-def _check_id_ranges(users, pos, negs, U: int, I: int) -> None:
+def _check_id_ranges(name: str, U: int, I: int, users, *items) -> None:
     """One device-to-host read: every id inside its table."""
-    bad = torch.stack([(users < 0).any(), (users >= U).any(),
-                       (pos < 0).any(), (pos >= I).any(),
-                       (negs < 0).any(), (negs >= I).any()])
+    bad = torch.stack([(users < 0).any(), (users >= U).any()]
+                      + [b for t in items for b in ((t < 0).any(), (t >= I).any())])
     if bool(bad.any()):
-        raise ValueError(f'fused_mf_epoch: ids out of range (users in [0, {U}), '
+        raise ValueError(f'{name}: ids out of range (users in [0, {U}), '
                          f'items in [0, {I}))')
 
 
@@ -183,10 +205,8 @@ def fused_mf_epoch_cuda(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, c
                          'takes them contiguous')
     if not 1 <= D <= MAX_DIM:
         raise ValueError(f'the kernel supports 1 <= embedding_dim <= {MAX_DIM}, got {D}')
-    _check_id_ranges(users, pos, negs, U, I)
+    _check_id_ranges('fused_mf_epoch', U, I, users, pos, negs)
     lib = _library()
-    if lib.collie_fused_mf_epoch_max_dim() != MAX_DIM:
-        raise RuntimeError('csrc/fused_mf_epoch.cu and its wrapper disagree on MAX_DIM')
     device = users.device
     users, pos, negs, mask = (t.contiguous() for t in (users, pos, negs, mask))
     count = torch.as_tensor(count, device=device).to(torch.int32).reshape(())
@@ -250,3 +270,163 @@ def fused_mf_epoch(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count,
 
 
 fused_mf_epoch.launches = 0
+
+
+# ------------------------------------------------------------------ explicit
+
+
+def _check_explicit_inputs(user_emb, item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i,
+                           count, users, items, ratings, mask, loss_kind, y_range):
+    floats = (user_emb, item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i, ratings, mask)
+    ints = (users, items)
+    devices = {t.device for t in floats + ints}
+    if len(devices) != 1:
+        raise ValueError(f'fused_mf_explicit_epoch: inputs on several devices {devices}')
+    if any(t.dtype != torch.float32 for t in floats):
+        raise TypeError('fused_mf_explicit_epoch: tables, biases, moments, ratings and mask '
+                        f'must be float32, got {[t.dtype for t in floats]}')
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError('fused_mf_explicit_epoch: users and items must be int32, got '
+                        f'{[t.dtype for t in ints]}')
+    if loss_kind not in EXPLICIT_LOSS_KINDS:
+        raise ValueError(f'loss_kind must be one of {sorted(EXPLICIT_LOSS_KINDS)}, '
+                         f'not {loss_kind!r}')
+    if y_range is not None and len(tuple(y_range)) != 2:
+        raise ValueError(f'y_range must be (min, max), not {y_range!r}')
+    if user_emb.dim() != 2 or item_emb.dim() != 2:
+        raise ValueError('user_emb and item_emb must be 2-D')
+    U, D = user_emb.shape
+    I = item_emb.shape[0]
+    if item_emb.shape[1] != D or tuple(user_bias.shape) != (U,) \
+            or tuple(item_bias.shape) != (I,):
+        raise ValueError('item_emb must be [I, D], user_bias [U] and item_bias [I]')
+    if mu_u.shape != user_emb.shape or nu_u.shape != user_emb.shape \
+            or mu_i.shape != item_emb.shape or nu_i.shape != item_emb.shape:
+        raise ValueError('moments must have their tables\' shapes')
+    if users.dim() != 2 or any(t.shape != users.shape for t in (items, ratings, mask)):
+        raise ValueError('users, items, ratings and mask must be [S, B]')
+    S, B = users.shape
+    if B < 1 or U < 1 or I < 1:
+        raise ValueError(f'empty shapes: U={U} I={I} B={B}')
+    if torch.as_tensor(count).numel() != 1:
+        raise ValueError('count must be a scalar')
+    return U, I, D, S, B
+
+
+def fused_mf_explicit_epoch_plain(user_emb, item_emb, user_bias, item_bias,
+                                  mu_u, nu_u, mu_i, nu_i, count,
+                                  users, items, ratings, mask, lr_emb, lr_bias, *,
+                                  loss_kind: str = 'mse',
+                                  y_range: Optional[Tuple[float, float]] = None,
+                                  wd_emb: float = 0.0, wd_bias: float = 0.0
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch ``fused_mf_explicit_epoch``: a loop over steps, MF's
+    score and ``mse_loss``/``mae_loss`` under autograd, the hand-written optax
+    update.  Used for CPU tensors and as the kernel's reference; returns new
+    tensors."""
+    U, I, _, S, _ = _check_explicit_inputs(user_emb, item_emb, user_bias, item_bias, mu_u,
+                                           nu_u, mu_i, nu_i, count, users, items, ratings,
+                                           mask, loss_kind, y_range)
+    loss_fn = L.LOSSES[loss_kind]
+    count = torch.as_tensor(count, device=users.device).to(torch.int32).reshape(())
+    ue, ie, ub, ib = user_emb.clone(), item_emb.clone(), user_bias.clone(), item_bias.clone()
+    mu_u, nu_u, mu_i, nu_i = mu_u.clone(), nu_u.clone(), mu_i.clone(), nu_i.clone()
+    lr_emb, lr_bias = float(lr_emb), float(lr_bias)
+    losses = torch.empty(S, dtype=torch.float32, device=users.device)
+    for s in range(S):
+        leaves = [t.detach().requires_grad_() for t in (ue, ie, ub, ib)]
+        ue_g, ie_g, ub_g, ib_g = leaves
+        u = users[s].long().clamp(0, U - 1)
+        it = items[s].long().clamp(0, I - 1)
+        preds = (ue_g[u] * ie_g[it]).sum(dim=1) + ib_g[it] + ub_g[u]
+        if y_range is not None:
+            preds = torch.sigmoid(preds) * (y_range[1] - y_range[0]) + y_range[0]
+        loss = loss_fn(preds, ratings[s], sample_weights=mask[s])
+        g_u, g_i, g_ub, g_ib = torch.autograd.grad(loss, leaves)
+        losses[s] = loss.detach()
+        _optax_step(((ue, mu_u, nu_u, g_u), (ie, mu_i, nu_i, g_i)), ((ub, g_ub), (ib, g_ib)),
+                    count + 1 + s, lr_emb, lr_bias, wd_emb, wd_bias)
+    return ue, ie, ub, ib, mu_u, nu_u, mu_i, nu_i, count + S, losses
+
+
+def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
+                                 mu_u, nu_u, mu_i, nu_i, count,
+                                 users, items, ratings, mask, lr_emb, lr_bias, *,
+                                 loss_kind: str = 'mse',
+                                 y_range: Optional[Tuple[float, float]] = None,
+                                 wd_emb: float = 0.0, wd_bias: float = 0.0
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """Launch the explicit CUDA kernel on the current stream; updates the
+    tables, biases and moments in place."""
+    U, I, D, S, B = _check_explicit_inputs(user_emb, item_emb, user_bias, item_bias, mu_u,
+                                           nu_u, mu_i, nu_i, count, users, items, ratings,
+                                           mask, loss_kind, y_range)
+    state = (user_emb, item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i)
+    if users.device.type != 'cuda':
+        raise ValueError('fused_mf_explicit_epoch_cuda takes CUDA tensors')
+    if not all(t.is_contiguous() for t in state):
+        raise ValueError('fused_mf_explicit_epoch_cuda updates the tables, biases and moments '
+                         'in place and takes them contiguous')
+    if not 1 <= D <= MAX_DIM:
+        raise ValueError(f'the kernel supports 1 <= embedding_dim <= {MAX_DIM}, got {D}')
+    _check_id_ranges('fused_mf_explicit_epoch', U, I, users, items)
+    lib = _library()
+    device = users.device
+    users, items, ratings, mask = (t.contiguous() for t in (users, items, ratings, mask))
+    count = torch.as_tensor(count, device=device).to(torch.int32).reshape(())
+    denoms = torch.clamp(mask.sum(dim=1), min=1.0).contiguous()
+    bc1s, bc2s = adam_bias_corrections(count + 1 + torch.arange(S, device=device))
+    bc1s, bc2s = bc1s.contiguous(), bc2s.contiguous()
+    du, di = torch.zeros_like(user_emb), torch.zeros_like(item_emb)
+    dbu, dbi = torch.zeros_like(user_bias), torch.zeros_like(item_bias)
+    losses = torch.zeros(S, dtype=torch.float32, device=device)
+    y_lo, y_span = ((float(y_range[0]), float(y_range[1] - y_range[0]))
+                    if y_range is not None else (0.0, 1.0))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.collie_fused_mf_explicit_epoch(
+            user_emb.data_ptr(), item_emb.data_ptr(), user_bias.data_ptr(),
+            item_bias.data_ptr(),
+            mu_u.data_ptr(), nu_u.data_ptr(), mu_i.data_ptr(), nu_i.data_ptr(),
+            users.data_ptr(), items.data_ptr(), ratings.data_ptr(), mask.data_ptr(),
+            denoms.data_ptr(), bc1s.data_ptr(), bc2s.data_ptr(),
+            du.data_ptr(), di.data_ptr(), dbu.data_ptr(), dbi.data_ptr(), losses.data_ptr(),
+            U, I, D, S, B, EXPLICIT_LOSS_KINDS[loss_kind], int(y_range is not None),
+            y_lo, y_span, float(lr_emb), float(lr_bias), float(wd_emb), float(wd_bias), stream)
+    if err != 0:
+        raise RuntimeError(f'collie_fused_mf_explicit_epoch launch failed: cudaError_t {err}')
+    fused_mf_explicit_epoch.launches += 1
+    return (user_emb, item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i, count + S,
+            losses)
+
+
+def fused_mf_explicit_epoch(user_emb, item_emb, user_bias, item_bias,
+                            mu_u, nu_u, mu_i, nu_i, count,
+                            users, items, ratings, mask, lr_emb, lr_bias, *,
+                            loss_kind: str = 'mse',
+                            y_range: Optional[Tuple[float, float]] = None,
+                            wd_emb: float = 0.0, wd_bias: float = 0.0
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Run one explicit-feedback training epoch; returns ``(user_emb,
+    item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i, count,
+    losses [S])``.
+
+    ``user_emb [U, D]``, ``item_emb [I, D]``, the biases ``[U]``/``[I]`` and
+    the Adam moments are float32, ``count`` the 0-d Adam step count,
+    ``users``/``items [S, B]`` int32, ``ratings``/``mask [S, B]`` float32.
+    ``loss_kind`` is ``'mse'`` or ``'mae'``; ``y_range = (min, max)`` applies
+    MF's sigmoid rescale.  CUDA tensors go through the kernel (in place), CPU
+    tensors through ``fused_mf_explicit_epoch_plain``."""
+    device = users.device
+    kwargs = dict(loss_kind=loss_kind, y_range=tuple(y_range) if y_range is not None else None,
+                  wd_emb=wd_emb, wd_bias=wd_bias)
+    args = (user_emb, item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i, count,
+            users, items, ratings, mask, lr_emb, lr_bias)
+    if device.type == 'cpu':
+        return fused_mf_explicit_epoch_plain(*args, **kwargs)
+    if device.type == 'cuda':
+        return fused_mf_explicit_epoch_cuda(*args, **kwargs)
+    raise ValueError(f'fused_mf_explicit_epoch runs on cuda or cpu, not {device}')
+
+
+fused_mf_explicit_epoch.launches = 0

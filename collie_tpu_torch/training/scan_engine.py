@@ -1,31 +1,36 @@
 """Whole-epoch training: the epoch is built on the device, then trained.
 
 Port of ``collie_tpu/training/scan_engine.py`` for single-device in-memory
-implicit loaders.  Per epoch the interaction ids live on the device; the
-engine shuffles them with the Feistel permutation, samples every negative of
-the epoch in one pass of the degree-bucketed complement sampler, and then
-trains:
+loaders, implicit and explicit.  Per epoch the interaction ids (and, for
+explicit data, the ratings) live on the device; the engine shuffles them with
+the Feistel permutation, samples every negative of an implicit epoch in one
+pass of the degree-bucketed complement sampler, and then trains:
 
-* through the fused kernel (``ops/kernels/fused_mf_epoch.py``), one call per
+* through a fused kernel (``ops/kernels/fused_mf_epoch.py``: ``fused_mf_epoch``
+  for implicit data, ``fused_mf_explicit_epoch`` for ratings), one call per
   epoch, when the model is an MF in the kernel's envelope
   (``_fused_epoch_config``) and lives on ``cuda``;
 * otherwise through the generic epoch: per step, ``calculate_loss`` under
   autograd and each optimizer's update (the JAX package's ``lax.scan`` body
   as a Python loop).  On the CPU the generic epoch runs, as the JAX package
   does off the TPU; ``fused=True`` makes a CPU model take the fused
-  function's plain version.
+  function's plain version, and ``fused=False`` makes any model take the
+  generic epoch (the JAX package's ``COLLIE_TPU_FUSED_EPOCH=0``).
 
 There is no path on which a CUDA model inside the envelope trains without
 the kernel: if the kernel cannot launch, the epoch raises.
 
 Epoch layouts follow the JAX engine: ``(row, col)`` ids packed into one
 int32 where they fit; the slot-domain one-gather epoch when shuffling
-packable ids with at most 2% bucket-pad slots (``:331-375``, ``:409-445``),
-whose pad slots are clamped into the item range before any gather
-(``_unpack_rows``, ``:496-527``); the reorder path otherwise.
+packable implicit ids with at most 2% bucket-pad slots (``:331-375``,
+``:409-445``), whose pad slots are clamped into the item range before any
+gather (``_unpack_rows``, ``:496-527``); the reorder path otherwise, and
+always for explicit data (``items`` and ``ratings`` gathered by the same
+permutation, ``:465-467``).
 
 Randomness: per epoch one generator stream (seeded from the trainer's seed
-and the epoch) gives the four Feistel keys, then the sampler's uniforms.  It
+and the epoch) gives the four Feistel keys, then the sampler's uniforms (an
+explicit epoch draws the keys alone).  It
 cannot reproduce JAX's threefry draws; ``draw_epoch`` is the one place the
 draws are made, so a test can hand it JAX's keys and uniforms instead.
 """
@@ -40,7 +45,8 @@ from collie_tpu_torch.data import ExplicitInteractions, Interactions, Interactio
 from collie_tpu_torch.ops.device_sampling import (
     SPARES_PER_ROUND, bucketed_table_bytes, build_bucketed_complement_tables,
     complement_sample_negatives_bucketed, complement_sample_negatives_bucketed_grouped)
-from collie_tpu_torch.ops.kernels.fused_mf_epoch import MAX_DIM, fused_mf_epoch
+from collie_tpu_torch.ops.kernels.fused_mf_epoch import (MAX_DIM, fused_mf_epoch,
+                                                         fused_mf_explicit_epoch)
 from collie_tpu_torch.ops.shuffle import draw_feistel_keys, feistel_permutation_from_keys
 
 #: the JAX engine's bucketed-sampler table budget; above it JAX takes the
@@ -49,26 +55,39 @@ _SAMPLER_BUDGET_BYTES = 1024 * 2 ** 20
 _KERNEL_LOSSES = {'hinge': ('hinge', False), 'adaptive_hinge': ('hinge', True),
                   'bpr': ('bpr', False), 'adaptive_bpr': ('bpr', True),
                   'warp': ('warp', False)}
+_EXPLICIT_KERNEL_LOSSES = {'mse': ('mse', False), 'mae': ('mae', False)}
 
 
 def _fused_epoch_config(model, specs, active, loader, mesh=None) -> Optional[dict]:
     """Whether this (model, loader, optimizer) combination trains through
-    the fused kernel; returns its config dict or None.  The envelope is the
+    a fused kernel; returns its config dict or None.  The envelope is the
     JAX engine's (``scan_engine.py:50-156``) without the VMEM budget, plus
-    the CUDA kernel's own limit: ``embedding_dim <= MAX_DIM`` (256)."""
+    the CUDA kernels' own limit: ``embedding_dim <= MAX_DIM`` (256).
+
+    Explicit data (MSE/MAE, ``y_range`` allowed, no metadata) takes the
+    explicit kernel.  The JAX auto gate retires that kernel for TPU reasons
+    (``scan_engine.py:97-108``): it "gathers" through one-hot MXU matmuls
+    with no K-negative block to amortize them, and overflows scoped VMEM at
+    B >= 1024.  Hopper gathers and scatters natively and has no VMEM, so the
+    port takes it on ``cuda`` inside the envelope, as for implicit data; the
+    two engines compute the same function (``tests/test_fused_epoch.py:
+    244-276``)."""
     if mesh is not None or not all(active):
         return None
     from collie_tpu_torch.models.matrix_factorization import MatrixFactorizationModel
     if type(model) is not MatrixFactorizationModel:
         return None
-    if isinstance(loader.interactions, ExplicitInteractions):
-        return None              # the explicit twin kernel is not ported
+    explicit = isinstance(loader.interactions, ExplicitInteractions)
     hp = model.hparams
-    if hp.get('dropout_p', 0.0) or hp.get('y_range') is not None:
+    if hp.get('dropout_p', 0.0):
+        return None
+    if not explicit and hp.get('y_range') is not None:
         return None
     meta_names = ()
     if model.metadata_for_loss:
         weights = model.metadata_for_loss_weights
+        if explicit:
+            return None
         if not weights or set(weights) != set(model.metadata_for_loss):
             return None
         if sum(weights.values()) > 1:
@@ -79,9 +98,10 @@ def _fused_epoch_config(model, specs, active, loader, mesh=None) -> Optional[dic
                     or not np.issubdtype(arr.dtype, np.integer):
                 return None
         meta_names = tuple(sorted(model.metadata_for_loss))
-    if model.loss_function not in _KERNEL_LOSSES:
+    kernel_losses = _EXPLICIT_KERNEL_LOSSES if explicit else _KERNEL_LOSSES
+    if model.loss_function not in kernel_losses:
         return None
-    loss_kind, adaptive = _KERNEL_LOSSES[model.loss_function]
+    loss_kind, adaptive = kernel_losses[model.loss_function]
     # the default dual layout: adam over both embedding tables, sgd biases
     if hp.get('optimizer') not in ('adam', 'sparse_adam'):
         return None
@@ -101,8 +121,11 @@ def _fused_epoch_config(model, specs, active, loader, mesh=None) -> Optional[dic
         return None
     wd = float(hp.get('weight_decay', 0.0) or 0.0)
     wd_emb = 0.0 if hp.get('optimizer') == 'sparse_adam' else wd
-    return {'adaptive': adaptive, 'loss_kind': loss_kind, 'meta_names': meta_names,
-            'wd_emb': wd_emb, 'wd_bias': wd, 'emb_idx': emb_idx, 'bias_idx': bias_idx}
+    y_range = hp.get('y_range')
+    return {'adaptive': adaptive, 'loss_kind': loss_kind, 'explicit': explicit,
+            'y_range': tuple(y_range) if y_range is not None else None,
+            'meta_names': meta_names, 'wd_emb': wd_emb, 'wd_bias': wd,
+            'emb_idx': emb_idx, 'bias_idx': bias_idx}
 
 
 def loader_is_scannable(loader) -> bool:
@@ -174,16 +197,15 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     sampler and train milliseconds of the last epoch) and ``epoch_fn.fused``; for
     validation:
     ``epoch_fn(params, data, seed, epoch_idx) -> mean_loss``.  ``mean_loss``
-    is a 0-d tensor on the model's device.  ``fused``: ``None`` takes the
-    kernel on ``cuda`` inside the envelope; ``True`` requires the envelope
-    and runs the fused function on any device (its plain version on the
-    CPU)."""
+    is a 0-d tensor on the model's device.  ``fused``: ``None`` (the
+    trainer's) takes the kernel on ``cuda`` inside the envelope and the
+    generic epoch elsewhere; ``True`` requires the envelope and runs the
+    fused function on any device (its plain version on the CPU); ``False``
+    runs the generic autograd epoch on any device."""
     if mesh is not None:
         raise NotImplementedError('mesh training is not ported yet (ROADMAP Queue 1)')
     inter = loader.interactions
-    if isinstance(inter, ExplicitInteractions):
-        raise NotImplementedError('explicit-feedback training is not ported yet '
-                                  '(ROADMAP Queue 1)')
+    explicit = isinstance(inter, ExplicitInteractions)
     if training and not model._score_is_deterministic():
         raise NotImplementedError('training with dropout is not ported yet (ROADMAP Queue 1)')
     device = model.device
@@ -197,9 +219,10 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         n_used = n
     pad = S * B - n_used
     slot_tail = 0
-    K = inter.num_negative_samples
     num_items = inter.num_items
-    exact = inter.exact_negative_sampling
+    # explicit data has no negatives (``num_negative_samples`` raises there)
+    K = 0 if explicit else inter.num_negative_samples
+    exact = not explicit and inter.exact_negative_sampling
 
     def put(x):
         return torch.as_tensor(np.ascontiguousarray(x), device=device)
@@ -216,6 +239,8 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     else:
         data['rows'] = put(inter.mat.row.astype(np.int32))
         data['cols'] = put(inter.mat.col.astype(np.int32))
+    if explicit:
+        data['ratings'] = put(inter.mat.data.astype(np.float32))
     N_g = 0
     if exact:
         if bucketed_table_bytes(inter.mat) > _SAMPLER_BUDGET_BYTES:
@@ -250,13 +275,17 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             return draw_epoch(seed, epoch_idx, training, device, S * B - slot_tail,
                               (S * B - slot_tail, W), num_items, True)
         perm_n = n if shuffle and n >= 2 else None
-        shape = (N_g, W) if exact else (S * B, K)
+        if explicit:
+            shape = None
+        else:
+            shape = (N_g, W) if exact else (S * B, K)
         return draw_epoch(seed, epoch_idx, training, device, perm_n, shape, num_items, exact)
 
     def _epoch_batches(seed, epoch_idx) -> Dict[str, torch.Tensor]:
         """The whole epoch on the device: ``users``/``pos_items`` ``[S, B]``
         int32, ``neg_items [S, B, K]`` int32 (in the item range), ``mask
-        [S, B]`` float32."""
+        [S, B]`` float32; for explicit data ``users``/``items [S, B]`` int32
+        and ``ratings``/``mask [S, B]`` float32."""
         keys, samples = _draws(seed, epoch_idx)
         item_mask = (1 << item_bits) - 1
         if 'packed_slots' in data:
@@ -294,6 +323,11 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             users_flat, cols_flat = pk >> item_bits, pk & item_mask
         else:
             users_flat, cols_flat = data['rows'][idx], data['cols'][idx]
+        if explicit:
+            return {'users': users_flat.reshape(S, B),
+                    'items': cols_flat.reshape(S, B),
+                    'ratings': data['ratings'][idx].reshape(S, B),
+                    'mask': data['mask_flat'].reshape(S, B)}
         if exact:
             negs = complement_sample_negatives_bucketed(
                 samples, idx, data['pos_of'], data['users_g'], data['bucket_specs'],
@@ -315,12 +349,48 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
 
         return val_epoch_fn, data, S, n_used
 
-    cfg = _fused_epoch_config(model, specs, active, loader, mesh)
+    cfg = None if fused is False else _fused_epoch_config(model, specs, active, loader, mesh)
     if fused and cfg is None:
         raise ValueError('fused=True but this model is outside the kernel\'s envelope')
     use_fused = cfg is not None and (fused or device.type == 'cuda')
 
-    if use_fused:
+    def fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i):
+        """The optimizer states after a fused epoch: the Adam moments and
+        count it returns; both ``inject_hyperparams`` counts advance by S."""
+        emb_idx, bias_idx = cfg['emb_idx'], cfg['bias_idx']
+        emb_state, bias_state = opt_states[emb_idx], opt_states[bias_idx]
+        new_states = list(opt_states)
+        new_states[emb_idx] = dataclasses.replace(
+            emb_state, count=emb_state.count + S, adam_count=cnt,
+            mu={'item_embeddings': mu_i, 'user_embeddings': mu_u},
+            nu={'item_embeddings': nu_i, 'user_embeddings': nu_u})
+        new_states[bias_idx] = dataclasses.replace(bias_state, count=bias_state.count + S)
+        return tuple(new_states)
+
+    if use_fused and cfg['explicit']:
+        def epoch_fn(params, opt_states, data_, seed, epoch_idx):
+            clock.mark()
+            batches = _epoch_batches(seed, epoch_idx)
+            clock.mark()
+            emb_state = opt_states[cfg['emb_idx']]
+            # the kernel steps the user biases too: pointwise losses give
+            # them a gradient, so there is no closed-form decay here
+            (ue, ie, ub, ib, mu_u, nu_u, mu_i, nu_i, cnt, losses) = fused_mf_explicit_epoch(
+                params['user_embeddings'], params['item_embeddings'],
+                params['user_biases'], params['item_biases'],
+                emb_state.mu['user_embeddings'], emb_state.nu['user_embeddings'],
+                emb_state.mu['item_embeddings'], emb_state.nu['item_embeddings'],
+                emb_state.adam_count,
+                batches['users'], batches['items'], batches['ratings'], batches['mask'],
+                emb_state.learning_rate, opt_states[cfg['bias_idx']].learning_rate,
+                loss_kind=cfg['loss_kind'], y_range=cfg['y_range'],
+                wd_emb=cfg['wd_emb'], wd_bias=cfg['wd_bias'])
+            new_params = {**params, 'user_embeddings': ue, 'item_embeddings': ie,
+                          'user_biases': ub, 'item_biases': ib}
+            clock.mark()
+            return (new_params, fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i),
+                    losses.mean())
+    elif use_fused:
         emb_idx, bias_idx = cfg['emb_idx'], cfg['bias_idx']
         meta_rows = (torch.stack([torch.as_tensor(np.asarray(model.metadata_for_loss[m]),
                                                   device=device).to(torch.int32)
@@ -352,14 +422,9 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                 rate = torch.tensor(lr_b, dtype=torch.float32) * cfg['wd_bias']
                 decay = (1.0 - rate) ** S
                 new_params['user_biases'] = params['user_biases'] * decay.to(device)
-            new_states = list(opt_states)
-            new_states[emb_idx] = dataclasses.replace(
-                emb_state, count=emb_state.count + S, adam_count=cnt,
-                mu={'item_embeddings': mu_i, 'user_embeddings': mu_u},
-                nu={'item_embeddings': nu_i, 'user_embeddings': nu_u})
-            new_states[bias_idx] = dataclasses.replace(bias_state, count=bias_state.count + S)
             clock.mark()
-            return new_params, tuple(new_states), losses.mean()
+            return (new_params, fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i),
+                    losses.mean())
     else:
         def epoch_fn(params, opt_states, data_, seed, epoch_idx):
             clock.mark()

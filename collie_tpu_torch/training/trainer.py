@@ -1,10 +1,12 @@
 """Training engine: one epoch function call per epoch, a host loop around it.
 
 Port of ``collie_tpu/training/trainer.py`` for single-device in-memory
-loaders.  ``CollieTrainer.fit`` builds the epoch functions of
-``scan_engine`` once per fit and runs the per-epoch host loop of the JAX
-package's ``_run_epochs`` (``:676-790``): the epoch call (the fused kernel
-for an MF on ``cuda``), the ``terminate_on_nan`` trip, the validation loss,
+loaders of implicit or explicit data.  ``CollieTrainer.fit`` builds the
+epoch functions of ``scan_engine`` once per fit and runs the per-epoch host
+loop of the JAX package's ``_run_epochs`` (``:676-790``): the epoch call (a
+fused kernel for an MF on ``cuda``: ``fused_mf_epoch`` for implicit data,
+``fused_mf_explicit_epoch`` for ratings), the ``terminate_on_nan`` trip, the
+validation loss,
 host ``ReduceLROnPlateau`` / ``StepLR`` stepping through ``set_lr``, early
 stopping on the monitored loss, ``num_epochs_completed`` and the verbose
 lines.  The base seed is ``seed`` (0 when not given), as the JAX trainer's
@@ -78,7 +80,8 @@ class CollieTrainer:
         self.last_fit_examples_per_sec: Optional[float] = None
         #: per epoch of the last ``fit``: ``epoch``, ``seconds`` (host clock,
         #: validation included), ``shuffle_ms``, ``sample_ms`` (the sampler
-        #: and the batch assembly) and ``train_ms`` (the kernel, or the
+        #: and the batch assembly; for explicit data, which has no sampler,
+        #: the batch gather alone) and ``train_ms`` (the kernel, or the
         #: generic epoch's steps)
         self.epoch_log: List[Dict[str, float]] = []
 

@@ -146,9 +146,11 @@ def test_envelope_rejects_out_of_scope(train):
     assert _config_for(_mf(loader, loss='adaptive'), loader, mesh=object()) is None
 
 
-def test_envelope_leaves_out_explicit_data():
-    """The explicit twin kernel is retired from the JAX auto gate and not
-    ported: explicit data never takes the fused epoch."""
+def test_envelope_takes_explicit_data_through_the_explicit_kernel():
+    """Explicit data takes the explicit twin kernel, which the JAX auto gate
+    retires for TPU reasons only: an MSE MF with ``y_range`` is inside the
+    envelope (``y_range`` is outside it for implicit data), an implicit loss
+    is not, and the engine builds its epoch."""
     from collie_tpu_torch import ExplicitInteractions
 
     rng = np.random.default_rng(0)
@@ -156,11 +158,13 @@ def test_envelope_leaves_out_explicit_data():
                                  ratings=rng.integers(1, 6, 200), allow_missing_ids=True,
                                  num_users=20, num_items=30)
     loader = InteractionsDataLoader(interactions=inter, batch_size=64, seed=0)
-    model = _mf(loader, loss='mse')
-    assert _config_for(model, loader) is None
-    with pytest.raises(NotImplementedError, match='explicit'):
-        build_scan_epoch_fns(model, model.optimizer_specs(), [True, True], loader,
-                             shuffle=True)
+    model = _mf(loader, loss='mse', y_range=(1, 5))
+    cfg = _config_for(model, loader)
+    assert cfg is not None and cfg['explicit'] is True
+    assert (cfg['loss_kind'], cfg['adaptive'], cfg['y_range']) == ('mse', False, (1, 5))
+    fn, data, S, n = build_scan_epoch_fns(model, model.optimizer_specs(), [True, True], loader,
+                                          shuffle=True, fused=True)
+    assert fn.fused is True and S == -(-n // 64) and 'ratings' in data
 
 
 def test_envelope_metadata_gating(train):
@@ -186,6 +190,10 @@ def test_cpu_models_take_the_generic_epoch_unless_asked(train):
     assert fn.fused is False
     fn, *_ = build_scan_epoch_fns(model, specs, [True, True], loader, shuffle=True, fused=True)
     assert fn.fused is True
+    # fused=False: the generic epoch on any device, the JAX package's
+    # COLLIE_TPU_FUSED_EPOCH=0
+    fn, *_ = build_scan_epoch_fns(model, specs, [True, True], loader, shuffle=True, fused=False)
+    assert fn.fused is False
     outside = _mf(loader, loss='adaptive', optimizer='sgd')
     with pytest.raises(ValueError, match='envelope'):
         build_scan_epoch_fns(outside, outside.optimizer_specs(), [True, True], loader,

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions, on the card.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
-without one.  The fused epoch's edge shapes, inputs and tolerance are
+without one.  The fused epochs' edge shapes, inputs and tolerance are
 ``chip_smoke.py``'s.  The file imports no JAX, so it also runs on a machine
 without it:
 
@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import EPOCH_EDGES, compare_epoch, epoch_inputs
+from chip_smoke import (EPOCH_EDGES, EXPLICIT_EDGES, EXPLICIT_STATE, compare_epoch,
+                        epoch_inputs, explicit_epoch_inputs)
 from collie_tpu_torch.ops.kernels.retrieval_kernel import (mf_topk_retrieve,
                                                            mf_topk_retrieve_plain)
 
@@ -125,3 +126,58 @@ def test_card_fit_matches_the_cpu_fit(cuda_device, monkeypatch):
     for k, ref in cpu.items():
         scale = max(float(ref.abs().max()), 1e-3)
         torch.testing.assert_close(card[k], ref, rtol=0, atol=5e-4 * scale, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('loss_kind,y_range,B,D,wd,dup,tail',
+                         [EXPLICIT_EDGES[2], EXPLICIT_EDGES[5]])
+def test_explicit_epoch_kernel_matches_plain_version(cuda_device, loss_kind, y_range, B, D, wd,
+                                                     dup, tail):
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_explicit_epoch,
+                                                             fused_mf_explicit_epoch_plain)
+
+    args = explicit_epoch_inputs(B * 10 + D, D=D, B=B, dup=dup, tail=tail)
+    kw = dict(loss_kind=loss_kind, y_range=y_range, wd_emb=wd, wd_bias=wd)
+    ref = fused_mf_explicit_epoch_plain(*args, **kw)
+    before = fused_mf_explicit_epoch.launches
+    out = fused_mf_explicit_epoch(*[a.clone() if torch.is_tensor(a) else a for a in args], **kw)
+    torch.cuda.synchronize()
+    assert fused_mf_explicit_epoch.launches == before + 1
+    compare_epoch(f'{loss_kind} y_range={y_range}', out, ref, names=EXPLICIT_STATE)
+
+
+def _explicit_train():
+    from collie_tpu_torch import ExplicitInteractions, stratified_split
+    from collie_tpu_torch.data.synthetic import generate_interactions_df
+
+    df = generate_interactions_df(num_users=250, num_items=500, num_interactions=20_000, seed=1)
+    inter = ExplicitInteractions(users=df['user_id'].values, items=df['item_id'].values,
+                                 ratings=df['rating'].values, allow_missing_ids=True,
+                                 num_users=250, num_items=500)
+    return stratified_split(inter, test_p=0.2, seed=1, force_split=True)
+
+
+@pytest.mark.cuda
+def test_explicit_fit_on_the_card_goes_through_the_kernel(cuda_device):
+    """An explicit MF fit launches the explicit kernel once per epoch; the
+    engine's ``fused=False`` epoch launches none."""
+    from collie_tpu_torch import CollieTrainer, MatrixFactorizationModel
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_explicit_epoch
+    from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns
+
+    train, _ = _explicit_train()
+    model = MatrixFactorizationModel(train=train, embedding_dim=8, lr=1e-2, loss='mse',
+                                     y_range=(1, 5), seed=0)
+    before = fused_mf_explicit_epoch.launches
+    CollieTrainer(model, max_epochs=3, verbosity=0).fit(model)
+    torch.cuda.synchronize()
+    assert fused_mf_explicit_epoch.launches == before + 3
+    assert all(torch.isfinite(v).all() for v in model.params.values())
+    assert float(model.params['user_biases'].abs().max()) > 1e-4
+    specs = model.optimizer_specs()
+    fn, data, _, _ = build_scan_epoch_fns(model, specs, [True, True], model.train_loader,
+                                          shuffle=True, fused=False)
+    states = tuple(s.transform.init({k: model.params[k] for k in s.keys}) for s in specs)
+    fn(model.params, states, data, 0, 1)
+    torch.cuda.synchronize()
+    assert fn.fused is False and fused_mf_explicit_epoch.launches == before + 3

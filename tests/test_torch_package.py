@@ -44,6 +44,27 @@ def test_training_slice_modules_are_checked(module):
     assert (PACKAGE / 'csrc' / 'fused_mf_epoch.cu').is_file()
 
 
+EXPLICIT_SLICE = ['ops/kernels/fused_mf_epoch.py', 'training/scan_engine.py',
+                  'training/trainer.py', 'evaluate.py', 'weights.py']
+
+
+@pytest.mark.parametrize('module', EXPLICIT_SLICE)
+def test_explicit_slice_modules_are_checked(module):
+    """The explicit training slice's modules are among the files the import
+    rule covers, and its kernel has a C entry in the fused epoch's source."""
+    assert PACKAGE / module in PROGRAM_FILES
+    source = (PACKAGE / 'csrc' / 'fused_mf_epoch.cu').read_text()
+    assert 'extern "C" int collie_fused_mf_explicit_epoch(' in source
+
+
+def test_explicit_evaluation_is_exported():
+    import collie_tpu_torch
+    from collie_tpu_torch import evaluate
+
+    assert 'explicit_evaluate_in_batches' in collie_tpu_torch.__all__
+    assert collie_tpu_torch.explicit_evaluate_in_batches is evaluate.explicit_evaluate_in_batches
+
+
 def test_every_module_imports_with_jax_and_collie_tpu_blocked():
     modules = ['.'.join(p.relative_to(ROOT).with_suffix('').parts).replace('.__init__', '')
                for p in PACKAGE.rglob('*.py')]
