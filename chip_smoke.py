@@ -22,7 +22,12 @@ non-zero before the result line:
    ML-10M shape after 3 steps and after one whole epoch as one call; times
    for each kernel, its plain version and (where one exists) one library
    call of the same function, and for the explicit kernel the generic
-   autograd epoch (``fused=False``) beside it;
+   autograd epoch (``fused=False``) beside it.  For one ML-10M and one
+   gate-config epoch call of each epoch kernel: the device launches and
+   kernel times ``torch.profiler`` sees, and the step and update phases
+   inside the one launch (device clock stamps).  ``binned_gather_scatter``
+   (the microbench's ``pk``) at the microbench's shapes against its plain
+   version and ``index_select`` + ``index_add_``;
 4. serving: an MF model at the repo's serving scale (2,000,000 items,
    ``embedding_dim=64``, random weights from the seed) is built from seeded
    interactions, saved to npz and loaded back, then answers four
@@ -52,6 +57,10 @@ non-zero before the result line:
    counter must equal the epochs of (c) and (d);
 6. the kernels line (one JSON object), the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
+
+``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
+kernel at the gate and ML-10M-scale configurations, for comparing two
+checkouts on one card (a copy of this script in the other checkout).
 """
 import argparse
 import json
@@ -121,6 +130,13 @@ MAX_FLIPPED_FRACTION = 1e-3
 # elements may fall outside the tolerance; one step from the same state
 # must hold exactly.
 EXPLICIT_DRIFT_FRACTION = 1e-4
+# binned_gather_scatter at the shapes of benchmarks/microbench_gather.py:35-39
+# and :149 (PITERS): out within GS_ATOL_SCALE * max|plain| (atomics sum a
+# round's duplicate ids in a run-dependent order, 50 rounds deep); gathered
+# within GS_ATOL_SCALE * (kept examples) * max|plain out| (each round's sum
+# of ~8,000 rows taken in another order)
+GS_SHAPE = dict(U=72_000, D=32, B=8192, n_bins=16, c_pad=768, iters=50)
+GS_ATOL_SCALE = 1e-5
 IMPLICIT_STATE = ['user_emb', 'item_emb', 'item_bias', 'mu_u', 'nu_u', 'mu_i', 'nu_i']
 EXPLICIT_STATE = ['user_emb', 'item_emb', 'user_bias', 'item_bias', 'mu_u', 'nu_u', 'mu_i',
                   'nu_i']
@@ -154,9 +170,10 @@ def kernel_wrappers():
     """Every kernel wrapper of the port, each with its ``launches`` count."""
     from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_epoch,
                                                              fused_mf_explicit_epoch)
+    from collie_tpu_torch.ops.kernels.gather_scatter import binned_gather_scatter
     from collie_tpu_torch.ops.kernels.retrieval_kernel import mf_topk_retrieve
 
-    return mf_topk_retrieve, fused_mf_epoch, fused_mf_explicit_epoch
+    return mf_topk_retrieve, fused_mf_epoch, fused_mf_explicit_epoch, binned_gather_scatter
 
 
 def reset_launch_counts():
@@ -185,6 +202,41 @@ def cuda_median_ms(fn, warmup: int = 2, runs: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def _kernel_name(name: str) -> str:
+    """``void (anonymous namespace)::mf_step_kernel<1>(float const*, ...)`` ->
+    ``mf_step_kernel<1>``."""
+    name = name.split('(float')[0].split('(int')[0].split('(unsigned')[0]
+    return name.replace('void ', '').replace('(anonymous namespace)::', '').strip()
+
+
+def profile_epoch_call(label, call):
+    """Run ``call`` once under ``torch.profiler`` and print the device
+    activities it launched: count, total and mean time by name, and the
+    device's idle time between the first start and the last end.  Returns
+    the number of device activities, or None when the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        log(f'  profiler, {label}: no device activity seen')
+        return None
+    by_name = {}
+    for e in device:
+        count, total = by_name.get(_kernel_name(e.name), (0, 0.0))
+        by_name[_kernel_name(e.name)] = (count + 1, total + e.time_range.elapsed_us())
+    busy = sum(total for _, total in by_name.values())
+    span = max(e.time_range.end for e in device) - min(e.time_range.start for e in device)
+    log(f'  profiler, {label}: {len(device)} device launches per call, busy {busy:.1f} us of '
+        f'a {span:.1f} us span (gaps {span - busy:.1f} us)')
+    for name, (count, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        log(f'    {name}: {count} x, total {total:.1f} us, mean {total / count:.2f} us')
+    return len(device)
 
 
 def check_topk(name, ids, scores, ref_ids, ref_scores, ref_next):
@@ -347,6 +399,114 @@ def phase_kernels():
     }
 
 
+def gather_scatter_inputs(seed, U, D, B, n_bins, **_):
+    """The microbench's inputs (benchmarks/microbench_gather.py:74-116,
+    :180-182) on the card: table ``[D, UPAD]`` with zeros past U, ids
+    stably sorted by bin, bin offsets, gradient columns in sorted order;
+    and the table ``[U, D]`` for the library yardstick."""
+    rng = np.random.default_rng(seed)
+    ub = -(-U // n_bins // 128) * 128
+    tab = rng.standard_normal((U, D)).astype(np.float32)
+    ids = rng.integers(0, U, B).astype(np.int32)
+    grads = rng.standard_normal((B, D)).astype(np.float32)
+    order = np.argsort(ids // ub, kind='stable')
+    offs = np.concatenate([[0], np.cumsum(np.bincount(ids // ub, minlength=n_bins))])
+    tab_t = np.zeros((D, n_bins * ub), np.float32)
+    tab_t[:, :U] = tab.T
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    return (to(tab_t), to(ids[order]), to(offs.astype(np.int32)), to(grads[order].T)), to(tab)
+
+
+def phase_gather_scatter():
+    """binned_gather_scatter (the port of the microbench's ``pk``) driven at
+    the microbench's shapes, against its plain version and the library's
+    ``index_select`` + ``index_add_``; returns the kernel's record."""
+    from collie_tpu_torch.ops.kernels.gather_scatter import (binned_gather_scatter,
+                                                             binned_gather_scatter_plain,
+                                                             kept_examples)
+
+    iters, c_pad = GS_SHAPE['iters'], GS_SHAPE['c_pad']
+    (tab_t, sids, offs, g_t), tab = gather_scatter_inputs(0, **GS_SHAPE)
+    D, upad = tab_t.shape
+    B = sids.shape[0]
+    log(f'kernel binned_gather_scatter vs plain at D={D} UPAD={upad} B={B} '
+        f'n_bins={GS_SHAPE["n_bins"]} C_PAD={c_pad} iters={iters} (out atol '
+        f'{GS_ATOL_SCALE} x max|ref|, gathered atol {GS_ATOL_SCALE} x kept x max|ref|)')
+    reset_launch_counts()
+    out, gathered = binned_gather_scatter(tab_t, sids, offs, g_t, iters, c_pad)
+    torch.cuda.synchronize()
+    launches = binned_gather_scatter.launches
+    if launches != 1:
+        raise AssertionError(f'binned_gather_scatter: {launches} launches for one call')
+    ref_out, ref_gathered = binned_gather_scatter_plain(tab_t, sids, offs, g_t, iters, c_pad)
+    kept = kept_examples(sids, offs, upad, c_pad)
+    n_kept = int(kept.sum())
+    top = float(ref_out.abs().max())
+    err_out = float((out - ref_out).abs().max())
+    err_gathered = float((gathered - ref_gathered).abs().max())
+    if not (torch.isfinite(out).all() and torch.isfinite(gathered).all()):
+        raise AssertionError('binned_gather_scatter: non-finite output')
+    if err_out > GS_ATOL_SCALE * top or err_gathered > GS_ATOL_SCALE * n_kept * top:
+        raise AssertionError(f'binned_gather_scatter differs from plain: out {err_out:.3g}, '
+                             f'gathered {err_gathered:.3g} (max|ref| {top:.3g})')
+
+    lib_kept = sids.long()[kept]
+    lib_rows = g_t.T[kept]
+
+    def library():
+        table = tab.clone()
+        sums = torch.empty((iters, D), dtype=torch.float32, device=DEVICE)
+        for r in range(iters):
+            sums[r] = table.index_select(0, lib_kept).sum(dim=0)
+            table.index_add_(0, lib_kept, lib_rows)
+        return table, sums
+
+    lib_out, lib_gathered = library()
+    torch.cuda.synchronize()
+    lib_err = max(float((lib_out.T - ref_out[:, :tab.shape[0]]).abs().max()),
+                  float((lib_gathered - ref_gathered).abs().max()) / n_kept)
+    if lib_err > GS_ATOL_SCALE * top:
+        raise AssertionError(f'the library yardstick computes another function ({lib_err:.3g})')
+    log(f'  {n_kept} of {B} examples kept by the bin windows; max_abs_err out {err_out:.3g}, '
+        f'gathered {err_gathered:.3g} (max|ref| {top:.3g})')
+    kernel_ms = cuda_median_ms(lambda: binned_gather_scatter(tab_t, sids, offs, g_t, iters,
+                                                             c_pad))
+    plain_ms = cuda_median_ms(lambda: binned_gather_scatter_plain(tab_t, sids, offs, g_t, iters,
+                                                                  c_pad))
+    library_ms = cuda_median_ms(library)
+    # the least the function must move: the table read and ``out`` written
+    # once, the gradients, ids and offsets read once, ``gathered`` written;
+    # operations: an add per element gathered and per element scattered
+    nbytes = 4.0 * (2 * D * upad + D * B + B + offs.numel() + iters * D)
+    ops = 2.0 * iters * n_kept * D
+    ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    # what every round moves if the table does not stay on chip: rows
+    # gathered, rows read and written by the scatter, the gradients
+    round_ms = (iters * 16.0 * n_kept * D + 8.0 * D * upad) / PEAK_BYTES_PER_S * 1e3
+    log(f'  {iters} rounds: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} '
+        f'library_ms={library_ms:.4f} (index_select + sum + index_add_ per round on the '
+        f'[U, D] table) bound_ms={bound_ms:.4f} (operations {ops_ms:.4f}, bytes '
+        f'{bytes_ms:.4f}); every round through device memory: {round_ms:.4f} ms')
+    del tab_t, tab, out, ref_out, lib_out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {
+        'name': 'binned_gather_scatter',
+        'route': 'cuda',
+        'source': 'collie_tpu_torch/csrc/gather_scatter.cu',
+        'replaces': 'benchmarks/microbench_gather.py:151',
+        'launches': launches,
+        'max_abs_err': max(err_out, err_gathered),
+        'ms': kernel_ms,
+        'plain_ms': plain_ms,
+        'bound_ms': bound_ms,
+        'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
+        'library_ms': library_ms,
+        'checked': True,
+    }
+
+
 def epoch_inputs(seed, U=37, I=53, D=10, S=3, B=7, K=1, F=0, dup=False):
     """Tables, moments and batches of ``fused_mf_epoch`` on the card, from a
     numpy seed."""
@@ -362,7 +522,8 @@ def epoch_inputs(seed, U=37, I=53, D=10, S=3, B=7, K=1, F=0, dup=False):
         users[:, :(B + 1) // 2] = users[:, :1]
         pos[:, :(B + 1) // 2] = pos[:, :1]
     mask = np.ones((S, B), np.float32)
-    mask[-1, B // 2:] = 0.0
+    if S:
+        mask[-1, B // 2:] = 0.0
     arrays = [f(U, D), f(I, D), f(I), f(U, D, scale=1e-3), np.abs(f(U, D, scale=1e-4)),
               f(I, D, scale=1e-3), np.abs(f(I, D, scale=1e-4))]
     tensors = [torch.from_numpy(a).to(DEVICE) for a in arrays]
@@ -444,9 +605,109 @@ def ml10m_model(train):
                                     loss='adaptive', seed=7)
 
 
+def gate_model():
+    """The quality-gate configuration of bench.py:24-49: (model, train, test)."""
+    from collie_tpu_torch import InteractionsDataLoader, MatrixFactorizationModel, stratified_split
+    from collie_tpu_torch.data.synthetic import generate_implicit_interactions
+
+    train, test = stratified_split(generate_implicit_interactions(**GATE_DATA), test_p=0.2,
+                                   seed=42, force_split=True)
+    loader = InteractionsDataLoader(interactions=train, batch_size=1024, shuffle=True, seed=42)
+    model = MatrixFactorizationModel(train=loader, embedding_dim=10, lr=1e-1, loss='adaptive',
+                                     seed=42)
+    return model, train, test
+
+
+def explicit_gate_model():
+    """The explicit quality-gate configuration of
+    benchmarks/calibrate_gates.py:84-97: (model, train, test)."""
+    from collie_tpu_torch import ExplicitInteractions, MatrixFactorizationModel, stratified_split
+    from collie_tpu_torch.data.synthetic import generate_interactions_df
+
+    df = generate_interactions_df(seed=EXPLICIT_GATE_DATA['seed'])
+    ratings = ExplicitInteractions(users=df['user_id'].values, items=df['item_id'].values,
+                                   ratings=df['rating'].values, allow_missing_ids=True,
+                                   num_users=EXPLICIT_GATE_DATA['num_users'],
+                                   num_items=EXPLICIT_GATE_DATA['num_items'])
+    train, test = stratified_split(ratings, test_p=0.2, seed=42, force_split=True)
+    model = MatrixFactorizationModel(train=train, embedding_dim=10, lr=EXPLICIT_LR, loss='mse',
+                                     y_range=Y_RANGE, seed=0)
+    return model, train, test
+
+
+def engine_epoch_call(model, explicit: bool):
+    """One fused epoch call on the engine's first epoch of ``model`` (all S
+    steps, fresh Adam state, updated in place from call to call): ``(call,
+    S)``; ``call(timeline)`` passes a timeline tensor to the kernel."""
+    from collie_tpu_torch.ops.kernels import fused_mf_epoch as fused
+    from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns
+
+    specs = model.optimizer_specs()
+    epoch_fn, _, S, _ = build_scan_epoch_fns(model, specs, [True] * len(specs),
+                                             model.train_loader, shuffle=True)
+    batches = epoch_fn.epoch_batches(7, 1)
+    params = model.params
+    names = ('user_embeddings', 'item_embeddings') \
+        + (('user_biases',) if explicit else ()) + ('item_biases',)
+    tables = [params[k].clone() for k in names] \
+        + [torch.zeros_like(params[k]) for k in ('user_embeddings', 'user_embeddings',
+                                                 'item_embeddings', 'item_embeddings')] \
+        + [torch.zeros((), dtype=torch.int32, device=DEVICE)]
+    if explicit:
+        args = [batches[k] for k in ('users', 'items', 'ratings', 'mask')] + [EXPLICIT_LR, 1e-2]
+        kw = dict(loss_kind='mse', y_range=Y_RANGE)
+        epoch, epoch_cuda = fused.fused_mf_explicit_epoch, fused.fused_mf_explicit_epoch_cuda
+    else:
+        args = [batches[k] for k in ('users', 'pos_items', 'neg_items', 'mask')] \
+            + [0.1, 0.01, None]
+        kw = dict(K=batches['neg_items'].shape[-1], adaptive=True, loss_kind='hinge')
+        epoch, epoch_cuda = fused.fused_mf_epoch, fused.fused_mf_epoch_cuda
+
+    def call(timeline=None):
+        if timeline is None:
+            return epoch(*tables, *args, **kw)
+        return epoch_cuda(*tables, *args, timeline=timeline, **kw)
+    return call, S
+
+
+def phase_split(label, call, S):
+    """Where one epoch launch spends its time: ``call(timeline)`` stamps
+    the device clock after each step phase and each update phase (each
+    ends in a grid barrier); prints and returns the mean µs a step."""
+    timeline = torch.zeros(2 * S + 1, dtype=torch.int64, device=DEVICE)
+    call(timeline)
+    torch.cuda.synchronize()
+    t = timeline.cpu().numpy().astype(np.float64) / 1e3
+    step, update = t[1::2] - t[:-1:2], t[2::2] - t[1::2]
+    log(f'  phases inside one launch, {label}: step phase {step.mean():.2f} us a step '
+        f'(min {step.min():.2f}, max {step.max():.2f}), update phase {update.mean():.2f} us a '
+        f'step (min {update.min():.2f}, max {update.max():.2f}), each with its barrier; '
+        f'{t[-1] - t[0]:.1f} us from the first stamp to the last')
+    return {'step_us': float(step.mean()), 'update_us': float(update.mean())}
+
+
+def epoch_times(ml10m) -> dict:
+    """Median ms of one epoch call of each fused kernel at the gate and the
+    ML-10M-scale configurations (the wrapper's host work included)."""
+    times = {}
+    configs = (('implicit_gate', lambda: gate_model()[0], False, 21),
+               ('implicit_ml10m', lambda: ml10m_model(ml10m['implicit'][0]), False, 7),
+               ('explicit_gate', lambda: explicit_gate_model()[0], True, 21),
+               ('explicit_ml10m', lambda: ml10m_explicit_model(ml10m['explicit'][0]), True, 7))
+    for name, build, explicit, runs in configs:
+        call, S = engine_epoch_call(build(), explicit)
+        ms = cuda_median_ms(call, warmup=2, runs=runs)
+        times[name] = {'ms': ms, 'steps': S}
+        log(f'  epoch call {name} ({S} steps): {ms:.4f} ms (median of {runs})')
+        del call
+        torch.cuda.empty_cache()
+    return times
+
+
 def phase_kernel_fused_epoch(ml10m):
     """fused_mf_epoch against its plain version; returns the kernel's record."""
     from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_epoch,
+                                                             fused_mf_epoch_cuda,
                                                              fused_mf_epoch_plain)
     from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns
 
@@ -543,6 +804,16 @@ def phase_kernel_fused_epoch(ml10m):
         f'bound_ms={bound_ms:.4f} (operations {ops_ms:.4f}, bytes {bytes_ms:.4f}); '
         f'library_ms=null: no single PyTorch call computes an epoch of sampled-negative '
         f'MF training with Adam')
+    profile = profile_epoch_call(f'one ML-10M fused_mf_epoch call ({S} steps)',
+                                 lambda: fused_mf_epoch(*tables, *epoch_args(0, S), **kw))
+    split = phase_split(f'ML-10M ({S} steps)', lambda tl: fused_mf_epoch_cuda(
+        *tables, *epoch_args(0, S), timeline=tl, **kw), S)
+    gate_call, gate_steps = engine_epoch_call(gate_model()[0], explicit=False)
+    gate_ms = cuda_median_ms(gate_call, warmup=2, runs=21)
+    gate_profile = profile_epoch_call(f'one gate-config fused_mf_epoch call ({gate_steps} steps)',
+                                      gate_call)
+    gate_split = phase_split(f'gate config ({gate_steps} steps)', gate_call, gate_steps)
+    log(f'  gate-config epoch ({gate_steps} steps): kernel_ms={gate_ms:.4f}')
     del tables, batches, epoch_fn, model
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -558,6 +829,9 @@ def phase_kernel_fused_epoch(ml10m):
         'bound_ms': bound_ms,
         'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
         'library_ms': None,
+        'gate_ms': gate_ms,
+        'device_launches_per_call': [profile, gate_profile],
+        'phases_us': [split, gate_split],
         'checked': True,
     }
 
@@ -603,6 +877,7 @@ def phase_kernel_explicit_epoch(ml10m_explicit):
     """fused_mf_explicit_epoch against its plain version, and its epoch
     against the generic autograd epoch; returns the kernel's record."""
     from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_explicit_epoch,
+                                                             fused_mf_explicit_epoch_cuda,
                                                              fused_mf_explicit_epoch_plain)
     from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns
 
@@ -700,6 +975,19 @@ def phase_kernel_explicit_epoch(ml10m_explicit):
     kernel_ms = cuda_median_ms(lambda: fused_mf_explicit_epoch(*tables, *epoch_args(0, S), **kw),
                                **kernel_runs)
     calls += sum(kernel_runs.values())
+    profile = profile_epoch_call(
+        f'one explicit ML-10M fused_mf_explicit_epoch call ({S} steps)',
+        lambda: fused_mf_explicit_epoch(*tables, *epoch_args(0, S), **kw))
+    split = phase_split(f'explicit ML-10M ({S} steps)', lambda tl: fused_mf_explicit_epoch_cuda(
+        *tables, *epoch_args(0, S), timeline=tl, **kw), S)
+    gate_call, gate_steps = engine_epoch_call(explicit_gate_model()[0], explicit=True)
+    gate_runs = dict(warmup=2, runs=21)
+    gate_ms = cuda_median_ms(gate_call, **gate_runs)
+    gate_profile = profile_epoch_call(
+        f'one explicit gate-config fused_mf_explicit_epoch call ({gate_steps} steps)', gate_call)
+    gate_split = phase_split(f'explicit gate config ({gate_steps} steps)', gate_call, gate_steps)
+    log(f'  explicit gate-config epoch ({gate_steps} steps): kernel_ms={gate_ms:.4f}')
+    calls += 4 + sum(gate_runs.values())
     plain_ms = cuda_median_ms(
         lambda: fused_mf_explicit_epoch_plain(*state(), *epoch_args(0, S), **kw),
         warmup=0, runs=1)
@@ -746,6 +1034,9 @@ def phase_kernel_explicit_epoch(ml10m_explicit):
         'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
         'library_ms': None,
         'generic_epoch_ms': generic_ms,
+        'gate_ms': gate_ms,
+        'device_launches_per_call': [profile, gate_profile],
+        'phases_us': [split, gate_split],
         'checked': True,
     }
 
@@ -753,21 +1044,15 @@ def phase_kernel_explicit_epoch(ml10m_explicit):
 def phase_training(ml10m, record: dict):
     """The training path: the gate configuration for 10 epochs, then the
     ML-10M-scale configuration for 3, both through ``CollieTrainer``."""
-    from collie_tpu_torch import (CollieTrainer, Interactions, InteractionsDataLoader,
-                                  MatrixFactorizationModel, auc, evaluate_in_batches, mapk,
-                                  mrr, stratified_split)
-    from collie_tpu_torch.data.synthetic import generate_implicit_interactions
+    from collie_tpu_torch import (CollieTrainer, Interactions, MatrixFactorizationModel, auc,
+                                  evaluate_in_batches, mapk, mrr)
     from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch
 
     with open(os.path.join('benchmarks', 'gates.json')) as f:
         gates = {name: spec['gate'] for name, spec in json.load(f).items()}
 
     # (a) the quality-gate configuration
-    train, test = stratified_split(generate_implicit_interactions(**GATE_DATA), test_p=0.2,
-                                   seed=42, force_split=True)
-    loader = InteractionsDataLoader(interactions=train, batch_size=1024, shuffle=True, seed=42)
-    model = MatrixFactorizationModel(train=loader, embedding_dim=10, lr=1e-1, loss='adaptive',
-                                     seed=42)
+    model, train, test = gate_model()
     reset_launch_counts()
     trainer = CollieTrainer(model, max_epochs=GATE_EPOCHS, verbosity=0, seed=42)
     trainer.fit(model)
@@ -840,10 +1125,7 @@ def phase_explicit_training(ml10m_explicit, record: dict):
     """The explicit training path: (c) the explicit gate configuration for
     10 epochs, (d) the explicit ML-10M-scale configuration for 3, both
     through ``CollieTrainer`` and ``explicit_evaluate_in_batches``."""
-    from collie_tpu_torch import (CollieTrainer, ExplicitInteractions,
-                                  MatrixFactorizationModel, explicit_evaluate_in_batches,
-                                  stratified_split)
-    from collie_tpu_torch.data.synthetic import generate_interactions_df
+    from collie_tpu_torch import CollieTrainer, explicit_evaluate_in_batches
     from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_explicit_epoch
 
     with open(os.path.join('benchmarks', 'gates.json')) as f:
@@ -859,14 +1141,7 @@ def phase_explicit_training(ml10m_explicit, record: dict):
                 f'{e["train_ms"]:.3f} + host {host_ms:.3f}')
 
     # (c) the explicit quality-gate configuration
-    df = generate_interactions_df(seed=EXPLICIT_GATE_DATA['seed'])
-    ratings = ExplicitInteractions(users=df['user_id'].values, items=df['item_id'].values,
-                                   ratings=df['rating'].values, allow_missing_ids=True,
-                                   num_users=EXPLICIT_GATE_DATA['num_users'],
-                                   num_items=EXPLICIT_GATE_DATA['num_items'])
-    train, test = stratified_split(ratings, test_p=0.2, seed=42, force_split=True)
-    model = MatrixFactorizationModel(train=train, embedding_dim=10, lr=EXPLICIT_LR, loss='mse',
-                                     y_range=Y_RANGE, seed=0)
+    model, train, test = explicit_gate_model()
     reset_launch_counts()
     trainer = CollieTrainer(model, max_epochs=GATE_EPOCHS, verbosity=0, seed=0)
     trainer.fit(model)
@@ -1057,12 +1332,24 @@ def phase_serving(seed: int, record: dict):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--epoch-times', action='store_true',
+                        help='only build the kernels and time one epoch call of each fused '
+                             'epoch kernel at the gate and ML-10M-scale configurations (runs '
+                             'against the collie_tpu_torch beside this script, so a copy of '
+                             'the script in another checkout times that checkout)')
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
 
     smi = phase_device()
     phase_build()
+    if args.epoch_times:
+        times = epoch_times(ml10m_data())
+        log(f'total_seconds={time.perf_counter() - t0:.1f}')
+        print(json.dumps({'epoch_times': times}))
+        print(smi)
+        return
     topk = phase_kernels()
+    gather_scatter = phase_gather_scatter()
     ml10m = ml10m_data()
     fused = phase_kernel_fused_epoch(ml10m['implicit'])
     explicit = phase_kernel_explicit_epoch(ml10m['explicit'])
@@ -1071,7 +1358,7 @@ def main(argv=None):
     phase_explicit_training(ml10m['explicit'], explicit)
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
-    print(json.dumps({'kernels': [topk, fused, explicit]}))
+    print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

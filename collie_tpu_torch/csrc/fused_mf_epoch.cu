@@ -1,5 +1,5 @@
 // One epoch of MF training, implicit or explicit, hand-written for Hopper
-// (sm_90a).
+// (sm_90a): one persistent cooperative launch per epoch call.
 //
 // Implicit: replaces the Pallas TPU kernel ``_epoch_kernel``
 // (collie_tpu/ops/pallas/fused_mf_epoch.py:148, launched by ``fused_mf_epoch``
@@ -17,34 +17,6 @@
 // User biases get no gradient from pairwise losses; the caller applies their
 // decay in closed form.
 //
-// The TPU design keeps the tables in VMEM across a sequential grid and
-// "gathers" with one-hot MXU matmuls against a [C, I] all-item score block.
-// Hopper gathers and scatters natively, so here:
-//   * mf_step_kernel: one warp per example (grid-stride over the batch),
-//     lanes over D.  The warp loads the user row and the positive row once,
-//     then each negative row in sample order; dots reduce with shuffles and
-//     lane 0's sum is broadcast so every lane takes the same branch.  The
-//     gradients go to [U,D], [I,D], [I] accumulators with atomicAdd
-//     (duplicate ids sum; the order of the sum changes from run to run), the
-//     loss to one atomicAdd per block.
-//   * mf_update_kernel: elementwise over (U + I) * D and I; Adam and SGD for
-//     step s with optax's rounding (no FMA contraction), and it zeroes each
-//     accumulator as it reads it.
-//   * collie_fused_mf_epoch: loops over the S steps launching both kernels on
-//     the caller's stream; one call per epoch.
-// Full FP32 arithmetic, no tensor cores and no TF32.
-//
-// Bound: the dense update is the least a step must move:
-// 32 (U + I) D bytes for the tables, both moments and the accumulator (read
-// and written) plus 16 I for the bias and its gradient, plus 4 B (K + 3) of
-// ids and mask; the gathered rows, 4 B (K + 2) D, mostly hit the 50 MB L2 at
-// these table sizes.  Operations are about 6 B (K + 1) D.  At the ML-10M
-// shape (U = 72,000, I = 10,000, D = 32, B = 65,536, K = 10) that is about
-// 85 MB a step against 0.14 GFLOP: bytes-bound, about 25 us a step at
-// 3.35 TB/s.  The design streams each table once per step in the update
-// kernel and keeps the step kernel's gathers cache-friendly; the atomics on
-// item rows are the part the bound does not count.
-//
 // Explicit: replaces the Pallas TPU kernel ``_explicit_epoch_kernel``
 // (collie_tpu/ops/pallas/fused_mf_epoch.py:337, launched by
 // ``fused_mf_explicit_epoch`` at :501).  For each step s, on the tables as
@@ -54,38 +26,73 @@
 // (``err^2``, derivative ``2 err``) or MAE (``|err|``, derivative
 // ``sign(err)`` with sign(0) = 0); ``g = w dl chain / max(sum w, 1)``; the
 // gradient ``g i`` to the user row, ``g u`` to the item row and ``g`` to both
-// biases.  Then the same update kernel: Adam on both tables and SGD with
-// coupled decay on BOTH bias vectors (pointwise losses give the user bias a
-// gradient, which pairwise losses cancel).
-//   * mf_explicit_step_kernel: one warp per example, lanes over D, two row
-//     loads and one dot; atomicAdd into [U,D], [I,D], [U], [I] accumulators.
-//   * mf_update_kernel (shared): elementwise over (U + I) D + U + I.
-//   * collie_fused_mf_explicit_epoch: S step/update launch pairs per call.
-// Bound: 32 (U + I) D + 16 (U + I) bytes a step for the update plus 16 B for
-// the ids, ratings and mask; about 8 B D operations.  At the explicit ML-10M
-// shape (U = 72,000, I = 10,000, D = 32, B = 65,536) about 86 MB a step,
-// 26 us at 3.35 TB/s: bytes-bound, as the implicit epoch.  At the small
-// gate shape the epoch is bound by its 2 S launches instead.
+// biases.  Then Adam on both tables and SGD with coupled decay on BOTH bias
+// vectors (pointwise losses give the user bias a gradient, which pairwise
+// losses cancel).
+//
+// The TPU design keeps the tables in VMEM across a sequential grid and
+// "gathers" with one-hot MXU matmuls against a [C, I] all-item score block.
+// Hopper gathers and scatters natively.  The design here:
+//   * One launch per epoch call (cudaLaunchCooperativeKernel, the co-resident
+//     grid from the occupancy query).  For each step: the step phase
+//     (grid-stride over the batch), the grid barrier of grid_barrier.cuh,
+//     the update phase (grid-stride over (U + I) D and the biases), the
+//     barrier again: 2 S barriers where S launch pairs used to be.  Tables,
+//     biases, moments and gradients change during the launch, so they are
+//     read with __ldcg (L2, never a stale L1 line); ids, masks and the
+//     per-step constants with __ldg.
+//   * Step phase: a group of G lanes per example (G = 8 for D <= 32 with
+//     D % 4 == 0, 16 for D <= 16, else up to 32), each lane holding its share
+//     of a row as float4 chunks (D % 4 == 0) or strided floats.  The group's
+//     lanes load the example's negative ids in one coalesced read and
+//     broadcast them with shuffles, issue all the row loads of a chunk of
+//     negatives before reducing any dot, then reduce the chunk's dots
+//     together (xor shuffles: every lane of a group ends with the same bits,
+//     so discrete choices are group-uniform).  Hardest negative: the first
+//     maximum, strict > from -1e30; WARP: the first violation in sample
+//     order.  Gradient rows go to [U,D], [I,D], [I] (and [U]) accumulators
+//     with 16-byte ``red.global.add.v4.f32`` when D % 4 == 0, else 4-byte
+//     atomicAdd (duplicate ids sum; the order of the sum changes from run to
+//     run); the loss to one atomicAdd per block.
+//   * Update phase: Adam and SGD for step s with optax's rounding
+//     (__fmul_rn/__fadd_rn, no FMA contraction), each table's four arrays
+//     streamed as float4 where they are 16-byte aligned, two units a thread
+//     with all eight loads in flight before either is stored, zeroing each
+//     accumulator as it reads it; block 0 divides the step's loss by its
+//     denominator after the barrier that follows all of the step's atomics.
+//   * Optionally, block 0 stamps the device clock after every phase into a
+//     caller's timeline, which shows where the one launch spends its time.
+// Full FP32 arithmetic, no tensor cores and no TF32.
+//
+// Bound: the dense update is the least a step must move: 32 (U + I) D bytes
+// for the tables, both moments and the accumulator (read and written) plus
+// 16 I (implicit) or 16 (U + I) (explicit) for the biases and their
+// gradients, plus the step's ids, mask and ratings; the gathered rows mostly
+// hit the 50 MB L2 at these table sizes.  At the ML-10M shape (U = 72,000,
+// I = 10,000, D = 32, B = 65,536, K = 10) that is about 85 MB a step: 25 us
+// at 3.35 TB/s, bytes-bound (operations: 6 B (K + 1) D implicit, 8 B D
+// explicit).  The atomics on popular item rows and the barriers are what the
+// bound does not count.  At the small gate shapes the whole epoch is a few
+// tens of microseconds of work and one launch.
 //
 // C interface (loaded with ctypes): collie_fused_mf_epoch(...) and
-// collie_fused_mf_explicit_epoch(...) return the first nonzero cudaError_t
-// of their launches, 0 on success.  They update the tables, biases and
-// moments in place, launch on the given stream, do not synchronise and
-// allocate nothing.
+// collie_fused_mf_explicit_epoch(...) return the cudaError_t of their launch
+// (a cooperative launch that does not fit is refused, not run), 0 on
+// success.  They update the tables, biases and moments in place, launch on
+// the given stream, do not synchronise and allocate nothing: the
+// accumulators, the losses and the barrier word come zeroed from the caller.
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
-#include <cmath>
 #include <cstdint>
-#include <type_traits>
+
+#include "grid_barrier.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 16;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kMaxDim = 256;
-constexpr int kUpdateThreads = 256;
 
 // loss_kind: 0 hinge, 1 bpr (collie's modified BPR), 2 warp
 constexpr int kHinge = 0;
@@ -102,52 +109,106 @@ constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
 constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
 constexpr float kEps = 1e-8f;
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// How a group of G lanes holds one embedding row: NV chunks per lane, each
+// a float4 (VEC, for D % 4 == 0) or one float; chunk j of lane `sub` starts
+// at dim W (sub + G j).
+template <int G_, int NV_, bool VEC_>
+struct Layout {
+  static constexpr int G = G_;
+  static constexpr int NV = NV_;
+  static constexpr bool VEC = VEC_;
+  static constexpr int W = VEC ? 4 : 1;
+  static constexpr int E = NV * W;  // floats per lane
+  // negatives whose rows a lane holds at once
+  static constexpr int C = E <= 2 ? 16 : (E <= 4 ? 8 : 4);
+  static_assert(C <= G, "a group's lanes load a chunk's negative ids in one read");
+  __device__ static int dim(int sub, int j) { return W * (sub + G * j); }
+};
+
 __device__ __forceinline__ int clamp_id(int id, int n) {
   return id < 0 ? 0 : (id >= n ? n - 1 : id);
 }
 
-// warp sum, lane 0's value broadcast so every lane holds the same bits
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return __shfl_sync(0xffffffffu, v, 0);
-}
-
-template <int PL>
-__device__ __forceinline__ void load_row(const float* __restrict__ table, int row, int D,
-                                         int lane, float (&out)[PL]) {
+template <class L>
+__device__ __forceinline__ void load_row(const float* __restrict__ table, int row, int D, int sub,
+                                         float (&out)[L::E]) {
   const float* base = table + static_cast<size_t>(row) * D;
 #pragma unroll
-  for (int j = 0; j < PL; ++j) {
-    const int d = lane + 32 * j;
-    out[j] = d < D ? __ldg(base + d) : 0.0f;
+  for (int j = 0; j < L::NV; ++j) {
+    const int d = L::dim(sub, j);
+    if constexpr (L::VEC) {
+      const float4 v = d < D ? __ldcg(reinterpret_cast<const float4*>(base + d))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      out[4 * j] = v.x;
+      out[4 * j + 1] = v.y;
+      out[4 * j + 2] = v.z;
+      out[4 * j + 3] = v.w;
+    } else {
+      out[j] = d < D ? __ldcg(base + d) : 0.0f;
+    }
   }
 }
 
-template <int PL>
-__device__ __forceinline__ float dot(const float (&a)[PL], const float (&b)[PL]) {
+template <class L>
+__device__ __forceinline__ void zero_row(float (&r)[L::E]) {
+#pragma unroll
+  for (int e = 0; e < L::E; ++e) r[e] = 0.0f;
+}
+
+template <class L>
+__device__ __forceinline__ float partial_dot(const float (&a)[L::E], const float (&b)[L::E]) {
   float acc = 0.0f;
 #pragma unroll
-  for (int j = 0; j < PL; ++j) acc = fmaf(a[j], b[j], acc);
-  return warp_sum(acc);
+  for (int e = 0; e < L::E; ++e) acc = fmaf(a[e], b[e], acc);
+  return acc;
 }
 
-template <int PL>
-__device__ __forceinline__ void scatter_row(float* __restrict__ acc, int row, int D, int lane,
-                                            float scale, const float (&v)[PL]) {
+// sum over the G lanes of each group; every lane of a group ends with the
+// same bits (each xor step adds the same two values on both lanes)
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+__device__ __forceinline__ void red_add_v4(float* p, float a, float b, float c, float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p), "f"(a), "f"(b),
+               "f"(c), "f"(d)
+               : "memory");
+}
+
+// acc[row] += scale * v
+template <class L>
+__device__ __forceinline__ void scatter_row(float* __restrict__ acc, int row, int D, int sub,
+                                            float scale, const float (&v)[L::E]) {
   float* base = acc + static_cast<size_t>(row) * D;
 #pragma unroll
-  for (int j = 0; j < PL; ++j) {
-    const int d = lane + 32 * j;
-    if (d < D) atomicAdd(base + d, scale * v[j]);
+  for (int j = 0; j < L::NV; ++j) {
+    const int d = L::dim(sub, j);
+    if (d >= D) continue;
+    if constexpr (L::VEC) {
+      red_add_v4(base + d, scale * v[4 * j], scale * v[4 * j + 1], scale * v[4 * j + 2],
+                 scale * v[4 * j + 3]);
+    } else {
+      atomicAdd(base + d, scale * v[j]);
+    }
   }
 }
 
-// the block's loss (lane 0 of each warp holds its warp's) into *loss_out
+// the block's loss into *loss_out: lane `sub == 0` of each group holds its
+// group's sum
 __device__ __forceinline__ void add_block_loss(float (&block_loss)[kWarpsPerBlock],
-                                               float loss_acc, int lane, int warp,
+                                               float loss_acc, int sub,
                                                float* __restrict__ loss_out) {
-  if (lane == 0) block_loss[warp] = loss_acc;
+  float v = sub == 0 ? loss_acc : 0.0f;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) block_loss[warp] = v;
   __syncthreads();
   if (threadIdx.x == 0) {
     float total = 0.0f;
@@ -163,7 +224,7 @@ __device__ __forceinline__ float ideal_gap(const int* __restrict__ meta,
   float ideal = 1.0f;
   for (int f = 0; f < F; ++f) {
     const int* row = meta + static_cast<size_t>(f) * I;
-    if (__ldg(row + p) == __ldg(row + n)) ideal = ideal - meta_w[f];
+    if (__ldg(row + p) == __ldg(row + n)) ideal = ideal - __ldg(meta_w + f);
   }
   return ideal;
 }
@@ -183,162 +244,364 @@ __device__ __forceinline__ void pair_loss(int loss_kind, float d, float ideal, f
   g = w * (1.0f + 2.0f * l) * dfac / denom;
 }
 
-template <int PL>
-__global__ void __launch_bounds__(kThreads)
-mf_step_kernel(const float* __restrict__ user_emb,   // [U, D]
-               const float* __restrict__ item_emb,   // [I, D]
-               const float* __restrict__ item_bias,  // [I]
-               const int* __restrict__ users,        // [B] of step s
-               const int* __restrict__ pos,          // [B]
-               const int* __restrict__ negs,         // [B, K]
-               const float* __restrict__ mask,       // [B]
-               const int* __restrict__ meta,         // [F, I]
-               const float* __restrict__ meta_w,     // [F]
-               int F, const float* __restrict__ denom_ptr, int U, int I, int D, int B, int K,
-               int loss_kind, int adaptive,
-               float* __restrict__ du, float* __restrict__ di, float* __restrict__ db,
-               float* __restrict__ loss_out) {
-  __shared__ float block_loss[kWarpsPerBlock];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float denom = *denom_ptr;
-  float loss_acc = 0.0f;
+// ------------------------------------------------------------------ update
 
-  for (int b = blockIdx.x * kWarpsPerBlock + warp; b < B; b += gridDim.x * kWarpsPerBlock) {
-    const float w = mask[b];
-    const int u = clamp_id(users[b], U);
-    const int p = clamp_id(pos[b], I);
-    const int* neg_b = negs + static_cast<size_t>(b) * K;
-    float ur[PL], pr[PL], nr[PL], du_acc[PL];
-    load_row<PL>(user_emb, u, D, lane, ur);
-    load_row<PL>(item_emb, p, D, lane, pr);
-    const float pos_score = dot<PL>(ur, pr) + __ldg(item_bias + p);
-#pragma unroll
-    for (int j = 0; j < PL; ++j) du_acc[j] = 0.0f;
-    float G = 0.0f;  // sum of the pairs' g: the positive's score gradient is -G
+struct Update {
+  float *user_emb, *mu_u, *nu_u, *du;
+  float *item_emb, *mu_i, *nu_i, *di;
+  float *user_bias, *dbu;  // explicit only; n_ubias = 0 for the implicit epoch
+  float *item_bias, *dbi;
+  long long n_user, n_item, n_ubias, n_ibias;  // elements
+  int vec_user, vec_item;                // the table's four arrays are float4-aligned
+  float lr_emb, lr_bias, wd_emb, wd_bias;
+};
 
-    if (loss_kind == kWarp) {
-      // first violation in sample order; none -> zero loss and gradient
-      for (int k = 0; k < K; ++k) {
-        const int n = clamp_id(neg_b[k], I);
-        load_row<PL>(item_emb, n, D, lane, nr);
-        const float sk = dot<PL>(ur, nr) + __ldg(item_bias + n);
-        const float h = ideal_gap(meta, meta_w, F, I, p, n) - pos_score + sk;
-        if (h > 0.0f) {
-          const float weight = static_cast<float>(log(static_cast<double>(I) / (k + 1)));
-          const float l = weight * h;
-          const float g = w * (1.0f + 2.0f * l) * weight / denom;
-          loss_acc += (l + l * l) * w;
-          G = g;
-#pragma unroll
-          for (int j = 0; j < PL; ++j) du_acc[j] = g * nr[j];
-          scatter_row<PL>(di, n, D, lane, g, ur);
-          if (lane == 0) atomicAdd(db + n, g);
-          break;
-        }
-      }
-    } else if (adaptive) {
-      // first maximum wins: strict > from -1e30, as jnp.argmax
-      float best = -1e30f;
-      int best_item = 0;
-      float br[PL];
-#pragma unroll
-      for (int j = 0; j < PL; ++j) br[j] = 0.0f;
-      bool loaded = false;
-      for (int k = 0; k < K; ++k) {
-        const int n = clamp_id(neg_b[k], I);
-        load_row<PL>(item_emb, n, D, lane, nr);
-        const float sk = dot<PL>(ur, nr) + __ldg(item_bias + n);
-        if (sk > best) {
-          best = sk;
-          best_item = n;
-          loaded = true;
-#pragma unroll
-          for (int j = 0; j < PL; ++j) br[j] = nr[j];
-        }
-      }
-      if (!loaded) load_row<PL>(item_emb, best_item, D, lane, br);
-      float l, g;
-      pair_loss(loss_kind, pos_score - best, ideal_gap(meta, meta_w, F, I, p, best_item), w,
-                denom, l, g);
-      loss_acc += (l + l * l) * w;
-      if (g != 0.0f) {
-        G = g;
-#pragma unroll
-        for (int j = 0; j < PL; ++j) du_acc[j] = g * br[j];
-        scatter_row<PL>(di, best_item, D, lane, g, ur);
-        if (lane == 0) atomicAdd(db + best_item, g);
-      }
-    } else {
-      for (int k = 0; k < K; ++k) {
-        const int n = clamp_id(neg_b[k], I);
-        load_row<PL>(item_emb, n, D, lane, nr);
-        const float sk = dot<PL>(ur, nr) + __ldg(item_bias + n);
-        float l, g;
-        pair_loss(loss_kind, pos_score - sk, ideal_gap(meta, meta_w, F, I, p, n), w, denom,
-                  l, g);
-        loss_acc += (l + l * l) * w;
-        if (g != 0.0f) {
-          G += g;
-#pragma unroll
-          for (int j = 0; j < PL; ++j) du_acc[j] = fmaf(g, nr[j], du_acc[j]);
-          scatter_row<PL>(di, n, D, lane, g, ur);
-          if (lane == 0) atomicAdd(db + n, g);
-        }
-      }
-    }
-
-    if (G != 0.0f) {
-#pragma unroll
-      for (int j = 0; j < PL; ++j) du_acc[j] = fmaf(-G, pr[j], du_acc[j]);
-      scatter_row<PL>(du, u, D, lane, 1.0f, du_acc);
-      scatter_row<PL>(di, p, D, lane, -G, ur);
-      if (lane == 0) atomicAdd(db + p, -G);
-    }
-  }
-  add_block_loss(block_loss, loss_acc, lane, warp, loss_out);
+// optax adam on one element, with torch-coupled decay
+__device__ __forceinline__ void adam_math(float g, float& p, float& m, float& v, float bc1,
+                                          float bc2, float lr, float wd) {
+  if (wd != 0.0f) g = __fadd_rn(g, __fmul_rn(wd, p));
+  m = __fadd_rn(__fmul_rn(kOneMinusB1, g), __fmul_rn(kB1, m));
+  v = __fadd_rn(__fmul_rn(kOneMinusB2, __fmul_rn(g, g)), __fmul_rn(kB2, v));
+  const float step = __fdiv_rn(__fdiv_rn(m, bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), kEps));
+  p = __fsub_rn(p, __fmul_rn(lr, step));
 }
 
-template <int PL>
-__global__ void __launch_bounds__(kThreads)
-mf_explicit_step_kernel(const float* __restrict__ user_emb,   // [U, D]
-                        const float* __restrict__ item_emb,   // [I, D]
-                        const float* __restrict__ user_bias,  // [U]
-                        const float* __restrict__ item_bias,  // [I]
-                        const int* __restrict__ users,        // [B] of step s
-                        const int* __restrict__ items,        // [B]
-                        const float* __restrict__ ratings,    // [B]
-                        const float* __restrict__ mask,       // [B]
-                        const float* __restrict__ denom_ptr, int U, int I, int D, int B,
-                        int loss_kind, int y_range, float y_lo, float y_span,
-                        float* __restrict__ du, float* __restrict__ di,
-                        float* __restrict__ dbu, float* __restrict__ dbi,
-                        float* __restrict__ loss_out) {
-  __shared__ float block_loss[kWarpsPerBlock];
+__device__ __forceinline__ void adam_elem(float* __restrict__ emb, float* __restrict__ mu,
+                                          float* __restrict__ nu, float* __restrict__ grad,
+                                          size_t i, float bc1, float bc2, float lr, float wd) {
+  const float g = __ldcg(grad + i);
+  grad[i] = 0.0f;
+  float p = __ldcg(emb + i), m = __ldcg(mu + i), v = __ldcg(nu + i);
+  adam_math(g, p, m, v, bc1, bc2, lr, wd);
+  mu[i] = m;
+  nu[i] = v;
+  emb[i] = p;
+}
+
+// sgd with torch-coupled decay on one bias element
+__device__ __forceinline__ void sgd_elem(float* __restrict__ bias, float* __restrict__ grad,
+                                         size_t i, float lr, float wd) {
+  float g = __ldcg(grad + i);
+  grad[i] = 0.0f;
+  const float b = __ldcg(bias + i);
+  if (wd != 0.0f) g = __fadd_rn(g, __fmul_rn(wd, b));
+  bias[i] = __fsub_rn(b, __fmul_rn(lr, g));
+}
+
+// Adam over one table's n elements, grid-stride; two float4 units a thread
+// an iteration, all eight loads issued before either unit is stored
+__device__ __forceinline__ void adam_range(float* __restrict__ emb, float* __restrict__ mu,
+                                           float* __restrict__ nu, float* __restrict__ grad,
+                                           long long n, int vec, float bc1, float bc2, float lr,
+                                           float wd) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t tid = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (!vec) {
+    for (size_t i = tid; i < static_cast<size_t>(n); i += stride)
+      adam_elem(emb, mu, nu, grad, i, bc1, bc2, lr, wd);
+    return;
+  }
+  const size_t n4 = static_cast<size_t>(n) / 4;
+  float4* g4 = reinterpret_cast<float4*>(grad);
+  float4* p4 = reinterpret_cast<float4*>(emb);
+  float4* m4 = reinterpret_cast<float4*>(mu);
+  float4* v4 = reinterpret_cast<float4*>(nu);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (size_t i = tid; i < n4; i += 2 * stride) {
+    const size_t j = i + stride;
+    const bool two = j < n4;
+    const float4 ga = __ldcg(g4 + i);
+    float4 pa = __ldcg(p4 + i), ma = __ldcg(m4 + i), va = __ldcg(v4 + i);
+    float4 gb = zero, pb = zero, mb = zero, vb = zero;
+    if (two) {
+      gb = __ldcg(g4 + j);
+      pb = __ldcg(p4 + j);
+      mb = __ldcg(m4 + j);
+      vb = __ldcg(v4 + j);
+    }
+    adam_math(ga.x, pa.x, ma.x, va.x, bc1, bc2, lr, wd);
+    adam_math(ga.y, pa.y, ma.y, va.y, bc1, bc2, lr, wd);
+    adam_math(ga.z, pa.z, ma.z, va.z, bc1, bc2, lr, wd);
+    adam_math(ga.w, pa.w, ma.w, va.w, bc1, bc2, lr, wd);
+    g4[i] = zero;
+    m4[i] = ma;
+    v4[i] = va;
+    p4[i] = pa;
+    if (two) {
+      adam_math(gb.x, pb.x, mb.x, vb.x, bc1, bc2, lr, wd);
+      adam_math(gb.y, pb.y, mb.y, vb.y, bc1, bc2, lr, wd);
+      adam_math(gb.z, pb.z, mb.z, vb.z, bc1, bc2, lr, wd);
+      adam_math(gb.w, pb.w, mb.w, vb.w, bc1, bc2, lr, wd);
+      g4[j] = zero;
+      m4[j] = mb;
+      v4[j] = vb;
+      p4[j] = pb;
+    }
+  }
+}
+
+// Step s's update: Adam on both tables, sgd on the biases (the implicit
+// epoch passes n_ubias = 0: its user biases get no data gradient).
+__device__ void update_phase(const Update& u, float bc1, float bc2) {
+  adam_range(u.user_emb, u.mu_u, u.nu_u, u.du, u.n_user, u.vec_user, bc1, bc2, u.lr_emb,
+             u.wd_emb);
+  adam_range(u.item_emb, u.mu_i, u.nu_i, u.di, u.n_item, u.vec_item, bc1, bc2, u.lr_emb,
+             u.wd_emb);
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t n_biases = static_cast<size_t>(u.n_ubias + u.n_ibias);
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n_biases;
+       i += stride) {
+    if (i < static_cast<size_t>(u.n_ubias))
+      sgd_elem(u.user_bias, u.dbu, i, u.lr_bias, u.wd_bias);
+    else
+      sgd_elem(u.item_bias, u.dbi, i - u.n_ubias, u.lr_bias, u.wd_bias);
+  }
+}
+
+// block 0's thread 0 stamps the device clock (ns) into timeline[k], when the
+// caller asked for the phases' times
+__device__ __forceinline__ void stamp(unsigned long long* timeline, int k) {
+  if (timeline != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    timeline[k] = t;
+  }
+}
+
+// after the barrier that follows all of step s's loss atomics
+__device__ __forceinline__ void finish_loss(float* losses, const float* denoms, int s) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) losses[s] = __ldcg(losses + s) / __ldg(denoms + s);
+}
+
+// ---------------------------------------------------------------- implicit
+
+struct ImplicitEpoch {
+  Update up;
+  const int *users, *pos, *negs;  // [S, B], [S, B], [S, B, K]
+  const float* mask;              // [S, B]
+  const int* meta;                // [F, I]
+  const float* meta_w;            // [F]
+  const float *denoms, *bc1s, *bc2s;  // [S]
+  float* losses;                      // [S]
+  unsigned int* barrier;
+  unsigned long long* timeline;       // [2 S + 1] or null
+  int F, U, I, D, S, B, K, loss_kind, adaptive;
+};
+
+template <class L>
+__device__ void implicit_step(const ImplicitEpoch& e, int s,
+                              float (&block_loss)[kWarpsPerBlock]) {
+  constexpr int G = L::G, E = L::E, C = L::C, GPW = 32 / G;
+  const float* user_emb = e.up.user_emb;
+  const float* item_emb = e.up.item_emb;
+  const float* item_bias = e.up.item_bias;
+  float* du = e.up.du;
+  float* di = e.up.di;
+  float* db = e.up.dbi;
+  const int D = e.D, K = e.K, I = e.I, B = e.B;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float denom = *denom_ptr;
+  const int sub = lane % G;
+  const int group_lane0 = lane - sub;
+  const size_t off = static_cast<size_t>(s) * B;
+  const float denom = __ldg(e.denoms + s);
   float loss_acc = 0.0f;
 
-  for (int b = blockIdx.x * kWarpsPerBlock + warp; b < B; b += gridDim.x * kWarpsPerBlock) {
-    const float w = mask[b];
-    const int u = clamp_id(users[b], U);
-    const int it = clamp_id(items[b], I);
-    float ur[PL], ir[PL];
-    load_row<PL>(user_emb, u, D, lane, ur);
-    load_row<PL>(item_emb, it, D, lane, ir);
-    // every lane holds lane 0's dot, so every lane computes the same g
-    const float raw = dot<PL>(ur, ir) + __ldg(item_bias + it) + __ldg(user_bias + u);
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int n_warps = gridDim.x * kWarpsPerBlock;
+  for (int first = warp * GPW; first < B; first += n_warps * GPW) {  // warp-uniform
+    const int b = first + lane / G;
+    const bool valid = b < B;
+    const size_t ex = off + (valid ? b : B - 1);
+    const float w = valid ? __ldg(e.mask + ex) : 0.0f;
+    const int u = clamp_id(__ldg(e.users + ex), e.U);
+    const int p = clamp_id(__ldg(e.pos + ex), I);
+    const int* neg_b = e.negs + ex * K;
+    float ur[E], pr[E], du_acc[E], sel[E];
+    load_row<L>(user_emb, u, D, sub, ur);
+    load_row<L>(item_emb, p, D, sub, pr);
+    const float pos_bias = __ldcg(item_bias + p);
+    const float pos_score = group_sum<G>(partial_dot<L>(ur, pr)) + pos_bias;
+    zero_row<L>(du_acc);
+    zero_row<L>(sel);
+    float gsum = 0.0f;  // sum of the pairs' g: the positive's score gradient is -gsum
+    // adaptive: the first maximum; warp: the first violation
+    float best = -1e30f;
+    int best_item = 0;
+    bool found = false;
+
+    for (int k0 = 0; k0 < K; k0 += C) {  // warp-uniform
+      // the chunk's negative ids: one coalesced read per group, then shuffles
+      const int my_k = k0 + sub;
+      const int my_id = (sub < C && my_k < K) ? clamp_id(__ldg(neg_b + my_k), I) : 0;
+      int nid[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) nid[c] = __shfl_sync(kFull, my_id, group_lane0 + c);
+      // every row of the chunk in flight before any dot is reduced
+      float nr[C][E];
+      float nb[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (k0 + c < K) {
+          load_row<L>(item_emb, nid[c], D, sub, nr[c]);
+          nb[c] = __ldcg(item_bias + nid[c]);
+        } else {
+          zero_row<L>(nr[c]);
+          nb[c] = 0.0f;
+        }
+      }
+      float sc[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) sc[c] = partial_dot<L>(ur, nr[c]);
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) sc[c] += __shfl_xor_sync(kFull, sc[c], o);
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int k = k0 + c;
+        if (k >= K) continue;
+        const int n = nid[c];
+        const float sk = sc[c] + nb[c];
+        if (e.loss_kind == kWarp) {
+          if (found) continue;
+          const float h = ideal_gap(e.meta, e.meta_w, e.F, I, p, n) - pos_score + sk;
+          if (h > 0.0f) {
+            const float weight = static_cast<float>(log(static_cast<double>(I) / (k + 1)));
+            const float l = weight * h;
+            const float g = w * (1.0f + 2.0f * l) * weight / denom;
+            loss_acc += (l + l * l) * w;
+            gsum = g;
+            found = true;
+#pragma unroll
+            for (int j = 0; j < E; ++j) du_acc[j] = g * nr[c][j];
+            if (valid) {
+              scatter_row<L>(di, n, D, sub, g, ur);
+              if (sub == 0) atomicAdd(db + n, g);
+            }
+          }
+        } else if (e.adaptive) {
+          if (sk > best) {
+            best = sk;
+            best_item = n;
+            found = true;
+#pragma unroll
+            for (int j = 0; j < E; ++j) sel[j] = nr[c][j];
+          }
+        } else {
+          float l, g;
+          pair_loss(e.loss_kind, pos_score - sk, ideal_gap(e.meta, e.meta_w, e.F, I, p, n), w,
+                    denom, l, g);
+          loss_acc += (l + l * l) * w;
+          if (g != 0.0f) {
+            gsum += g;
+#pragma unroll
+            for (int j = 0; j < E; ++j) du_acc[j] = fmaf(g, nr[c][j], du_acc[j]);
+            if (valid) {
+              scatter_row<L>(di, n, D, sub, g, ur);
+              if (sub == 0) atomicAdd(db + n, g);
+            }
+          }
+        }
+      }
+      // WARP: no more rows once every group of the warp has its violation
+      if (e.loss_kind == kWarp && __all_sync(kFull, found)) break;
+    }
+
+    if (e.loss_kind != kWarp && e.adaptive) {
+      if (!found) load_row<L>(item_emb, best_item, D, sub, sel);
+      float l, g;
+      pair_loss(e.loss_kind, pos_score - best, ideal_gap(e.meta, e.meta_w, e.F, I, p, best_item),
+                w, denom, l, g);
+      loss_acc += (l + l * l) * w;
+      if (g != 0.0f) {
+        gsum = g;
+#pragma unroll
+        for (int j = 0; j < E; ++j) du_acc[j] = g * sel[j];
+        if (valid) {
+          scatter_row<L>(di, best_item, D, sub, g, ur);
+          if (sub == 0) atomicAdd(db + best_item, g);
+        }
+      }
+    }
+
+    if (gsum != 0.0f && valid) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) du_acc[j] = fmaf(-gsum, pr[j], du_acc[j]);
+      scatter_row<L>(du, u, D, sub, 1.0f, du_acc);
+      scatter_row<L>(di, p, D, sub, -gsum, ur);
+      if (sub == 0) atomicAdd(db + p, -gsum);
+    }
+  }
+  add_block_loss(block_loss, loss_acc, sub, e.losses + s);
+}
+
+template <class L>
+__global__ void __launch_bounds__(kThreads) mf_epoch_kernel(const ImplicitEpoch e) {
+  __shared__ float block_loss[kWarpsPerBlock];
+  stamp(e.timeline, 0);
+  for (int s = 0; s < e.S; ++s) {
+    implicit_step<L>(e, s, block_loss);
+    collie::grid_sync(e.barrier);
+    stamp(e.timeline, 2 * s + 1);
+    finish_loss(e.losses, e.denoms, s);
+    update_phase(e.up, __ldg(e.bc1s + s), __ldg(e.bc2s + s));
+    collie::grid_sync(e.barrier);
+    stamp(e.timeline, 2 * s + 2);
+  }
+}
+
+// ---------------------------------------------------------------- explicit
+
+struct ExplicitEpoch {
+  Update up;
+  const int *users, *items;       // [S, B]
+  const float *ratings, *mask;    // [S, B]
+  const float *denoms, *bc1s, *bc2s;  // [S]
+  float* losses;                      // [S]
+  unsigned int* barrier;
+  unsigned long long* timeline;       // [2 S + 1] or null
+  int U, I, D, S, B, loss_kind, y_range;
+  float y_lo, y_span;
+};
+
+template <class L>
+__device__ void explicit_step(const ExplicitEpoch& e, int s,
+                              float (&block_loss)[kWarpsPerBlock]) {
+  constexpr int G = L::G, E = L::E, GPW = 32 / G;
+  const int D = e.D, B = e.B;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % G;
+  const size_t off = static_cast<size_t>(s) * B;
+  const float denom = __ldg(e.denoms + s);
+  float loss_acc = 0.0f;
+
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int n_warps = gridDim.x * kWarpsPerBlock;
+  for (int first = warp * GPW; first < B; first += n_warps * GPW) {  // warp-uniform
+    const int b = first + lane / G;
+    const bool valid = b < B;
+    const size_t ex = off + (valid ? b : B - 1);
+    const float w = valid ? __ldg(e.mask + ex) : 0.0f;
+    const int u = clamp_id(__ldg(e.users + ex), e.U);
+    const int it = clamp_id(__ldg(e.items + ex), e.I);
+    float ur[E], ir[E];
+    load_row<L>(e.up.user_emb, u, D, sub, ur);
+    load_row<L>(e.up.item_emb, it, D, sub, ir);
+    const float ib = __ldcg(e.up.item_bias + it);
+    const float ub = __ldcg(e.up.user_bias + u);
+    // every lane of the group holds the same dot, so the same g
+    const float raw = group_sum<G>(partial_dot<L>(ur, ir)) + ib + ub;
     float pred = raw;
     float chain = 1.0f;
-    if (y_range) {
+    if (e.y_range) {
       const float sig = 1.0f / (1.0f + expf(-raw));
-      pred = y_lo + y_span * sig;
-      chain = y_span * sig * (1.0f - sig);
+      pred = e.y_lo + e.y_span * sig;
+      chain = e.y_span * sig * (1.0f - sig);
     }
-    const float err = pred - ratings[b];
+    const float err = pred - __ldg(e.ratings + ex);
     float l, dl;
-    if (loss_kind == kMse) {
+    if (e.loss_kind == kMse) {
       l = err * err;
       dl = 2.0f * err;
     } else {
@@ -347,112 +610,77 @@ mf_explicit_step_kernel(const float* __restrict__ user_emb,   // [U, D]
     }
     loss_acc += l * w;
     const float g = w * dl * chain / denom;
-    if (g != 0.0f) {
-      scatter_row<PL>(du, u, D, lane, g, ir);
-      scatter_row<PL>(di, it, D, lane, g, ur);
-      if (lane == 0) {
-        atomicAdd(dbu + u, g);
-        atomicAdd(dbi + it, g);
+    if (g != 0.0f && valid) {
+      scatter_row<L>(e.up.du, u, D, sub, g, ir);
+      scatter_row<L>(e.up.di, it, D, sub, g, ur);
+      if (sub == 0) {
+        atomicAdd(e.up.dbu + u, g);
+        atomicAdd(e.up.dbi + it, g);
       }
     }
   }
-  add_block_loss(block_loss, loss_acc, lane, warp, loss_out);
+  add_block_loss(block_loss, loss_acc, sub, e.losses + s);
 }
 
-__device__ __forceinline__ void adam_elem(float* __restrict__ emb, float* __restrict__ mu,
-                                          float* __restrict__ nu, float* __restrict__ grad,
-                                          size_t i, float bc1, float bc2, float lr,
-                                          float wd) {
-  float g = grad[i];
-  grad[i] = 0.0f;
-  const float p = emb[i];
-  if (wd != 0.0f) g = __fadd_rn(g, __fmul_rn(wd, p));
-  const float m = __fadd_rn(__fmul_rn(kOneMinusB1, g), __fmul_rn(kB1, mu[i]));
-  const float v = __fadd_rn(__fmul_rn(kOneMinusB2, __fmul_rn(g, g)), __fmul_rn(kB2, nu[i]));
-  mu[i] = m;
-  nu[i] = v;
-  const float step = __fdiv_rn(__fdiv_rn(m, bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), kEps));
-  emb[i] = __fsub_rn(p, __fmul_rn(lr, step));
-}
-
-// sgd with torch-coupled decay on one bias element
-__device__ __forceinline__ void sgd_elem(float* __restrict__ bias, float* __restrict__ grad,
-                                         size_t i, float lr, float wd) {
-  float g = grad[i];
-  grad[i] = 0.0f;
-  const float b = bias[i];
-  if (wd != 0.0f) g = __fadd_rn(g, __fmul_rn(wd, b));
-  bias[i] = __fsub_rn(b, __fmul_rn(lr, g));
-}
-
-// Step s's update over the flat range [user table | item table | user bias |
-// item bias]: Adam on the tables, sgd on the biases.  The implicit epoch
-// passes n_ubias = 0: its user biases get no data gradient.
-__global__ void __launch_bounds__(kUpdateThreads)
-mf_update_kernel(float* __restrict__ user_emb, float* __restrict__ mu_u,
-                 float* __restrict__ nu_u, float* __restrict__ du, size_t n_user,
-                 float* __restrict__ item_emb, float* __restrict__ mu_i,
-                 float* __restrict__ nu_i, float* __restrict__ di, size_t n_item,
-                 float* __restrict__ user_bias, float* __restrict__ dbu, size_t n_ubias,
-                 float* __restrict__ item_bias, float* __restrict__ dbi, size_t n_ibias,
-                 const float* __restrict__ bc1s, const float* __restrict__ bc2s, int s,
-                 float lr_emb, float lr_bias, float wd_emb, float wd_bias,
-                 float* __restrict__ losses, const float* __restrict__ denoms) {
-  const float bc1 = bc1s[s];
-  const float bc2 = bc2s[s];
-  const size_t n_tables = n_user + n_item;
-  const size_t total = n_tables + n_ubias + n_ibias;
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    if (i < n_user) {
-      adam_elem(user_emb, mu_u, nu_u, du, i, bc1, bc2, lr_emb, wd_emb);
-    } else if (i < n_tables) {
-      adam_elem(item_emb, mu_i, nu_i, di, i - n_user, bc1, bc2, lr_emb, wd_emb);
-    } else if (i < n_tables + n_ubias) {
-      sgd_elem(user_bias, dbu, i - n_tables, lr_bias, wd_bias);
-    } else {
-      sgd_elem(item_bias, dbi, i - n_tables - n_ubias, lr_bias, wd_bias);
-    }
+template <class L>
+__global__ void __launch_bounds__(kThreads) mf_explicit_epoch_kernel(const ExplicitEpoch e) {
+  __shared__ float block_loss[kWarpsPerBlock];
+  stamp(e.timeline, 0);
+  for (int s = 0; s < e.S; ++s) {
+    explicit_step<L>(e, s, block_loss);
+    collie::grid_sync(e.barrier);
+    stamp(e.timeline, 2 * s + 1);
+    finish_loss(e.losses, e.denoms, s);
+    update_phase(e.up, __ldg(e.bc1s + s), __ldg(e.bc2s + s));
+    collie::grid_sync(e.barrier);
+    stamp(e.timeline, 2 * s + 2);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) losses[s] = losses[s] / denoms[s];
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int device = 0;
-    cudaGetDevice(&device);
-    if (cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-        count <= 0)
-      count = 132;
-  }
-  return count;
+// ------------------------------------------------------------------ launch
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// a [rows, D] table, its moments and its accumulator can be updated as float4
+int vec_ok(int rows, int D, const float* a, const float* b, const float* c, const float* d) {
+  return static_cast<long long>(rows) * D % 4 == 0 && aligned16(a) && aligned16(b) &&
+         aligned16(c) && aligned16(d);
 }
 
-int step_grid(int B) {
-  return std::min((B + kWarpsPerBlock - 1) / kWarpsPerBlock, sm_count() * 8);
-}
-
-int update_grid(size_t total) {
-  return static_cast<int>(std::min<size_t>((total + kUpdateThreads - 1) / kUpdateThreads,
-                                           static_cast<size_t>(sm_count()) * 16));
-}
-
-// floats of an embedding row each lane holds
-int per_lane(int D) { return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : 8; }
-
-// Calls ``launch`` with std::integral_constant<int, PL> for the floats of
-// an embedding row each lane holds, and returns the launch's error.
+// Calls ``launch`` with the Layout type for D (1 <= D <= kMaxDim) and
+// returns its error.
 template <typename Launch>
-cudaError_t with_per_lane(int D, Launch&& launch) {
-  switch (per_lane(D)) {
-    case 1: launch(std::integral_constant<int, 1>{}); break;
-    case 2: launch(std::integral_constant<int, 2>{}); break;
-    case 4: launch(std::integral_constant<int, 4>{}); break;
-    default: launch(std::integral_constant<int, 8>{}); break;
+cudaError_t with_layout(int D, bool rows_aligned, Launch&& launch) {
+  if (D % 4 == 0 && rows_aligned) {
+    if (D <= 32) return launch(Layout<8, 1, true>{});
+    if (D <= 64) return launch(Layout<16, 1, true>{});
+    if (D <= 128) return launch(Layout<32, 1, true>{});
+    return launch(Layout<32, 2, true>{});
   }
-  return cudaGetLastError();
+  if (D <= 16) return launch(Layout<16, 1, false>{});
+  if (D <= 32) return launch(Layout<32, 1, false>{});
+  if (D <= 64) return launch(Layout<32, 2, false>{});
+  if (D <= 128) return launch(Layout<32, 4, false>{});
+  return launch(Layout<32, 8, false>{});
+}
+
+// one cooperative launch of `kernel<L>` over the co-resident grid, capped at
+// the blocks either phase can use
+template <class L, class Params>
+cudaError_t launch_epoch(void (*kernel)(Params), Params& params, int B, const Update& up,
+                         cudaStream_t stream) {
+  constexpr int examples_per_block = kWarpsPerBlock * (32 / L::G);
+  const long long step_blocks = (B + examples_per_block - 1) / examples_per_block;
+  const long long units = (up.vec_user ? up.n_user / 8 : up.n_user) +
+                          (up.vec_item ? up.n_item / 8 : up.n_item) + up.n_ubias + up.n_ibias;
+  const long long update_blocks = (units + kThreads - 1) / kThreads;
+  int grid = 0;
+  const cudaError_t err = collie::cooperative_grid(
+      kernel, kThreads, step_blocks > update_blocks ? step_blocks : update_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&params};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                     dim3(kThreads), args, 0, stream);
 }
 
 }  // namespace
@@ -467,37 +695,46 @@ extern "C" int collie_fused_mf_epoch(
     const int* meta, const float* meta_w, int F,             // [F, I], [F]
     const float* denoms, const float* bc1s, const float* bc2s,  // [S] each, on the device
     float* du, float* di, float* db,                         // zeroed accumulators
-    float* losses,                                           // [S], zeroed
+    float* losses, unsigned int* barrier,                    // [S] and one word, zeroed
+    unsigned long long* timeline,                            // [2 S + 1] or null
     int U, int I, int D, int S, int B, int K, int loss_kind, int adaptive,
     float lr_emb, float lr_bias, float wd_emb, float wd_bias, void* stream_ptr) {
   if (D < 1 || D > kMaxDim || K < 1 || B < 1 || U < 1 || I < 1 || S < 0 || F < 0 ||
       loss_kind < kHinge || loss_kind > kWarp)
     return static_cast<int>(cudaErrorInvalidValue);
+  ImplicitEpoch e{};
+  e.up = Update{user_emb, mu_u, nu_u, du, item_emb, mu_i, nu_i, di, nullptr, nullptr,
+                item_bias, db, static_cast<long long>(U) * D, static_cast<long long>(I) * D, 0, I,
+                vec_ok(U, D, user_emb, mu_u, nu_u, du), vec_ok(I, D, item_emb, mu_i, nu_i, di),
+                lr_emb, lr_bias, wd_emb, wd_bias};
+  e.users = users;
+  e.pos = pos;
+  e.negs = negs;
+  e.mask = mask;
+  e.meta = meta;
+  e.meta_w = meta_w;
+  e.denoms = denoms;
+  e.bc1s = bc1s;
+  e.bc2s = bc2s;
+  e.losses = losses;
+  e.barrier = barrier;
+  e.timeline = timeline;
+  e.F = F;
+  e.U = U;
+  e.I = I;
+  e.D = D;
+  e.S = S;
+  e.B = B;
+  e.K = K;
+  e.loss_kind = loss_kind;
+  e.adaptive = adaptive;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int sgrid = step_grid(B);
-  const size_t n_user = static_cast<size_t>(U) * D;
-  const size_t n_item = static_cast<size_t>(I) * D;
-  const int ugrid = update_grid(n_user + n_item + static_cast<size_t>(I));
-  for (int s = 0; s < S; ++s) {
-    const size_t off = static_cast<size_t>(s) * B;
-    const int* u_s = users + off;
-    const int* p_s = pos + off;
-    const int* n_s = negs + off * K;
-    const float* m_s = mask + off;
-    cudaError_t err = with_per_lane(D, [&](auto pl) {
-      mf_step_kernel<decltype(pl)::value><<<sgrid, kThreads, 0, stream>>>(
-          user_emb, item_emb, item_bias, u_s, p_s, n_s, m_s, meta, meta_w, F, denoms + s, U, I,
-          D, B, K, loss_kind, adaptive, du, di, db, losses + s);
-    });
-    if (err != cudaSuccess) return static_cast<int>(err);
-    mf_update_kernel<<<ugrid, kUpdateThreads, 0, stream>>>(
-        user_emb, mu_u, nu_u, du, n_user, item_emb, mu_i, nu_i, di, n_item, nullptr, nullptr, 0,
-        item_bias, db, static_cast<size_t>(I), bc1s, bc2s, s, lr_emb, lr_bias, wd_emb, wd_bias,
-        losses, denoms);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  const bool rows_aligned = aligned16(user_emb) && aligned16(item_emb) && aligned16(du) &&
+                            aligned16(di);
+  return static_cast<int>(with_layout(D, rows_aligned, [&](auto layout) {
+    using L = decltype(layout);
+    return launch_epoch<L>(mf_epoch_kernel<L>, e, B, e.up, stream);
+  }));
 }
 
 extern "C" int collie_fused_mf_explicit_epoch(
@@ -508,35 +745,42 @@ extern "C" int collie_fused_mf_explicit_epoch(
     const float* ratings, const float* mask,                 // [S, B] each
     const float* denoms, const float* bc1s, const float* bc2s,  // [S] each, on the device
     float* du, float* di, float* dbu, float* dbi,            // zeroed accumulators
-    float* losses,                                           // [S], zeroed
+    float* losses, unsigned int* barrier,                    // [S] and one word, zeroed
+    unsigned long long* timeline,                            // [2 S + 1] or null
     int U, int I, int D, int S, int B, int loss_kind, int y_range, float y_lo, float y_span,
     float lr_emb, float lr_bias, float wd_emb, float wd_bias, void* stream_ptr) {
   if (D < 1 || D > kMaxDim || B < 1 || U < 1 || I < 1 || S < 0 || loss_kind < kMse ||
       loss_kind > kMae)
     return static_cast<int>(cudaErrorInvalidValue);
+  ExplicitEpoch e{};
+  e.up = Update{user_emb, mu_u, nu_u, du, item_emb, mu_i, nu_i, di, user_bias, dbu,
+                item_bias, dbi, static_cast<long long>(U) * D, static_cast<long long>(I) * D, U, I,
+                vec_ok(U, D, user_emb, mu_u, nu_u, du), vec_ok(I, D, item_emb, mu_i, nu_i, di),
+                lr_emb, lr_bias, wd_emb, wd_bias};
+  e.users = users;
+  e.items = items;
+  e.ratings = ratings;
+  e.mask = mask;
+  e.denoms = denoms;
+  e.bc1s = bc1s;
+  e.bc2s = bc2s;
+  e.losses = losses;
+  e.barrier = barrier;
+  e.timeline = timeline;
+  e.U = U;
+  e.I = I;
+  e.D = D;
+  e.S = S;
+  e.B = B;
+  e.loss_kind = loss_kind;
+  e.y_range = y_range;
+  e.y_lo = y_lo;
+  e.y_span = y_span;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int sgrid = step_grid(B);
-  const size_t n_user = static_cast<size_t>(U) * D;
-  const size_t n_item = static_cast<size_t>(I) * D;
-  const int ugrid = update_grid(n_user + n_item + static_cast<size_t>(U) + I);
-  for (int s = 0; s < S; ++s) {
-    const size_t off = static_cast<size_t>(s) * B;
-    const int* u_s = users + off;
-    const int* i_s = items + off;
-    const float* r_s = ratings + off;
-    const float* m_s = mask + off;
-    cudaError_t err = with_per_lane(D, [&](auto pl) {
-      mf_explicit_step_kernel<decltype(pl)::value><<<sgrid, kThreads, 0, stream>>>(
-          user_emb, item_emb, user_bias, item_bias, u_s, i_s, r_s, m_s, denoms + s, U, I, D, B,
-          loss_kind, y_range, y_lo, y_span, du, di, dbu, dbi, losses + s);
-    });
-    if (err != cudaSuccess) return static_cast<int>(err);
-    mf_update_kernel<<<ugrid, kUpdateThreads, 0, stream>>>(
-        user_emb, mu_u, nu_u, du, n_user, item_emb, mu_i, nu_i, di, n_item, user_bias, dbu,
-        static_cast<size_t>(U), item_bias, dbi, static_cast<size_t>(I), bc1s, bc2s, s, lr_emb,
-        lr_bias, wd_emb, wd_bias, losses, denoms);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  const bool rows_aligned = aligned16(user_emb) && aligned16(item_emb) && aligned16(du) &&
+                            aligned16(di);
+  return static_cast<int>(with_layout(D, rows_aligned, [&](auto layout) {
+    using L = decltype(layout);
+    return launch_epoch<L>(mf_explicit_epoch_kernel<L>, e, B, e.up, stream);
+  }));
 }

@@ -4,9 +4,9 @@ Each ``csrc/*.cu`` source has a plain C interface and is compiled with
 ``nvcc`` into its own shared library, loaded with ``ctypes``: a build takes
 seconds, where a source that includes PyTorch's headers takes minutes.  The
 library goes into ``collie_tpu_torch/csrc/build/`` (listed in ``.gitignore``)
-under a name that carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Nothing here runs
-at import time.
+under a name that carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  Nothing here runs at import time.
 """
 import ctypes
 import hashlib
@@ -40,8 +40,10 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library for ``csrc/<source>`` lives once built."""
-    text = (CSRC / source).read_bytes()
+    """Where the library for ``csrc/<source>`` lives once built; the name
+    hashes the source, every header of ``csrc/`` and the flags."""
+    text = (CSRC / source).read_bytes() + b''.join(
+        p.read_bytes() for p in sorted(CSRC.glob('*.cuh')))
     digest = hashlib.sha1(text + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f'lib{Path(source).stem}_{digest}.so'
 

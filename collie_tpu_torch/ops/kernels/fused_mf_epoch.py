@@ -21,8 +21,11 @@ and the bounds):
 and return orders.  Each launches its kernel for CUDA tensors and raises on
 anything it does not take; it runs its ``*_plain`` version only for tensors
 that lie on the CPU.  On CUDA they update the tables, biases and moments IN
-PLACE (the JAX calls alias them) and return those same tensors.
-``<wrapper>.launches`` counts kernel launches (one per epoch call).
+PLACE (the JAX calls alias them) and return those same tensors.  Ids out of
+range are clamped to their table, by the kernels as by the plain versions
+and the Pallas kernels; the call checks shapes and types only, so it never
+waits for the card.  ``<wrapper>.launches`` counts kernel launches (one per
+epoch call).
 
 The plain versions are the same functions as Python loops over steps: the
 forward pass and the loss through ``collie_tpu_torch.ops.losses`` under
@@ -31,7 +34,8 @@ autograd, and the hand-written optax update of
 independent of the kernels' closed-form gradients.  They return new tensors.
 """
 import ctypes
-from typing import Optional, Sequence, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -166,9 +170,9 @@ def _library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # pointers and the stream as c_void_p: ctypes would cut a bare int to 32 bits
     lib.collie_fused_mf_epoch.argtypes = (
-        [p] * 7 + [p] * 4 + [p, p, i] + [p] * 3 + [p] * 4 + [i] * 8 + [f] * 4 + [p])
+        [p] * 7 + [p] * 4 + [p, p, i] + [p] * 3 + [p] * 6 + [i] * 8 + [f] * 4 + [p])
     lib.collie_fused_mf_epoch.restype = i
-    lib.collie_fused_mf_explicit_epoch.argtypes = [p] * 20 + [i] * 7 + [f] * 6 + [p]
+    lib.collie_fused_mf_explicit_epoch.argtypes = [p] * 22 + [i] * 7 + [f] * 6 + [p]
     lib.collie_fused_mf_explicit_epoch.restype = i
     lib.collie_fused_mf_epoch_max_dim.argtypes = []
     lib.collie_fused_mf_epoch_max_dim.restype = i
@@ -177,13 +181,28 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_id_ranges(name: str, U: int, I: int, users, *items) -> None:
-    """One device-to-host read: every id inside its table."""
-    bad = torch.stack([(users < 0).any(), (users >= U).any()]
-                      + [b for t in items for b in ((t < 0).any(), (t >= I).any())])
-    if bool(bad.any()):
-        raise ValueError(f'{name}: ids out of range (users in [0, {U}), '
-                         f'items in [0, {I}))')
+def _zeroed(device, *shapes) -> List[torch.Tensor]:
+    """Zeroed float32 tensors of ``shapes`` cut from one allocation (one
+    memset on the card), each starting on a 16-byte boundary for the
+    kernel's float4 accesses."""
+    sizes = [math.prod(shape) for shape in shapes]
+    starts = [0]
+    for n in sizes:
+        starts.append(starts[-1] + -(-n // 4) * 4)
+    flat = torch.zeros(starts[-1], dtype=torch.float32, device=device)
+    return [flat[a:a + n].view(shape) for a, n, shape in zip(starts, sizes, shapes)]
+
+
+def _timeline_ptr(timeline: Optional[torch.Tensor], S: int, device) -> Optional[int]:
+    """The address of ``timeline``, an int64 tensor of ``2 S + 1`` device
+    clock stamps (ns): the launch's start, then the end of each step's step
+    phase and of its update phase; None when no timeline is asked for."""
+    if timeline is None:
+        return None
+    if timeline.dtype != torch.int64 or timeline.device != device \
+            or timeline.shape != (2 * S + 1,) or not timeline.is_contiguous():
+        raise ValueError(f'timeline must be a contiguous int64 [{2 * S + 1}] tensor on {device}')
+    return timeline.data_ptr()
 
 
 def fused_mf_epoch_cuda(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count,
@@ -191,9 +210,10 @@ def fused_mf_epoch_cuda(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, c
                         meta_rows: Optional[torch.Tensor] = None, *,
                         K: int, adaptive: bool, loss_kind: str = 'hinge',
                         meta_weights: Sequence[float] = (),
-                        wd_emb: float = 0.0, wd_bias: float = 0.0) -> Tuple[torch.Tensor, ...]:
+                        wd_emb: float = 0.0, wd_bias: float = 0.0,
+                        timeline: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel on the current stream; updates the tables and
-    moments in place."""
+    moments in place.  ``timeline``: see ``_timeline_ptr``."""
     U, I, D, S, B = _check_inputs(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i,
                                   count, users, pos, negs, mask, meta_rows, K, loss_kind,
                                   meta_weights)
@@ -205,35 +225,30 @@ def fused_mf_epoch_cuda(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, c
                          'takes them contiguous')
     if not 1 <= D <= MAX_DIM:
         raise ValueError(f'the kernel supports 1 <= embedding_dim <= {MAX_DIM}, got {D}')
-    _check_id_ranges('fused_mf_epoch', U, I, users, pos, negs)
     lib = _library()
     device = users.device
     users, pos, negs, mask = (t.contiguous() for t in (users, pos, negs, mask))
     count = torch.as_tensor(count, device=device).to(torch.int32).reshape(())
     F = len(meta_weights)
-    if F:
-        meta = meta_rows.to(torch.int32).contiguous()
-        meta_w = torch.tensor([float(w) for w in meta_weights], dtype=torch.float32,
-                              device=device)
-    else:
-        meta = torch.zeros((1, I), dtype=torch.int32, device=device)
-        meta_w = torch.zeros(1, dtype=torch.float32, device=device)
+    meta = meta_rows.to(torch.int32).contiguous() if F else None
+    meta_w = torch.tensor([float(w) for w in meta_weights], dtype=torch.float32,
+                          device=device) if F else None
     denoms = torch.clamp(mask.sum(dim=1), min=1.0).contiguous()
     bc1s, bc2s = adam_bias_corrections(count + 1 + torch.arange(S, device=device))
     bc1s, bc2s = bc1s.contiguous(), bc2s.contiguous()
-    du = torch.zeros_like(user_emb)
-    di = torch.zeros_like(item_emb)
-    db = torch.zeros_like(item_bias)
-    losses = torch.zeros(S, dtype=torch.float32, device=device)
+    # the gradient accumulators, the per-step losses and the grid-barrier word
+    du, di, db, losses, barrier = _zeroed(device, user_emb.shape, item_emb.shape,
+                                          item_bias.shape, (S,), (1,))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.collie_fused_mf_epoch(
             user_emb.data_ptr(), item_emb.data_ptr(), item_bias.data_ptr(),
             mu_u.data_ptr(), nu_u.data_ptr(), mu_i.data_ptr(), nu_i.data_ptr(),
             users.data_ptr(), pos.data_ptr(), negs.data_ptr(), mask.data_ptr(),
-            meta.data_ptr(), meta_w.data_ptr(), F,
+            meta.data_ptr() if F else None, meta_w.data_ptr() if F else None, F,
             denoms.data_ptr(), bc1s.data_ptr(), bc2s.data_ptr(),
-            du.data_ptr(), di.data_ptr(), db.data_ptr(), losses.data_ptr(),
+            du.data_ptr(), di.data_ptr(), db.data_ptr(), losses.data_ptr(), barrier.data_ptr(),
+            _timeline_ptr(timeline, S, device),
             U, I, D, S, B, K, LOSS_KINDS[loss_kind], int(bool(adaptive)),
             float(lr_emb), float(lr_bias), float(wd_emb), float(wd_bias), stream)
     if err != 0:
@@ -354,10 +369,12 @@ def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
                                  users, items, ratings, mask, lr_emb, lr_bias, *,
                                  loss_kind: str = 'mse',
                                  y_range: Optional[Tuple[float, float]] = None,
-                                 wd_emb: float = 0.0, wd_bias: float = 0.0
+                                 wd_emb: float = 0.0, wd_bias: float = 0.0,
+                                 timeline: Optional[torch.Tensor] = None
                                  ) -> Tuple[torch.Tensor, ...]:
     """Launch the explicit CUDA kernel on the current stream; updates the
-    tables, biases and moments in place."""
+    tables, biases and moments in place.  ``timeline``: see
+    ``_timeline_ptr``."""
     U, I, D, S, B = _check_explicit_inputs(user_emb, item_emb, user_bias, item_bias, mu_u,
                                            nu_u, mu_i, nu_i, count, users, items, ratings,
                                            mask, loss_kind, y_range)
@@ -369,7 +386,6 @@ def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
                          'in place and takes them contiguous')
     if not 1 <= D <= MAX_DIM:
         raise ValueError(f'the kernel supports 1 <= embedding_dim <= {MAX_DIM}, got {D}')
-    _check_id_ranges('fused_mf_explicit_epoch', U, I, users, items)
     lib = _library()
     device = users.device
     users, items, ratings, mask = (t.contiguous() for t in (users, items, ratings, mask))
@@ -377,9 +393,8 @@ def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
     denoms = torch.clamp(mask.sum(dim=1), min=1.0).contiguous()
     bc1s, bc2s = adam_bias_corrections(count + 1 + torch.arange(S, device=device))
     bc1s, bc2s = bc1s.contiguous(), bc2s.contiguous()
-    du, di = torch.zeros_like(user_emb), torch.zeros_like(item_emb)
-    dbu, dbi = torch.zeros_like(user_bias), torch.zeros_like(item_bias)
-    losses = torch.zeros(S, dtype=torch.float32, device=device)
+    du, di, dbu, dbi, losses, barrier = _zeroed(device, user_emb.shape, item_emb.shape,
+                                                user_bias.shape, item_bias.shape, (S,), (1,))
     y_lo, y_span = ((float(y_range[0]), float(y_range[1] - y_range[0]))
                     if y_range is not None else (0.0, 1.0))
     with torch.cuda.device(device):
@@ -391,8 +406,9 @@ def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
             users.data_ptr(), items.data_ptr(), ratings.data_ptr(), mask.data_ptr(),
             denoms.data_ptr(), bc1s.data_ptr(), bc2s.data_ptr(),
             du.data_ptr(), di.data_ptr(), dbu.data_ptr(), dbi.data_ptr(), losses.data_ptr(),
-            U, I, D, S, B, EXPLICIT_LOSS_KINDS[loss_kind], int(y_range is not None),
-            y_lo, y_span, float(lr_emb), float(lr_bias), float(wd_emb), float(wd_bias), stream)
+            barrier.data_ptr(), _timeline_ptr(timeline, S, device),
+            U, I, D, S, B, EXPLICIT_LOSS_KINDS[loss_kind], int(y_range is not None), y_lo, y_span,
+            float(lr_emb), float(lr_bias), float(wd_emb), float(wd_bias), stream)
     if err != 0:
         raise RuntimeError(f'collie_fused_mf_explicit_epoch launch failed: cudaError_t {err}')
     fused_mf_explicit_epoch.launches += 1

@@ -99,6 +99,36 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fused_mf_epoch_cuda(*tensors, None, **kw)
 
 
+def test_kernel_scratch_is_zeroed_aligned_and_disjoint():
+    """The accumulators the persistent kernel streams as float4, the losses
+    (none when S = 0) and the barrier word come from one zeroed allocation,
+    each on a 16-byte boundary, none overlapping."""
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import _zeroed
+
+    shapes = [(37, 10), (53, 10), (53,), (0,), (1,)]
+    parts = _zeroed('cpu', *shapes)
+    assert [tuple(p.shape) for p in parts] == shapes
+    starts = [p.storage_offset() for p in parts]
+    assert all(a % 4 == 0 for a in starts)
+    assert all(a + p.numel() <= b for a, p, b in zip(starts, parts, starts[1:]))
+    assert all(p.untyped_storage().data_ptr() == parts[0].untyped_storage().data_ptr()
+               for p in parts)
+    assert all(not p.any() for p in parts)
+
+
+def test_timeline_must_hold_two_stamps_a_step_and_one():
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import _timeline_ptr
+
+    device = torch.device('cpu')
+    assert _timeline_ptr(None, 3, device) is None
+    good = torch.zeros(7, dtype=torch.int64)
+    assert _timeline_ptr(good, 3, device) == good.data_ptr()
+    for bad in (torch.zeros(6, dtype=torch.int64), torch.zeros(7, dtype=torch.int32),
+                torch.zeros(14, dtype=torch.int64)[::2]):
+        with pytest.raises(ValueError, match='timeline'):
+            _timeline_ptr(bad, 3, device)
+
+
 # --------------------------------------------------------------- envelope
 
 

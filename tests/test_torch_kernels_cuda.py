@@ -2,7 +2,8 @@
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  The fused epochs' edge shapes, inputs and tolerance are
-``chip_smoke.py``'s.  The file imports no JAX, so it also runs on a machine
+``chip_smoke.py``'s, and so are the binned gather/scatter's inputs and
+tolerance.  The file imports no JAX, so it also runs on a machine
 without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -11,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (EPOCH_EDGES, EXPLICIT_EDGES, EXPLICIT_STATE, compare_epoch,
-                        epoch_inputs, explicit_epoch_inputs)
+from chip_smoke import (EPOCH_EDGES, EXPLICIT_EDGES, EXPLICIT_STATE, GS_ATOL_SCALE,
+                        IMPLICIT_STATE, compare_epoch, epoch_inputs, explicit_epoch_inputs,
+                        gather_scatter_inputs)
 from collie_tpu_torch.ops.kernels.retrieval_kernel import (mf_topk_retrieve,
                                                            mf_topk_retrieve_plain)
 
@@ -181,3 +183,93 @@ def test_explicit_fit_on_the_card_goes_through_the_kernel(cuda_device):
     fn(model.params, states, data, 0, 1)
     torch.cuda.synchronize()
     assert fn.fused is False and fused_mf_explicit_epoch.launches == before + 3
+
+
+# (S, B, D) of the persistent epoch kernels: no step, one step, B far below
+# the cooperative grid and not a multiple of 8, every row layout (D = 1 and
+# 10: strided floats in 16 lanes; 33: strided in 32; 256: float4 chunks)
+PERSISTENT_SHAPES = [(0, 7, 10), (1, 7, 10), (2, 13, 1), (3, 13, 33), (2, 5, 256),
+                     (3, 300, 10), (2, 300, 32)]
+LOSSES = [('hinge', True), ('warp', False), ('bpr', False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('S,B,D', PERSISTENT_SHAPES)
+def test_persistent_epoch_kernel_matches_plain_version(cuda_device, S, B, D):
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_epoch,
+                                                             fused_mf_epoch_plain)
+
+    loss_kind, adaptive = LOSSES[(S + B + D) % len(LOSSES)]
+    args, _ = epoch_inputs(S * 1000 + B + D, D=D, S=S, B=B, K=4)
+    kw = dict(K=4, adaptive=adaptive, loss_kind=loss_kind)
+    ref = fused_mf_epoch_plain(*args, **kw)
+    before = fused_mf_epoch.launches
+    out = fused_mf_epoch(*[a.clone() if torch.is_tensor(a) else a for a in args], **kw)
+    torch.cuda.synchronize()
+    assert fused_mf_epoch.launches == before + 1
+    assert out[8].shape == (S,)
+    compare_epoch(f'S={S} B={B} D={D} {loss_kind}', out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('S,B,D', PERSISTENT_SHAPES)
+def test_persistent_explicit_epoch_kernel_matches_plain_version(cuda_device, S, B, D):
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_explicit_epoch,
+                                                             fused_mf_explicit_epoch_plain)
+
+    args = explicit_epoch_inputs(S * 1000 + B + D, D=D, S=S, B=B)
+    kw = dict(loss_kind='mse' if D % 2 else 'mae', y_range=(1, 5) if B % 2 else None)
+    ref = fused_mf_explicit_epoch_plain(*args, **kw)
+    before = fused_mf_explicit_epoch.launches
+    out = fused_mf_explicit_epoch(*[a.clone() if torch.is_tensor(a) else a for a in args], **kw)
+    torch.cuda.synchronize()
+    assert fused_mf_explicit_epoch.launches == before + 1
+    compare_epoch(f'S={S} B={B} D={D}', out, ref, names=EXPLICIT_STATE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D,iters', [(8, 3), (33, 2), (32, 0)])
+def test_gather_scatter_kernel_matches_plain_version(cuda_device, D, iters):
+    from collie_tpu_torch.ops.kernels.gather_scatter import (binned_gather_scatter,
+                                                             binned_gather_scatter_plain,
+                                                             kept_examples)
+
+    (tab_t, sids, offs, g_t), _ = gather_scatter_inputs(D, U=3000, D=D, B=700, n_bins=4)
+    c_pad = 128                 # bins of ~175 examples: each drops some past its window
+    before = binned_gather_scatter.launches
+    out, gathered = binned_gather_scatter(tab_t, sids, offs, g_t, iters, c_pad)
+    ref_out, ref_gathered = binned_gather_scatter_plain(tab_t, sids, offs, g_t, iters, c_pad)
+    torch.cuda.synchronize()
+    assert binned_gather_scatter.launches == before + 1
+    n_kept = int(kept_examples(sids, offs, tab_t.shape[1], c_pad).sum())
+    assert 0 < n_kept < sids.shape[0]
+    top = float(ref_out.abs().max())
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=GS_ATOL_SCALE * top)
+    torch.testing.assert_close(gathered, ref_gathered, rtol=0,
+                               atol=GS_ATOL_SCALE * n_kept * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('explicit', [False, True])
+def test_timeline_stamps_every_phase_of_the_launch(cuda_device, explicit):
+    """With a timeline the launch stamps its start and the end of each step
+    and update phase, in order, and computes what it computes without one."""
+    from collie_tpu_torch.ops.kernels import fused_mf_epoch as fused
+
+    S = 3
+    timeline = torch.zeros(2 * S + 1, dtype=torch.int64, device=cuda_device)
+    if explicit:
+        args, kw, names = explicit_epoch_inputs(11, S=S, B=100), dict(loss_kind='mse'), \
+            EXPLICIT_STATE
+        plain, cuda = fused.fused_mf_explicit_epoch_plain, fused.fused_mf_explicit_epoch_cuda
+    else:
+        args, kw = epoch_inputs(11, S=S, B=100, K=4)[0], dict(K=4, adaptive=True,
+                                                              loss_kind='hinge')
+        names = IMPLICIT_STATE
+        plain, cuda = fused.fused_mf_epoch_plain, fused.fused_mf_epoch_cuda
+    ref = plain(*args, **kw)
+    out = cuda(*[a.clone() if torch.is_tensor(a) else a for a in args], timeline=timeline, **kw)
+    torch.cuda.synchronize()
+    stamps = timeline.cpu()
+    assert stamps[0] > 0 and bool((stamps[1:] >= stamps[:-1]).all())
+    compare_epoch(f'timeline explicit={explicit}', out, ref, names=names)

@@ -57,6 +57,25 @@ def test_explicit_slice_modules_are_checked(module):
     assert 'extern "C" int collie_fused_mf_explicit_epoch(' in source
 
 
+def test_gather_scatter_module_is_checked():
+    """The binned gather/scatter's module is among the files the import rule
+    covers, and its kernel has a C entry in its CUDA source."""
+    assert PACKAGE / 'ops/kernels/gather_scatter.py' in PROGRAM_FILES
+    source = (PACKAGE / 'csrc' / 'gather_scatter.cu').read_text()
+    assert 'extern "C" int collie_binned_gather_scatter(' in source
+
+
+@pytest.mark.parametrize('source', ['fused_mf_epoch.cu', 'gather_scatter.cu'])
+def test_persistent_kernels_launch_once_and_cooperatively(source):
+    """Each C entry of these sources makes one cooperative launch (the grid
+    barrier needs every block resident) and none with <<<...>>>."""
+    text = (PACKAGE / 'csrc' / source).read_text()
+    assert '<<<' not in text
+    assert 'cudaLaunchCooperativeKernel(' in text
+    assert '#include "grid_barrier.cuh"' in text
+    assert (PACKAGE / 'csrc' / 'grid_barrier.cuh').is_file()
+
+
 def test_explicit_evaluation_is_exported():
     import collie_tpu_torch
     from collie_tpu_torch import evaluate
