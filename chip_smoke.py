@@ -12,7 +12,11 @@ non-zero before the result line:
 2. build: every CUDA kernel of the paths, compiled from
    ``collie_tpu_torch/csrc`` (one nvcc per source, all started together);
 3. kernels: ``topk_tile`` against its plain PyTorch version at the edge
-   shapes of the JAX package's tests, a tie case and the serving shape;
+   shapes of the JAX package's tests, at edge shapes of its own tiling
+   (``TOPK_EDGES``: its per-range candidates against the plain version at
+   the launch plan's range width, then the merged top-k), a tie case (ids,
+   scores and candidates exactly equal) and the serving shape, whose launch
+   plans at k = 1, 10, 128 it prints;
    ``fused_mf_epoch`` against its plain version at edge shapes (every loss
    kind, metadata, weight decay, K=1, duplicate ids, B not a power of two)
    and at the ML-10M training shape after 3 steps and after one full
@@ -26,8 +30,10 @@ non-zero before the result line:
    gate-config epoch call of each epoch kernel: the device launches and
    kernel times ``torch.profiler`` sees, and the step and update phases
    inside the one launch (device clock stamps).  ``binned_gather_scatter``
-   (the microbench's ``pk``) at the microbench's shapes against its plain
-   version and ``index_select`` + ``index_add_``;
+   (the microbench's ``pk``) at the microbench's shapes (bins in the
+   clusters' shared memory) against its plain version and ``index_select`` +
+   ``index_add_``, and at ``GS_OVERSIZE`` (bins too large for a cluster,
+   rows in device memory) against its plain version;
 4. serving: an MF model at the repo's serving scale (2,000,000 items,
    ``embedding_dim=64``, random weights from the seed) is built from seeded
    interactions, saved to npz and loaded back, then answers four
@@ -59,8 +65,12 @@ non-zero before the result line:
    as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
-kernel at the gate and ML-10M-scale configurations, for comparing two
-checkouts on one card (a copy of this script in the other checkout).
+kernel at the gate and ML-10M-scale configurations; ``--kernel-times`` runs
+phases 1-2 and times the top-k kernel at the serving shape (k = 1, 10, 128;
+the launch alone and the whole ``mf_topk_retrieve``) and the binned
+gather/scatter's 50 rounds, each with one ``torch.profiler`` look.  Both are
+for comparing two checkouts on one card: a copy of this script in the other
+checkout times that checkout.
 """
 import argparse
 import json
@@ -137,6 +147,17 @@ EXPLICIT_DRIFT_FRACTION = 1e-4
 # of ~8,000 rows taken in another order)
 GS_SHAPE = dict(U=72_000, D=32, B=8192, n_bins=16, c_pad=768, iters=50)
 GS_ATOL_SCALE = 1e-5
+# the same table in 4 bins of 18,048 rows (2.3 MB a bin, more than the shared
+# memory of a cluster of 8): the kernel keeps those rows in device memory
+GS_OVERSIZE = dict(U=72_000, D=32, B=8192, n_bins=4, c_pad=2560, iters=50)
+# topk_tile edge shapes (B, D, k, num_items) for the kernel's tiling: every
+# row layout of the 32-dim stages (D = 1, 3, 65: 4-byte loads; 12, 64, 256:
+# 16-byte), one and several user chunks, k of one, several and four list
+# registers, a last range holding fewer than k items (611 = 4 x 128 + 99),
+# and catalogs smaller than one 128-item tile
+TOPK_EDGES = [(B, D, k, 611) for (D, k), B in zip(
+    [(D, k) for D in (1, 3, 12, 64, 65, 256) for k in (1, 10, 128)], (1, 37, 256, 300) * 5)]
+TOPK_EDGES += [(37, 12, 10, 100), (5, 64, 100, 100), (300, 65, 128, 128)]
 IMPLICIT_STATE = ['user_emb', 'item_emb', 'item_bias', 'mu_u', 'nu_u', 'mu_i', 'nu_i']
 EXPLICIT_STATE = ['user_emb', 'item_emb', 'user_bias', 'item_bias', 'mu_u', 'nu_u', 'mu_i',
                   'nu_i']
@@ -267,6 +288,82 @@ def check_topk(name, ids, scores, ref_ids, ref_scores, ref_next):
     return max_err
 
 
+def check_candidates(name, scores, ids, ref_scores, ref_ids, ref_next, ue, ie, ib, width,
+                     user_bias=None):
+    """Hold the kernel's per-range candidates ``[n_ranges, B, k]`` to the
+    plain version's at the same range width.
+
+    A float32 dot product taken in another order differs by a rounding
+    error that scales with the sum of its terms' magnitudes, not with the
+    score (a score near 0 of a D = 256 dot differs by ~1e-5), so each
+    candidate's tolerance is ``ATOL + RTOL * m``, ``m = |u| . |i| + |b|``
+    for its user and item (plus ``|user_bias|`` where the scores carry it).
+    Scores must agree position by position within it, and each candidate's
+    score must be its id's score recomputed from the inputs (a padding
+    entry, finfo.min, must carry its range's first id).  A row's ids must
+    be the plain version's as a set, except in a row whose k-th and
+    (k+1)-th plain scores (``ref_next`` is the (k+1)-th) are a near-tie.
+    Returns the max abs error."""
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import NEG_INF
+
+    if scores.shape != ref_scores.shape or ids.shape != ref_ids.shape:
+        raise AssertionError(f'{name}: shape {tuple(scores.shape)} vs {tuple(ref_scores.shape)}')
+    pad = scores == NEG_INF
+    n_ranges, B, k = scores.shape
+    base = (torch.arange(n_ranges, device=ids.device) * width)[:, None, None].expand_as(ids)
+    if not torch.equal(ids[pad], base[pad].to(ids.dtype)) or not torch.equal(
+            pad, ref_scores == NEG_INF):
+        raise AssertionError(f'{name}: padding entries differ from the plain version\'s')
+    safe = torch.where(pad, torch.zeros_like(ids), ids).long()
+    rows = ie[safe]
+    recomputed = torch.einsum('bd,rbkd->rbk', ue, rows) + ib[safe]
+    magnitude = torch.einsum('bd,rbkd->rbk', ue.abs(), rows.abs()) + ib[safe].abs()
+    if user_bias is not None:
+        magnitude = magnitude + user_bias.abs()[None, :, None]
+    tol = torch.where(pad, torch.zeros_like(magnitude), ATOL + RTOL * magnitude)
+    err = (scores - ref_scores).abs()
+    max_err = float(err.max())
+    if (err > tol).any():
+        raise AssertionError(f'{name}: candidate scores differ by up to {max_err}')
+    if ((torch.where(pad, scores, recomputed) - scores).abs() > tol).any():
+        raise AssertionError(f'{name}: a candidate\'s score is not its id\'s score')
+    same = (ids.sort(dim=-1).values == ref_ids.sort(dim=-1).values).all(dim=-1)
+    gap = ref_scores[..., -1] - ref_next
+    near_tie = gap.abs() <= tol[..., -1] + ATOL + RTOL * ref_scores[..., -1].abs()
+    if (~same & ~near_tie).any():
+        bad = torch.nonzero(~same & ~near_tie)[:5].tolist()
+        raise AssertionError(f'{name}: candidate ids differ at (range, user) {bad}')
+    log(f'  {name}: candidates of {n_ranges} ranges x {B} users equal as sets in '
+        f'{int(same.sum())}/{same.numel()} rows ({int((~same).sum())} near-tie rows '
+        f'excused), max_abs_err={max_err:.3g}')
+    return max_err
+
+
+def compare_topk_kernel(label, ue, ub, ie, ib, k):
+    """The top-k kernel's candidates against the plain version at the
+    plan's range width, then the merged top-k against a dense stable top-k;
+    both through ``check_candidates``.  Returns the max abs error."""
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import (
+        mf_topk_retrieve, stable_topk, topk_plan, topk_tiles_cuda, topk_tiles_plain)
+
+    (B, D), I = ue.shape, ie.shape[0]
+    plan = topk_plan(B, D, k, I, torch.cuda.get_device_properties(0).multi_processor_count)
+    scores, ids = topk_tiles_cuda(ue, ie, ib, k)
+    ref_scores, ref_ids = topk_tiles_plain(ue, ie, ib, k, plan.range_width)
+    ref_next = topk_tiles_plain(ue, ie, ib, k + 1, plan.range_width)[0][..., k]
+    err = check_candidates(f'{label} (chunk {plan.user_chunk}, {plan.n_ranges} ranges of '
+                           f'{plan.range_width})', scores, ids, ref_scores, ref_ids, ref_next,
+                           ue, ie, ib, plan.range_width)
+    ids, scores = mf_topk_retrieve(ue, ub, ie, ib, k=k)
+    dense_scores, dense_ids = stable_topk(ue @ ie.T + ib[None, :], min(k + 1, I))
+    dense_next = (dense_scores[:, k] if I > k
+                  else torch.full((B,), float('-inf'), device=ue.device))
+    torch.cuda.synchronize()
+    return max(err, check_candidates(
+        f'{label} merged', (scores - ub[:, None])[None], ids[None], dense_scores[None, :, :k],
+        dense_ids[None, :, :k].int(), dense_next[None], ue, ie, ib, I, user_bias=ub))
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this check needs a '
@@ -296,7 +393,8 @@ def phase_build():
     for source, path in zip(sources, paths):
         log(f'built {source} -> {path.name}')
         report = _build.build_log.get(source, (0.0, 'already built'))[1]
-        regs = [line.strip() for line in report.splitlines() if 'registers' in line]
+        regs = [line.strip() for line in report.splitlines()
+                if 'registers' in line or 'Compiling entry' in line]
         for line in regs:
             log(f'  ptxas: {line}')
     log(f'build_seconds={seconds:.2f}')
@@ -312,10 +410,12 @@ def _rand(rng, shape):
 def phase_kernels():
     """topk_tile against its plain version; returns the kernel's record."""
     from collie_tpu_torch.ops.kernels.retrieval_kernel import (
-        mf_topk_retrieve, mf_topk_retrieve_plain, stable_topk, topk_tiles_cuda)
+        mf_topk_retrieve, mf_topk_retrieve_plain, stable_topk, topk_plan, topk_tiles_cuda,
+        topk_tiles_plain)
 
     max_err = 0.0
-    log(f'kernel topk_tile vs plain (rtol={RTOL}, atol={ATOL})')
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f'kernel topk_tile vs plain (rtol={RTOL}, atol={ATOL}), {sms} SMs')
 
     def compare(label, ue, ub, ie, ib, k, tile):
         ids, scores = mf_topk_retrieve(ue, ub, ie, ib, k=k, tile=tile)
@@ -335,6 +435,14 @@ def phase_kernels():
         ie, ib = _rand(rng, (611, 12)), _rand(rng, (611,))
         max_err = max(max_err, compare(f'B={B} tile={tile} k={k}', ue, ub, ie, ib, k, tile))
 
+    # the kernel's own tiling: every row layout of its stages, user chunks,
+    # list registers, short last ranges and catalogs below one tile
+    for B, D, k, I in TOPK_EDGES:
+        rng = np.random.default_rng(B * 7 + D * 131 + k + I)
+        ue, ub, ie, ib = _rand(rng, (B, D)), _rand(rng, (B,)), _rand(rng, (I, D)), _rand(rng, (I,))
+        label = f'B={B} D={D} k={k} items={I}'
+        max_err = max(max_err, compare_topk_kernel(label, ue, ub, ie, ib, k))
+
     # ties: duplicated item rows and biases on a coarse grid, so every sum is
     # exact in float32 whatever its order and the tie-break alone decides
     rng = np.random.default_rng(7)
@@ -349,7 +457,14 @@ def phase_kernels():
     torch.cuda.synchronize()
     if not torch.equal(ids.long(), ref_ids) or not torch.equal(scores, ref_scores):
         raise AssertionError('tie case: kernel ids/scores differ from the stable top-k')
-    log('  ties: ids and scores equal to the dense stable top-k (lowest id first)')
+    plan = topk_plan(24, 12, 40, 611, sms)
+    cand = topk_tiles_cuda(ue, ie, ib, 40)
+    ref_cand = topk_tiles_plain(ue, ie, ib, 40, plan.range_width)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(cand, ref_cand)):
+        raise AssertionError('tie case: kernel candidates differ from the plain version\'s')
+    log('  ties: ids and scores equal to the dense stable top-k (lowest id first), and the '
+        f'candidates of {plan.n_ranges} ranges equal to the plain version\'s')
 
     # serving shape
     B, I, D, k, tile = REQUEST_USERS, NUM_ITEMS, EMBEDDING_DIM, K, 4096
@@ -357,6 +472,20 @@ def phase_kernels():
     ue, ub, ie, ib = _rand(rng, (B, D)), _rand(rng, (B,)), _rand(rng, (I, D)), _rand(rng, (I,))
     max_err = max(max_err, compare(f'serving B={B} I={I} D={D} k={k} tile={tile}',
                                    ue, ub, ie, ib, k, tile))
+    for kk in (1, 10, 128):
+        plan = topk_plan(B, D, kk, I, sms)
+        log(f'  launch plan at k={kk}: user chunk {plan.user_chunk} ({plan.threads} threads, '
+            f'{plan.n_chunks} chunks), {plan.n_ranges} ranges of {plan.range_width} items, '
+            f'lists in {"shared" if plan.lists_in_shared else "device"} memory, '
+            f'{plan.shared_bytes} shared bytes, {plan.blocks_per_sm} block(s) an SM; '
+            f'registers: the ptxas lines of the build')
+    plan = topk_plan(B, D, k, I, sms)
+    cand_scores, cand_ids = topk_tiles_cuda(ue, ie, ib, k)
+    ref_scores, ref_ids = topk_tiles_plain(ue, ie, ib, k + 1, plan.range_width)
+    max_err = max(max_err, check_candidates(
+        'serving candidates', cand_scores, cand_ids, ref_scores[..., :k], ref_ids[..., :k],
+        ref_scores[..., k], ue, ie, ib, plan.range_width))
+    del cand_scores, cand_ids, ref_scores, ref_ids
 
     def library():
         return torch.topk(ue @ ie.T + ub[:, None] + ib[None, :], k, dim=1)
@@ -366,8 +495,8 @@ def phase_kernels():
     plain_ms = cuda_median_ms(lambda: mf_topk_retrieve_plain(ue, ub, ie, ib, k=k, tile=tile),
                               warmup=1, runs=3)
     library_ms = cuda_median_ms(library)
-    # where the kernel's time goes: scoring is the same for every k, each
-    # selection round adds a scan of the tile per user
+    # where the kernel's time goes: scoring is the same for every k, the
+    # running top-k's inserts grow with k
     by_k = {kk: cuda_median_ms(lambda kk=kk: topk_tiles_cuda(ue, ie, ib, kk, tile),
                                warmup=1, runs=5) for kk in (1, 10, 128)}
     log('  kernel launch alone by k: ' + ', '.join(f'k={kk} {ms:.4f} ms'
@@ -395,6 +524,8 @@ def phase_kernels():
         'bound_ms': bound_ms,
         'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
         'library_ms': library_ms,
+        'launch_ms': kernel_only_ms,
+        'launch_ms_by_k': by_k,
         'checked': True,
     }
 
@@ -419,37 +550,63 @@ def gather_scatter_inputs(seed, U, D, B, n_bins, **_):
 
 def phase_gather_scatter():
     """binned_gather_scatter (the port of the microbench's ``pk``) driven at
-    the microbench's shapes, against its plain version and the library's
+    the microbench's shapes (bins in the clusters' shared memory) and at
+    ``GS_OVERSIZE`` (bins too large for a cluster: rows in device memory),
+    each against its plain version, the first also against the library's
     ``index_select`` + ``index_add_``; returns the kernel's record."""
     from collie_tpu_torch.ops.kernels.gather_scatter import (binned_gather_scatter,
                                                              binned_gather_scatter_plain,
-                                                             kept_examples)
+                                                             gather_scatter_plan,
+                                                             kept_examples, kernel_plan)
+
+    def check(label, shape, want_shared_rows):
+        iters, c_pad = shape['iters'], shape['c_pad']
+        (tab_t, sids, offs, g_t), tab = gather_scatter_inputs(0, **shape)
+        D, upad = tab_t.shape
+        B, n_bins = sids.shape[0], offs.shape[0] - 1
+        plan = gather_scatter_plan(D, upad, n_bins, B, c_pad)
+        built = kernel_plan(D, upad, n_bins, B, c_pad)
+        if built != plan:
+            raise AssertionError(f'{label}: the kernel plans {built}, the wrapper {plan}')
+        if plan.shared_rows != want_shared_rows:
+            raise AssertionError(f'{label}: plan {plan}')
+        log(f'kernel binned_gather_scatter vs plain, {label}: D={D} UPAD={upad} B={B} '
+            f'n_bins={n_bins} C_PAD={c_pad} iters={iters}; {plan.mode}, cluster of '
+            f'{plan.cluster}, {plan.shared_bytes} shared bytes a block, example cache '
+            f'{plan.cache} (out atol {GS_ATOL_SCALE} x max|ref|, gathered atol '
+            f'{GS_ATOL_SCALE} x kept x max|ref|)')
+        reset_launch_counts()
+        out, gathered = binned_gather_scatter(tab_t, sids, offs, g_t, iters, c_pad)
+        torch.cuda.synchronize()
+        launches = binned_gather_scatter.launches
+        if launches != 1 or binned_gather_scatter.last_plan != plan:
+            raise AssertionError(f'{label}: {launches} launches for one call, launched '
+                                 f'{binned_gather_scatter.last_plan}')
+        ref_out, ref_gathered = binned_gather_scatter_plain(tab_t, sids, offs, g_t, iters, c_pad)
+        n_kept = int(kept_examples(sids, offs, upad, c_pad).sum())
+        top = float(ref_out.abs().max())
+        err_out = float((out - ref_out).abs().max())
+        err_gathered = float((gathered - ref_gathered).abs().max())
+        if not (torch.isfinite(out).all() and torch.isfinite(gathered).all()):
+            raise AssertionError(f'{label}: non-finite output')
+        if err_out > GS_ATOL_SCALE * top or err_gathered > GS_ATOL_SCALE * n_kept * top:
+            raise AssertionError(f'{label}: differs from plain: out {err_out:.3g}, '
+                                 f'gathered {err_gathered:.3g} (max|ref| {top:.3g})')
+        log(f'  {n_kept} of {B} examples kept by the bin windows; max_abs_err out '
+            f'{err_out:.3g}, gathered {err_gathered:.3g} (max|ref| {top:.3g})')
+        kernel_ms = cuda_median_ms(lambda: binned_gather_scatter(tab_t, sids, offs, g_t, iters,
+                                                                 c_pad))
+        plain_ms = cuda_median_ms(lambda: binned_gather_scatter_plain(tab_t, sids, offs, g_t,
+                                                                      iters, c_pad))
+        inputs = (tab_t, sids, offs, g_t, tab, ref_out, ref_gathered, n_kept, top)
+        return inputs, launches, max(err_out, err_gathered), kernel_ms, plain_ms
 
     iters, c_pad = GS_SHAPE['iters'], GS_SHAPE['c_pad']
-    (tab_t, sids, offs, g_t), tab = gather_scatter_inputs(0, **GS_SHAPE)
+    inputs, launches, max_err, kernel_ms, plain_ms = check('microbench shape', GS_SHAPE, True)
+    tab_t, sids, offs, g_t, tab, ref_out, ref_gathered, n_kept, top = inputs
     D, upad = tab_t.shape
     B = sids.shape[0]
-    log(f'kernel binned_gather_scatter vs plain at D={D} UPAD={upad} B={B} '
-        f'n_bins={GS_SHAPE["n_bins"]} C_PAD={c_pad} iters={iters} (out atol '
-        f'{GS_ATOL_SCALE} x max|ref|, gathered atol {GS_ATOL_SCALE} x kept x max|ref|)')
-    reset_launch_counts()
-    out, gathered = binned_gather_scatter(tab_t, sids, offs, g_t, iters, c_pad)
-    torch.cuda.synchronize()
-    launches = binned_gather_scatter.launches
-    if launches != 1:
-        raise AssertionError(f'binned_gather_scatter: {launches} launches for one call')
-    ref_out, ref_gathered = binned_gather_scatter_plain(tab_t, sids, offs, g_t, iters, c_pad)
     kept = kept_examples(sids, offs, upad, c_pad)
-    n_kept = int(kept.sum())
-    top = float(ref_out.abs().max())
-    err_out = float((out - ref_out).abs().max())
-    err_gathered = float((gathered - ref_gathered).abs().max())
-    if not (torch.isfinite(out).all() and torch.isfinite(gathered).all()):
-        raise AssertionError('binned_gather_scatter: non-finite output')
-    if err_out > GS_ATOL_SCALE * top or err_gathered > GS_ATOL_SCALE * n_kept * top:
-        raise AssertionError(f'binned_gather_scatter differs from plain: out {err_out:.3g}, '
-                             f'gathered {err_gathered:.3g} (max|ref| {top:.3g})')
-
     lib_kept = sids.long()[kept]
     lib_rows = g_t.T[kept]
 
@@ -467,12 +624,6 @@ def phase_gather_scatter():
                   float((lib_gathered - ref_gathered).abs().max()) / n_kept)
     if lib_err > GS_ATOL_SCALE * top:
         raise AssertionError(f'the library yardstick computes another function ({lib_err:.3g})')
-    log(f'  {n_kept} of {B} examples kept by the bin windows; max_abs_err out {err_out:.3g}, '
-        f'gathered {err_gathered:.3g} (max|ref| {top:.3g})')
-    kernel_ms = cuda_median_ms(lambda: binned_gather_scatter(tab_t, sids, offs, g_t, iters,
-                                                             c_pad))
-    plain_ms = cuda_median_ms(lambda: binned_gather_scatter_plain(tab_t, sids, offs, g_t, iters,
-                                                                  c_pad))
     library_ms = cuda_median_ms(library)
     # the least the function must move: the table read and ``out`` written
     # once, the gradients, ids and offsets read once, ``gathered`` written;
@@ -488,7 +639,13 @@ def phase_gather_scatter():
         f'library_ms={library_ms:.4f} (index_select + sum + index_add_ per round on the '
         f'[U, D] table) bound_ms={bound_ms:.4f} (operations {ops_ms:.4f}, bytes '
         f'{bytes_ms:.4f}); every round through device memory: {round_ms:.4f} ms')
-    del tab_t, tab, out, ref_out, lib_out
+    del inputs, tab_t, tab, ref_out, lib_out
+    torch.cuda.synchronize()
+
+    _, _, oversize_err, oversize_ms, oversize_plain_ms = check('oversize bins', GS_OVERSIZE,
+                                                                False)
+    log(f'  {GS_OVERSIZE["iters"]} rounds, bins in device memory: kernel_ms={oversize_ms:.4f} '
+        f'plain_ms={oversize_plain_ms:.4f}')
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return {
@@ -497,12 +654,13 @@ def phase_gather_scatter():
         'source': 'collie_tpu_torch/csrc/gather_scatter.cu',
         'replaces': 'benchmarks/microbench_gather.py:151',
         'launches': launches,
-        'max_abs_err': max(err_out, err_gathered),
+        'max_abs_err': max(max_err, oversize_err),
         'ms': kernel_ms,
         'plain_ms': plain_ms,
         'bound_ms': bound_ms,
         'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
         'library_ms': library_ms,
+        'oversize_ms': oversize_ms,
         'checked': True,
     }
 
@@ -701,6 +859,48 @@ def epoch_times(ml10m) -> dict:
         log(f'  epoch call {name} ({S} steps): {ms:.4f} ms (median of {runs})')
         del call
         torch.cuda.empty_cache()
+    return times
+
+
+def kernel_times() -> dict:
+    """Median ms of the top-k kernel (launch alone and the whole
+    ``mf_topk_retrieve`` call, at k = 1, 10 and 128) at the serving shape,
+    and of ``binned_gather_scatter``'s 50 rounds at the microbench's shape,
+    with one ``torch.profiler`` look at each.  Uses only the wrappers'
+    public calls, so a copy of this script in another checkout times that
+    checkout's kernels."""
+    from collie_tpu_torch.ops.kernels.gather_scatter import binned_gather_scatter
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import mf_topk_retrieve, topk_tiles_cuda
+
+    B, I, D, tile = REQUEST_USERS, NUM_ITEMS, EMBEDDING_DIM, 4096
+    rng = np.random.default_rng(11)
+    ue, ub, ie, ib = _rand(rng, (B, D)), _rand(rng, (B,)), _rand(rng, (I, D)), _rand(rng, (I,))
+    times = {'topk': {}}
+    for k in (1, 10, 128):
+        launch = cuda_median_ms(lambda: topk_tiles_cuda(ue, ie, ib, k, tile), warmup=2, runs=9)
+        whole = cuda_median_ms(lambda: mf_topk_retrieve(ue, ub, ie, ib, k=k, tile=tile),
+                               warmup=2, runs=9)
+        times['topk'][f'k={k}'] = {'launch_ms': launch, 'whole_ms': whole}
+        log(f'  topk B={B} I={I} D={D} k={k}: launch alone {launch:.4f} ms, whole call '
+            f'{whole:.4f} ms (median of 9)')
+    profile_epoch_call('one mf_topk_retrieve call at k=10',
+                       lambda: mf_topk_retrieve(ue, ub, ie, ib, k=K, tile=tile))
+    del ue, ub, ie, ib
+    torch.cuda.empty_cache()
+
+    (tab_t, sids, offs, g_t), _ = gather_scatter_inputs(0, **GS_SHAPE)
+    args = (tab_t, sids, offs, g_t, GS_SHAPE['iters'], GS_SHAPE['c_pad'])
+    ms = cuda_median_ms(lambda: binned_gather_scatter(*args), warmup=2, runs=15)
+    times['binned_gather_scatter'] = {'ms': ms}
+    log(f'  binned_gather_scatter {GS_SHAPE}: {ms:.4f} ms (median of 15)')
+    # the cost of a round: the same call at fewer rounds
+    for iters in (0, 1, 10):
+        few = cuda_median_ms(lambda: binned_gather_scatter(*args[:4], iters, args[5]),
+                             warmup=2, runs=15)
+        times['binned_gather_scatter'][f'iters={iters}'] = few
+        log(f'  binned_gather_scatter at iters={iters}: {few:.4f} ms (median of 15)')
+    profile_epoch_call('one binned_gather_scatter call', lambda: binned_gather_scatter(*args))
+    torch.cuda.synchronize()
     return times
 
 
@@ -1337,11 +1537,22 @@ def main(argv=None):
                              'epoch kernel at the gate and ML-10M-scale configurations (runs '
                              'against the collie_tpu_torch beside this script, so a copy of '
                              'the script in another checkout times that checkout)')
+    parser.add_argument('--kernel-times', action='store_true',
+                        help='only build the kernels and time the top-k kernel (k = 1, 10, '
+                             '128; launch alone and the whole call) and the binned '
+                             'gather/scatter at their main shapes (a copy of the script in '
+                             'another checkout times that checkout)')
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
 
     smi = phase_device()
     phase_build()
+    if args.kernel_times:
+        times = kernel_times()
+        log(f'total_seconds={time.perf_counter() - t0:.1f}')
+        print(json.dumps({'kernel_times': times}))
+        print(smi)
+        return
     if args.epoch_times:
         times = epoch_times(ml10m_data())
         log(f'total_seconds={time.perf_counter() - t0:.1f}')

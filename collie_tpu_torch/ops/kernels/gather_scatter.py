@@ -6,7 +6,9 @@ Port of the Pallas TPU kernel ``pk`` in ``benchmarks/microbench_gather.py``
 that measured the cost of gathering and scatter-adding embedding rows at the
 ML-10M user-table shape.  The CUDA kernel is
 ``collie_tpu_torch/csrc/gather_scatter.cu`` (see its header for the design
-and the bound).
+and the bound): one thread-block cluster per bin, the bin's rows in the
+cluster's distributed shared memory, or in device memory where they do not
+fit (``gather_scatter_plan`` says which).
 
 The layout is the microbench's: a transposed table ``tab_t [D, UPAD]``
 (``UPAD = n_bins * UB``), ids ``sids [B]`` stably sorted by bin
@@ -29,16 +31,69 @@ padded by ``c_pad`` masked entries.
 ``binned_gather_scatter`` launches the kernel for CUDA tensors and raises on
 anything it does not take; it runs ``binned_gather_scatter_plain`` only for
 tensors that lie on the CPU.  ``binned_gather_scatter.launches`` counts
-kernel launches.
+kernel launches and ``binned_gather_scatter.last_plan`` is the plan the
+last launch reported.
 """
 import ctypes
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from collie_tpu_torch.ops.kernels import _build
 
 SOURCE = 'gather_scatter.cu'
+
+MAX_CLUSTER = 8                # the portable cluster size
+TARGET_BYTES = 98304           # the smallest cluster whose blocks stay under this
+MAX_SHARED_BYTES = 232448      # what one block may use on sm_90
+
+
+@dataclass(frozen=True)
+class GatherScatterPlan:
+    """One launch: ``cluster`` blocks a bin; the bin's rows in the
+    cluster's shared memory (``shared_rows``) or in ``out``; each block's
+    share of examples cached in shared memory (``cache``) or read from
+    device memory every round."""
+    shared_rows: bool
+    cache: bool
+    cluster: int
+    shared_bytes: int
+
+    @property
+    def mode(self) -> str:
+        return 'shared rows' if self.shared_rows else 'device rows'
+
+
+def gather_scatter_plan(D: int, upad: int, n_bins: int, B: int,
+                        c_pad: int) -> GatherScatterPlan:
+    """The kernel's plan (``make_plan`` in csrc/gather_scatter.cu): the
+    smallest cluster of 1, 2, 4, 8 blocks whose share of a bin's rows (rows
+    of ``D | 1`` floats) and of its window of examples stays under 96 KB a
+    block, else 8; rows and cache in shared memory where they fit 227 KB,
+    else the cache alone, else neither."""
+    ub = upad // n_bins
+    stride = D | 1
+    window = min(c_pad, B)
+    sums = 4 * D
+
+    def rows(cs):
+        return 4 * -(-ub // cs) * stride
+
+    def cache(cs):
+        return 4 * -(-window // cs) * (stride + 1)
+
+    cs = 1
+    while cs < MAX_CLUSTER and rows(cs) + cache(cs) + sums > TARGET_BYTES:
+        cs *= 2
+    if rows(cs) + cache(cs) + sums <= MAX_SHARED_BYTES:
+        shared_rows, use_cache = True, True
+    elif rows(cs) + sums <= MAX_SHARED_BYTES:
+        shared_rows, use_cache = True, False
+    else:
+        shared_rows, use_cache = False, cache(cs) + sums <= MAX_SHARED_BYTES
+    nbytes = sums + (rows(cs) if shared_rows else 0) + (cache(cs) if use_cache else 0)
+    return GatherScatterPlan(shared_rows, use_cache, cs, nbytes)
 
 
 def _check_inputs(tab_t, sids, offs, g_t, iters, c_pad) -> Tuple[int, int, int, int]:
@@ -103,9 +158,23 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     # pointers and the stream as c_void_p: ctypes would cut a bare int to 32 bits
-    lib.collie_binned_gather_scatter.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.collie_binned_gather_scatter.argtypes = [p] * 6 + [i] * 6 + [p, p]
     lib.collie_binned_gather_scatter.restype = i
+    lib.collie_gather_scatter_plan.argtypes = [i] * 5 + [p] * 3
+    lib.collie_gather_scatter_plan.restype = ctypes.c_longlong
     return lib
+
+
+def kernel_plan(D: int, upad: int, n_bins: int, B: int, c_pad: int) -> GatherScatterPlan:
+    """The plan as the built kernel computes it (for holding
+    ``gather_scatter_plan`` to it on the card)."""
+    flags = (ctypes.c_int * 3)()
+    nbytes = _library().collie_gather_scatter_plan(
+        D, upad, n_bins, B, c_pad, ctypes.addressof(flags), ctypes.addressof(flags) + 4,
+        ctypes.addressof(flags) + 8)
+    if nbytes < 0:
+        raise ValueError('collie_gather_scatter_plan: shapes the kernel does not take')
+    return GatherScatterPlan(bool(flags[0]), bool(flags[1]), flags[2], nbytes)
 
 
 def binned_gather_scatter_cuda(tab_t, sids, offs, g_t, iters: int,
@@ -119,16 +188,19 @@ def binned_gather_scatter_cuda(tab_t, sids, offs, g_t, iters: int,
     tab_t, sids, offs, g_t = (t.contiguous() for t in (tab_t, sids, offs, g_t))
     out = torch.empty_like(tab_t)
     gathered = torch.zeros((int(iters), D), dtype=torch.float32, device=device)
-    barrier = torch.zeros(1, dtype=torch.int32, device=device)
+    launched = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.collie_binned_gather_scatter(
             tab_t.data_ptr(), sids.data_ptr(), offs.data_ptr(), g_t.data_ptr(), out.data_ptr(),
-            gathered.data_ptr(), barrier.data_ptr(), D, upad, B, n_bins, int(iters), int(c_pad),
-            stream)
+            gathered.data_ptr(), D, upad, B, n_bins, int(iters), int(c_pad),
+            ctypes.addressof(launched), stream)
     if err != 0:
         raise RuntimeError(f'collie_binned_gather_scatter launch failed: cudaError_t {err}')
     binned_gather_scatter.launches += 1
+    plan = gather_scatter_plan(D, upad, n_bins, B, int(c_pad))
+    binned_gather_scatter.last_plan = GatherScatterPlan(
+        bool(launched[0]), bool(launched[1]), launched[2], plan.shared_bytes)
     return out, gathered
 
 
@@ -149,3 +221,4 @@ def binned_gather_scatter(tab_t, sids, offs, g_t, iters: int,
 
 
 binned_gather_scatter.launches = 0
+binned_gather_scatter.last_plan: Optional[GatherScatterPlan] = None

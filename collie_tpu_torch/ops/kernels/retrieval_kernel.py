@@ -1,15 +1,17 @@
-"""Fused MF tile scoring + per-tile top-k: the retrieval kernel and its plain twin.
+"""Fused MF scoring + running top-k: the retrieval kernel and its plain twin.
 
 Port of ``collie_tpu/ops/pallas/retrieval_kernel.py``.  The Pallas TPU kernel
 ``_topk_tile_kernel`` (``:36``) becomes the hand-written CUDA kernel in
 ``collie_tpu_torch/csrc/topk_tile.cu`` (see its header for the design and its
-bound at the serving shape).  For each item tile it scores
-``user_emb . item_emb + item_bias`` for a block of users, masks the catalog
-tail to ``finfo(float32).min`` and keeps the tile's top-k, ties going to the
-lowest item id; only the ``[n_tiles, B, k]`` candidates reach device memory.
-The merge over tiles (a stable descending sort, so equal scores keep the
-lowest item id as ``lax.top_k`` does) and the per-user bias (rank-invariant)
-run here in PyTorch, as the JAX package leaves them to XLA.
+bound at the serving shape).  It scores ``user_emb . item_emb + item_bias``
+for every user and item and keeps, for each user and each contiguous item
+range, the range's top-k, ties going to the lowest item id; only the
+``[n_ranges, B, k]`` candidates reach device memory.  ``topk_plan`` picks the
+launch: the user chunk a block holds, where the running lists live and the
+range width, from B, D, k, the catalog and the SM count.  The merge over
+ranges (a stable descending sort, so equal scores keep the lowest item id as
+``lax.top_k`` does) and the per-user bias (rank-invariant) run here in
+PyTorch, as the JAX package leaves them to XLA.
 
 ``mf_topk_retrieve`` launches the kernel for CUDA tensors and raises on
 anything it does not take; it runs ``mf_topk_retrieve_plain`` only for
@@ -17,7 +19,8 @@ tensors that lie on the CPU.  ``mf_topk_retrieve.launches`` counts kernel
 launches.
 """
 import ctypes
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +29,85 @@ from collie_tpu_torch.ops.kernels import _build
 NEG_INF = float(torch.finfo(torch.float32).min)
 MAX_K = 128
 SOURCE = 'topk_tile.cu'
+
+# the kernel's geometry (csrc/topk_tile.cu): items a tile, embedding dims a
+# stage holds, floats a transposed stage row (and a score row) and a landing
+# row take, and the user chunks it is built for
+TILE_ITEMS = 128
+CHUNK_DIMS = 32
+ITEM_ROW = TILE_ITEMS + 4
+LANDING_ROW = CHUNK_DIMS + 4
+USER_CHUNKS = (32, 64, 128)
+MAX_SHARED_BYTES = 232448      # what one block may use on sm_90
+SM_SHARED_BYTES = 233472       # an SM's shared memory; 1 KB of it is reserved per block
+REGISTERS = 192                # about what ptxas gives a thread of the kernel
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class TopkPlan:
+    """One launch of the kernel: ``n_chunks`` chunks of ``user_chunk``
+    users times ``n_ranges`` ranges of ``tiles_per_range`` tiles; the
+    running lists in shared memory or in a scratch of ``[blocks,
+    user_chunk, k]``."""
+    user_chunk: int
+    lists_in_shared: bool
+    n_chunks: int
+    tiles_per_range: int
+    n_ranges: int
+    shared_bytes: int
+    threads: int
+    blocks_per_sm: int
+
+    @property
+    def range_width(self) -> int:
+        return self.tiles_per_range * TILE_ITEMS
+
+    @property
+    def blocks(self) -> int:
+        return self.n_chunks * self.n_ranges
+
+
+def topk_shared_bytes(user_chunk: int, D: int, k: int, lists_in_shared: bool) -> int:
+    """Shared memory of one block: user rows (D padded to 32), two item
+    stages and their two landing slots, the score tile, each user's
+    threshold and flag, and the running lists where they live there."""
+    dims = -(-D // CHUNK_DIMS) * CHUNK_DIMS
+    return 4 * (user_chunk * dims + 2 * CHUNK_DIMS * ITEM_ROW + 2 * TILE_ITEMS * LANDING_ROW
+                + user_chunk * ITEM_ROW
+                + 3 * user_chunk + (2 * user_chunk * k if lists_in_shared else 0))
+
+
+def topk_plan(B: int, D: int, k: int, num_items: int, sms: int = H100_SMS) -> TopkPlan:
+    """The launch plan for ``B`` users, dim ``D``, top ``k`` over
+    ``num_items`` items on a card of ``sms`` SMs.
+
+    The user chunk is the smallest of 32, 64, 128 that holds B (128 above),
+    or a smaller one where its shared memory does not fit; the running
+    lists go to shared memory where they fit, else to device memory.  The
+    grid is ``n_chunks`` x ``n_ranges`` blocks, with as many ranges as fill
+    every SM with the blocks it holds at once, each range a whole number of
+    128-item tiles.
+    """
+    want = next((c for c in USER_CHUNKS if c >= B), USER_CHUNKS[-1])
+    options = [(chunk, lists) for chunk in sorted((c for c in USER_CHUNKS if c <= want),
+                                                  reverse=True) for lists in (True, False)]
+    for chunk, lists in options:
+        shared = topk_shared_bytes(chunk, D, k, lists)
+        if shared <= MAX_SHARED_BYTES:
+            break
+    else:
+        raise ValueError(f'D={D} with k={k} does not fit in shared memory')
+    threads = 2 * chunk
+    blocks_per_sm = max(1, min(SM_SHARED_BYTES // (shared + 1024), 2048 // threads,
+                               65536 // (REGISTERS * threads)))
+    n_chunks = -(-B // chunk)
+    n_tiles = -(-num_items // TILE_ITEMS)
+    want_ranges = max(1, sms * blocks_per_sm // n_chunks)
+    tiles_per_range = -(-n_tiles // want_ranges)
+    n_ranges = -(-n_tiles // tiles_per_range)
+    return TopkPlan(chunk, lists, n_chunks, tiles_per_range, n_ranges, shared, threads,
+                    blocks_per_sm)
 
 
 def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,9 +147,10 @@ def _check_inputs(user_embeddings, user_biases, item_embeddings, item_biases,
 
 def _merge_tiles(tile_scores: torch.Tensor, tile_ids: torch.Tensor,
                  user_biases: torch.Tensor, k: int):
-    """``[n_tiles, B, k]`` candidates -> final ``(ids [B, k], scores [B, k])``.
-    Candidates are laid out tile-major per user, so the stable sort's order
-    among equal scores is ascending item id."""
+    """``[n_ranges, B, k]`` candidates -> final ``(ids [B, k], scores [B, k])``.
+    Candidates are laid out range-major per user, ranges in increasing item
+    order and each range's list in (score descending, id ascending) order,
+    so the stable sort's order among equal scores is ascending item id."""
     n_tiles, B, _ = tile_scores.shape
     cand_scores = tile_scores.permute(1, 0, 2).reshape(B, n_tiles * k)
     cand_ids = tile_ids.permute(1, 0, 2).reshape(B, n_tiles * k)
@@ -80,28 +163,25 @@ def topk_tiles_plain(user_embeddings: torch.Tensor,
                      item_embeddings: torch.Tensor,
                      item_biases: torch.Tensor,
                      k: int, tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: per-tile top-k candidates
-    ``(scores, ids)``, each ``[n_tiles, B, k]``."""
+    """Plain PyTorch version of the kernel: the top-k candidates
+    ``(scores, ids)``, each ``[n_ranges, B, k]``, of each range of ``tile``
+    items (the kernel's range width, or the tile of ``mf_topk_retrieve``).
+    A range with fewer than k items pads with (finfo.min, its first id)."""
     B = user_embeddings.shape[0]
     num_items = item_embeddings.shape[0]
-    n_tiles = -(-num_items // tile)
+    n_ranges = -(-num_items // tile)
     device = user_embeddings.device
-    out_scores = torch.empty((n_tiles, B, k), dtype=torch.float32, device=device)
-    out_ids = torch.empty((n_tiles, B, k), dtype=torch.int32, device=device)
-    for t in range(n_tiles):
+    out_scores = torch.full((n_ranges, B, k), NEG_INF, dtype=torch.float32, device=device)
+    out_ids = torch.empty((n_ranges, B, k), dtype=torch.int32, device=device)
+    for t in range(n_ranges):
         base = t * tile
         stop = min(base + tile, num_items)
-        scores = torch.full((B, tile), NEG_INF, dtype=torch.float32, device=device)
-        scores[:, :stop - base] = (user_embeddings @ item_embeddings[base:stop].T
-                                   + item_biases[base:stop][None, :])
+        scores = user_embeddings @ item_embeddings[base:stop].T + item_biases[base:stop][None, :]
         values, idx = stable_topk(scores, k)
-        # a tile narrower than k pads with (finfo.min, tile base), as the kernel
-        pad = k - values.shape[1]
-        if pad:
-            values = torch.nn.functional.pad(values, (0, pad), value=NEG_INF)
-            idx = torch.nn.functional.pad(idx, (0, pad), value=0)
-        out_scores[t] = values
-        out_ids[t] = (base + idx).to(torch.int32)
+        kept = values.shape[1]
+        out_scores[t, :, :kept] = values
+        out_ids[t, :, :kept] = (base + idx).to(torch.int32)
+        out_ids[t, :, kept:] = base
     return out_scores, out_ids
 
 
@@ -124,19 +204,21 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     # pointers and the stream as c_void_p: ctypes would cut a bare int to 32 bits
-    lib.collie_topk_tile.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+    lib.collie_topk_tile.argtypes = [p, p, p] + [i] * 6 + [p] * 5
     lib.collie_topk_tile.restype = i
-    lib.collie_topk_tile_users_per_block.argtypes = [i, i]
-    lib.collie_topk_tile_users_per_block.restype = i
+    lib.collie_topk_shared_bytes.argtypes = [i] * 4
+    lib.collie_topk_shared_bytes.restype = ctypes.c_longlong
     return lib
 
 
 def topk_tiles_cuda(user_embeddings: torch.Tensor,
                     item_embeddings: torch.Tensor,
                     item_biases: torch.Tensor,
-                    k: int, tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream: per-tile candidates
-    ``(scores, ids)``, each ``[n_tiles, B, k]``."""
+                    k: int, tile: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on the current stream: per-range candidates
+    ``(scores, ids)``, each ``[n_ranges, B, k]`` of ``topk_plan`` for the
+    card.  ``tile``, the plain version's tile, does not shape the launch and
+    is taken so the two are called alike."""
     tensors = (user_embeddings, item_embeddings, item_biases)
     if any(t.device.type != 'cuda' for t in tensors):
         raise ValueError('topk_tiles_cuda takes CUDA tensors')
@@ -148,22 +230,26 @@ def topk_tiles_cuda(user_embeddings: torch.Tensor,
     num_items = item_embeddings.shape[0]
     if item_embeddings.shape[1] != D or tuple(item_biases.shape) != (num_items,):
         raise ValueError('item_embeddings must be [num_items, D] and item_biases [num_items]')
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f'kernel supports 1 <= k <= {MAX_K}, got {k}')
-    if max(B, num_items, tile) >= 2 ** 31:
+    if not 1 <= k <= min(MAX_K, num_items):
+        raise ValueError(f'kernel supports 1 <= k <= min({MAX_K}, num_items), got {k}')
+    if max(B, num_items) >= 2 ** 31:
         raise ValueError('sizes must fit in int32')
-    lib = _library()
-    if lib.collie_topk_tile_users_per_block(D, tile) == 0:
-        raise ValueError(f'tile={tile} with D={D} does not fit in shared memory')
-    n_tiles = -(-num_items // tile)
     device = user_embeddings.device
-    out_scores = torch.empty((n_tiles, B, k), dtype=torch.float32, device=device)
-    out_ids = torch.empty((n_tiles, B, k), dtype=torch.int32, device=device)
+    plan = topk_plan(B, D, k, num_items,
+                     torch.cuda.get_device_properties(device).multi_processor_count)
+    lib = _library()
+    out_scores = torch.empty((plan.n_ranges, B, k), dtype=torch.float32, device=device)
+    out_ids = torch.empty((plan.n_ranges, B, k), dtype=torch.int32, device=device)
+    lists = (None, None)
+    if not plan.lists_in_shared:
+        lists = tuple(torch.empty((plan.blocks, plan.user_chunk, k), dtype=dtype, device=device)
+                      for dtype in (torch.float32, torch.int32))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.collie_topk_tile(
-            user_embeddings.data_ptr(), item_embeddings.data_ptr(),
-            item_biases.data_ptr(), B, D, num_items, tile, k,
+            user_embeddings.data_ptr(), item_embeddings.data_ptr(), item_biases.data_ptr(),
+            B, D, num_items, k, plan.user_chunk, plan.tiles_per_range,
+            *[None if t is None else t.data_ptr() for t in lists],
             out_scores.data_ptr(), out_ids.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f'collie_topk_tile launch failed: cudaError_t {err}')
@@ -183,7 +269,9 @@ def mf_topk_retrieve(user_embeddings: torch.Tensor,
     ``user_biases [B]``, ``item_embeddings [num_items, D]``,
     ``item_biases [num_items]`` -> ``(top_ids [B, k] int32,
     top_scores [B, k] float32)``; ``k <= 128``.  CUDA tensors go through the
-    kernel, CPU tensors through ``mf_topk_retrieve_plain``.
+    kernel, whose ranges ``topk_plan`` sizes; CPU tensors through
+    ``mf_topk_retrieve_plain``, in tiles of ``tile`` items.  Both give the
+    same top-k: the merge of any partition of the catalog into ranges.
     """
     _check_inputs(user_embeddings, user_biases, item_embeddings, item_biases, k, tile)
     device = user_embeddings.device
@@ -193,7 +281,7 @@ def mf_topk_retrieve(user_embeddings: torch.Tensor,
     elif device.type == 'cuda':
         tile_scores, tile_ids = topk_tiles_cuda(
             user_embeddings.contiguous(), item_embeddings.contiguous(),
-            item_biases.contiguous(), k, tile)
+            item_biases.contiguous(), k)
     else:
         raise ValueError(f'mf_topk_retrieve runs on cuda or cpu, not {device}')
     return _merge_tiles(tile_scores, tile_ids, user_biases, k)

@@ -20,8 +20,11 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from collie_tpu_torch.ops.kernels.gather_scatter import (binned_gather_scatter,
+from collie_tpu_torch.ops.kernels.gather_scatter import (MAX_SHARED_BYTES, TARGET_BYTES,
+                                                         GatherScatterPlan,
+                                                         binned_gather_scatter,
                                                          binned_gather_scatter_plain,
+                                                         gather_scatter_plan,
                                                          kept_examples)
 
 ATOL = 1e-5
@@ -190,3 +193,60 @@ def test_wrapper_raises_for_other_devices_and_bad_inputs():
         binned_gather_scatter(*args[:3], args[3][:, :-1], 1, shape['C_PAD'])
     with pytest.raises(ValueError, match='multiple of n_bins'):
         binned_gather_scatter(args[0][:, :-1], *args[1:], 1, shape['C_PAD'])
+
+
+def _plan_of(shape):
+    """The plan for ``chip_smoke``'s inputs at ``shape``, without building them."""
+    U, D, B, n_bins = shape['U'], shape['D'], shape['B'], shape['n_bins']
+    ub = -(-U // n_bins // 128) * 128
+    return gather_scatter_plan(D, n_bins * ub, n_bins, B, shape['c_pad'])
+
+
+def test_cluster_plan_for_the_microbench_shape():
+    """The microbench's bins (4,608 rows of D = 32, 590 KB each) are split
+    over clusters of 8 blocks, rows and example cache in shared memory."""
+    from chip_smoke import GS_SHAPE
+
+    plan = _plan_of(GS_SHAPE)
+    assert plan == GatherScatterPlan(shared_rows=True, cache=True, cluster=8,
+                                     shared_bytes=4 * (32 + 576 * 33 + 96 * 34))
+    assert plan.mode == 'shared rows' and plan.shared_bytes <= MAX_SHARED_BYTES
+
+
+def test_cluster_plan_for_a_bin_too_large_for_a_cluster():
+    """``chip_smoke.GS_OVERSIZE``'s bins (18,048 rows, 2.3 MB) exceed the
+    shared memory of a cluster of 8: rows stay in device memory, the
+    example cache in shared memory; with a window too large to cache, not
+    even that."""
+    from chip_smoke import GS_OVERSIZE
+
+    plan = _plan_of(GS_OVERSIZE)
+    assert plan == GatherScatterPlan(shared_rows=False, cache=True, cluster=8,
+                                     shared_bytes=4 * (32 + 320 * 34))
+    assert plan.mode == 'device rows'
+    huge = gather_scatter_plan(32, 72192, 4, 10_000_000, 2_000_000)
+    assert huge == GatherScatterPlan(False, False, 8, 4 * 32)
+
+
+@pytest.mark.parametrize('D,upad,n_bins,B,c_pad', [
+    (8, 1024, 4, 256, 128),           # the CPU tests' shape
+    (33, 3072, 4, 700, 128),          # the card tests' shape
+    (32, 73728, 16, 8192, 768),       # the microbench's
+    (64, 65536, 16, 4096, 512),
+    (32, 32768, 16, 4096, 512),
+    (256, 4096, 4, 1024, 256),        # D = 256: over 96 KB even at 8 blocks
+])
+def test_cluster_plan_takes_the_smallest_cluster_under_96_kb(D, upad, n_bins, B, c_pad):
+    """The cluster is the smallest of 1, 2, 4, 8 blocks whose share of a
+    bin's rows (odd rows of ``D | 1`` floats) and of its window of examples
+    (``D | 1`` gradients and a row index each) stays under 96 KB, else 8."""
+    ub, stride, window = upad // n_bins, D | 1, min(c_pad, B)
+
+    def block_bytes(cs):
+        return 4 * (D + -(-ub // cs) * stride + -(-window // cs) * (stride + 1))
+
+    want = next((cs for cs in (1, 2, 4, 8) if block_bytes(cs) <= TARGET_BYTES), 8)
+    plan = gather_scatter_plan(D, upad, n_bins, B, c_pad)
+    assert plan.cluster == want
+    assert plan.shared_rows and plan.cache and plan.shared_bytes == block_bytes(want)
+    assert plan.shared_bytes <= MAX_SHARED_BYTES

@@ -2,9 +2,9 @@
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  The fused epochs' edge shapes, inputs and tolerance are
-``chip_smoke.py``'s, and so are the binned gather/scatter's inputs and
-tolerance.  The file imports no JAX, so it also runs on a machine
-without it:
+``chip_smoke.py``'s, and so are the top-k kernel's edge shapes and checks
+and the binned gather/scatter's inputs, shapes and tolerance.  The file
+imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from chip_smoke import (EPOCH_EDGES, EXPLICIT_EDGES, EXPLICIT_STATE, GS_ATOL_SCALE,
-                        IMPLICIT_STATE, compare_epoch, epoch_inputs, explicit_epoch_inputs,
+                        GS_OVERSIZE, GS_SHAPE, IMPLICIT_STATE, TOPK_EDGES, compare_epoch,
+                        compare_topk_kernel, epoch_inputs, explicit_epoch_inputs,
                         gather_scatter_inputs)
 from collie_tpu_torch.ops.kernels.retrieval_kernel import (mf_topk_retrieve,
                                                            mf_topk_retrieve_plain)
@@ -273,3 +274,86 @@ def test_timeline_stamps_every_phase_of_the_launch(cuda_device, explicit):
     stamps = timeline.cpu()
     assert stamps[0] > 0 and bool((stamps[1:] >= stamps[:-1]).all())
     compare_epoch(f'timeline explicit={explicit}', out, ref, names=names)
+
+
+def _card(rng, shape, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,D,k,num_items', TOPK_EDGES + [(256, 64, 128, 200_000)])
+def test_topk_kernel_candidates_match_plain_version(cuda_device, B, D, k, num_items):
+    """Per-range candidates at the plan's range width and the merged top-k,
+    held as ``chip_smoke.py`` holds them (scores within 1e-5, ids as sets
+    but for near-ties at the k-th place, every score its id's score)."""
+    rng = np.random.default_rng(B * 7 + D * 131 + k + num_items)
+    ue, ub = _card(rng, (B, D), cuda_device), _card(rng, (B,), cuda_device)
+    ie, ib = _card(rng, (num_items, D), cuda_device), _card(rng, (num_items,), cuda_device)
+    before = mf_topk_retrieve.launches
+    compare_topk_kernel(f'B={B} D={D} k={k}', ue, ub, ie, ib, k)
+    assert mf_topk_retrieve.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', [40, 128])
+def test_topk_kernel_ties_are_exact(cuda_device, k):
+    """Duplicated rows on a coarse grid tie exactly: candidates and merged
+    top-k equal the plain version's and the dense stable top-k bit for bit."""
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import (stable_topk, topk_plan,
+                                                               topk_tiles_cuda, topk_tiles_plain)
+
+    rng = np.random.default_rng(k)
+    grid = lambda shape: torch.tensor(  # noqa: E731
+        rng.integers(-2, 3, shape).astype(np.float32) / 4, device=cuda_device)
+    ue, ub, ie, ib = grid((24, 12)), grid((24,)), grid((611, 12)), grid((611,))
+    ie[300:600], ib[300:600] = ie[:300].clone(), ib[:300].clone()
+    ids, scores = mf_topk_retrieve(ue, ub, ie, ib, k=k)
+    ref_scores, ref_ids = stable_topk(ue @ ie.T + ub[:, None] + ib[None, :], k)
+    plan = topk_plan(24, 12, k, 611, torch.cuda.get_device_properties(0).multi_processor_count)
+    cand = topk_tiles_cuda(ue, ie, ib, k)
+    ref_cand = topk_tiles_plain(ue, ie, ib, k, plan.range_width)
+    torch.cuda.synchronize()
+    assert torch.equal(ids.long(), ref_ids) and torch.equal(scores, ref_scores)
+    assert all(torch.equal(a, b) for a, b in zip(cand, ref_cand))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D,k', [(1, 1), (64, 10), (256, 128), (1000, 128)])
+def test_topk_plan_shared_bytes_match_the_kernel(cuda_device, D, k):
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import (USER_CHUNKS, _library,
+                                                               topk_shared_bytes)
+
+    lib = _library()
+    for chunk in USER_CHUNKS:
+        for lists in (False, True):
+            assert lib.collie_topk_shared_bytes(chunk, D, k, int(lists)) == \
+                topk_shared_bytes(chunk, D, k, lists)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,shared_rows', [(GS_SHAPE, True), (GS_OVERSIZE, False)])
+def test_gather_scatter_both_modes_match_plain_version(cuda_device, shape, shared_rows):
+    """Bins in the clusters' shared memory (the microbench's shape) and bins
+    too large for a cluster (rows in device memory), each against the plain
+    version with ``chip_smoke.py``'s tolerances; the launch reports the
+    mode the wrapper's plan names."""
+    from collie_tpu_torch.ops.kernels.gather_scatter import (binned_gather_scatter,
+                                                             binned_gather_scatter_plain,
+                                                             gather_scatter_plan,
+                                                             kept_examples, kernel_plan)
+
+    iters, c_pad = 5, shape['c_pad']
+    (tab_t, sids, offs, g_t), _ = gather_scatter_inputs(1, **shape)
+    D, upad = tab_t.shape
+    plan = gather_scatter_plan(D, upad, offs.shape[0] - 1, sids.shape[0], c_pad)
+    assert plan.shared_rows == shared_rows
+    assert kernel_plan(D, upad, offs.shape[0] - 1, sids.shape[0], c_pad) == plan
+    out, gathered = binned_gather_scatter(tab_t, sids, offs, g_t, iters, c_pad)
+    ref_out, ref_gathered = binned_gather_scatter_plain(tab_t, sids, offs, g_t, iters, c_pad)
+    torch.cuda.synchronize()
+    assert binned_gather_scatter.last_plan == plan
+    n_kept = int(kept_examples(sids, offs, upad, c_pad).sum())
+    top = float(ref_out.abs().max())
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=GS_ATOL_SCALE * top)
+    torch.testing.assert_close(gathered, ref_gathered, rtol=0,
+                               atol=GS_ATOL_SCALE * n_kept * top)

@@ -65,14 +65,27 @@ def test_gather_scatter_module_is_checked():
     assert 'extern "C" int collie_binned_gather_scatter(' in source
 
 
+# how each persistent kernel's C entry launches: the epoch kernels
+# cooperatively (their grid barrier needs every block resident), the binned
+# gather/scatter as thread-block clusters (it syncs per cluster, never the grid)
+PERSISTENT_LAUNCHES = {'fused_mf_epoch.cu': 'cudaLaunchCooperativeKernel(',
+                       'gather_scatter.cu': 'cudaLaunchKernelEx('}
+
+
 @pytest.mark.parametrize('source', ['fused_mf_epoch.cu', 'gather_scatter.cu'])
 def test_persistent_kernels_launch_once_and_cooperatively(source):
-    """Each C entry of these sources makes one cooperative launch (the grid
-    barrier needs every block resident) and none with <<<...>>>."""
+    """Each C entry of these sources makes one launch of its kind, none
+    with <<<...>>>; only the cooperative ones include the grid barrier."""
     text = (PACKAGE / 'csrc' / source).read_text()
+    launch = PERSISTENT_LAUNCHES[source]
     assert '<<<' not in text
-    assert 'cudaLaunchCooperativeKernel(' in text
-    assert '#include "grid_barrier.cuh"' in text
+    assert text.count(launch) == 1
+    cooperative = launch == 'cudaLaunchCooperativeKernel('
+    assert ('#include "grid_barrier.cuh"' in text) == cooperative
+    assert ('grid_sync(' in text) == cooperative
+    if not cooperative:
+        assert 'cudaLaunchAttributeClusterDimension' in text
+        assert 'cluster.sync()' in text and 'map_shared_rank(' in text
     assert (PACKAGE / 'csrc' / 'grid_barrier.cuh').is_file()
 
 

@@ -12,9 +12,13 @@ import pytest
 import torch
 
 from collie_tpu.ops.pallas.retrieval_kernel import mf_topk_retrieve as jax_mf_topk_retrieve
-from collie_tpu_torch.ops.kernels.retrieval_kernel import (NEG_INF, mf_topk_retrieve,
+from collie_tpu_torch.ops.kernels.retrieval_kernel import (MAX_K, NEG_INF, TILE_ITEMS,
+                                                           USER_CHUNKS, _merge_tiles,
+                                                           mf_topk_retrieve,
                                                            mf_topk_retrieve_plain,
-                                                           stable_topk, topk_tiles_plain)
+                                                           stable_topk, topk_plan,
+                                                           topk_shared_bytes,
+                                                           topk_tiles_plain)
 
 EDGE_ENVELOPES = [
     (37, 257, 10),    # B > 8, unaligned; tile does not divide the catalog
@@ -118,3 +122,73 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(change, error):
         ue, ub, ie, ib = [t.to(change['device']) for t in (ue, ub, ie, ib)]
     with pytest.raises(error):
         mf_topk_retrieve(ue, ub, ie, ib, k=change.get('k', 10), tile=change.get('tile', 64))
+
+
+PLAN_SHAPES = [(1, 1, 1, 1), (37, 12, 10, 611), (256, 64, 10, 2_000_000),
+               (256, 64, 128, 2_000_000), (300, 65, 128, 128), (5, 256, 100, 100),
+               (4096, 64, 10, 2_000_000), (129, 3, 1, 129)]
+
+
+@pytest.mark.parametrize('B,D,k,num_items', PLAN_SHAPES)
+def test_topk_plan_covers_every_item_once_in_order(B, D, k, num_items):
+    """The plan's ranges cover the catalog once, in increasing order, each a
+    whole number of tiles; its user chunks cover B; its grid fills the SMs
+    it was planned for (or has a range per tile)."""
+    plan = topk_plan(B, D, k, num_items, sms=132)
+    starts = [r * plan.range_width for r in range(plan.n_ranges)]
+    stops = [min(s + plan.range_width, num_items) for s in starts]
+    assert starts[0] == 0 and stops[-1] == num_items
+    assert all(a < b for a, b in zip(starts, stops))
+    assert all(stop == start for stop, start in zip(stops, starts[1:]))
+    assert plan.range_width % TILE_ITEMS == 0
+    assert plan.n_chunks * plan.user_chunk >= B > (plan.n_chunks - 1) * plan.user_chunk
+    n_tiles = -(-num_items // TILE_ITEMS)
+    assert plan.n_chunks * plan.n_ranges <= 132 * plan.blocks_per_sm or plan.n_ranges == 1
+    assert plan.n_ranges == n_tiles or plan.n_chunks * plan.n_ranges > 66 * plan.blocks_per_sm
+    assert plan.threads == 2 * plan.user_chunk
+
+
+def test_topk_plan_fits_shared_memory_for_every_dim_and_k():
+    """Every D <= 256 and k <= 128 gets a plan within the 227 KB a block may
+    use, the plan's bytes are what its chunk and lists need, and the lists
+    leave shared memory only where they do not fit there."""
+    for D in range(1, 257):
+        for k in range(1, MAX_K + 1):
+            plan = topk_plan(256, D, k, 2_000_000)
+            assert plan.shared_bytes <= 232_448
+            assert plan.shared_bytes == topk_shared_bytes(plan.user_chunk, D, k,
+                                                          plan.lists_in_shared)
+            assert plan.user_chunk in USER_CHUNKS
+            if not plan.lists_in_shared:
+                assert topk_shared_bytes(plan.user_chunk, D, k, True) > 232_448
+    with pytest.raises(ValueError, match='shared memory'):
+        topk_plan(256, 4096, 128, 2_000_000)
+
+
+@pytest.mark.parametrize('m', [2, 3])
+@pytest.mark.parametrize('B,tile,k', EDGE_ENVELOPES)
+def test_wider_ranges_merge_to_the_per_tile_result(B, tile, k, m):
+    """Candidates of ranges m tiles wide, merged, equal today's per-tile
+    result and the Pallas kernel in interpret mode: the merge of any
+    partition of the catalog is the stable top-k."""
+    arrays = _inputs(B * 1000 + tile + k, B)
+    ue, ub, ie, ib = map(torch.from_numpy, arrays)
+    per_tile = _merge_tiles(*topk_tiles_plain(ue, ie, ib, k, tile), ub, k)
+    wide_scores, wide_ids = topk_tiles_plain(ue, ie, ib, k, m * tile)
+    assert wide_scores.shape == (-(-611 // (m * tile)), B, k)
+    wide = _merge_tiles(wide_scores, wide_ids, ub, k)
+    assert torch.equal(wide[0], per_tile[0]) and torch.equal(wide[1], per_tile[1])
+    jax_ids, jax_scores = jax_mf_topk_retrieve(*map(jnp.asarray, arrays), k=k, tile=tile,
+                                               interpret=True)
+    np.testing.assert_array_equal(wide[0].numpy(), np.asarray(jax_ids))
+    np.testing.assert_allclose(wide[1].numpy(), np.asarray(jax_scores), rtol=1e-5, atol=1e-5)
+
+
+def test_range_with_fewer_than_k_items_pads_with_its_first_id():
+    """The last range holds 3 items with k = 5: its two padding entries are
+    (finfo.min, the range's first id), the kernel's padding."""
+    ue, _, ie, ib = map(torch.from_numpy, _inputs(4, 3, num_items=11, dim=4))
+    scores, ids = topk_tiles_plain(ue, ie, ib, k=5, tile=8)
+    assert (scores[1, :, 3:] == NEG_INF).all() and (ids[1, :, 3:] == 8).all()
+    assert torch.isfinite(scores[1, :, :3]).all()
+    assert sorted(ids[1, 0, :3].tolist()) == [8, 9, 10]
