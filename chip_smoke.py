@@ -61,7 +61,18 @@ non-zero before the result line:
    epochs, with examples/s, the epoch split, peak memory and a
    trained-beats-untrained test MSE check.  The explicit kernel's launch
    counter must equal the epochs of (c) and (d);
-6. the kernels line (one JSON object), the card's name and power limit, and
+6. zoo: the single-stage model zoo and embedding dropout at the
+   configuration of ``benchmarks/bench_zoo_scale.py`` (20,000 users x
+   10,000 items, 1M generated interactions, 90/5/5 split, ``embedding_dim``
+   32, batch 8,192, K=10): MLP-MF, Nonlinear-MF, NeuMF, DeepFM, CML and MF
+   with ``dropout_p=0.05``, each fit for 3 epochs on the card (examples/s per
+   epoch beside the card's name and power limit, finite losses), evaluated
+   before and after (test AUC must rise), and asked for one ``recommend`` of
+   256 users whose ids must equal a stable top-k of ``score_item_block``
+   over the whole catalog; one more epoch of MF with dropout and of NeuMF
+   runs under ``torch.profiler`` (device launches, busy time and span).
+   No kernel launches on this path;
+7. the kernels line (one JSON object), the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
@@ -119,6 +130,31 @@ SPLIT = ('shuffle_ms', 'sample_ms', 'train_ms')     # CollieTrainer.epoch_log
 EXPLICIT_GATE_DATA = dict(num_users=943, num_items=1682, seed=42)
 EXPLICIT_LR = 1e-2
 Y_RANGE = (1, 5)
+# the single-stage zoo at the configuration of benchmarks/bench_zoo_scale.py:
+# data and split (:36-43, :93-99), each model's settings (:122-139), and MF
+# with embedding dropout; fit for ZOO_EPOCHS where the benchmark times 3
+# epochs after a warm-up fit
+ZOO_DATA = dict(num_users=20_000, num_items=10_000, num_interactions=1_000_000,
+                num_negative_samples=10, affinity_bias=3.0, seed=7)
+ZOO_BATCH = 8192
+ZOO_DIM = 32
+ZOO_EPOCHS = 3
+ZOO_MODELS = [
+    ('MatrixFactorizationModel', dict(embedding_dim=ZOO_DIM, dropout_p=0.05, lr=1e-1,
+                                      loss='adaptive')),
+    ('MLPMatrixFactorizationModel', dict(embedding_dim=ZOO_DIM, num_layers=2, lr=1e-2,
+                                         loss='adaptive')),
+    ('NonlinearMatrixFactorizationModel', dict(
+        user_embedding_dim=ZOO_DIM, item_embedding_dim=ZOO_DIM,
+        user_dense_layers_dims=[ZOO_DIM, ZOO_DIM], item_dense_layers_dims=[ZOO_DIM, ZOO_DIM],
+        lr=1e-2, loss='adaptive')),
+    ('NeuralCollaborativeFiltering', dict(embedding_dim=ZOO_DIM, num_layers=2, lr=1e-2,
+                                          loss='adaptive')),
+    ('DeepFM', dict(embedding_dim=ZOO_DIM, num_layers=2, lr=1e-2, loss='adaptive')),
+    ('CollaborativeMetricLearningModel', dict(embedding_dim=ZOO_DIM, lr=1e-2, loss='hinge')),
+]
+# models of which one more epoch runs under torch.profiler after the checks
+ZOO_PROFILED = ('MatrixFactorizationModel', 'NeuralCollaborativeFiltering')
 
 # fused_mf_epoch against its plain version: tables and moments within
 # EPOCH_RTOL * |ref| + EPOCH_ATOL_SCALE * max|ref| per tensor (atomics sum
@@ -1395,6 +1431,106 @@ def phase_explicit_training(ml10m_explicit, record: dict):
     record['launches'] = launches
 
 
+class _LossLog:
+    """A trainer logger keeping each epoch's train loss."""
+
+    def __init__(self):
+        self.losses = []
+
+    def log_metrics(self, metrics, step):
+        self.losses.append(metrics['train_loss_epoch'])
+
+
+def phase_zoo(smi: str) -> dict:
+    """The single-stage zoo and embedding dropout: each model of
+    ``ZOO_MODELS`` built on the card at the zoo-scale configuration, fit for
+    ``ZOO_EPOCHS`` through ``CollieTrainer`` (the generic autograd epoch: no
+    zoo model, nor an MF with dropout, is in a kernel's envelope),
+    evaluated before and after, and asked for one ``recommend`` of
+    ``REQUEST_USERS`` users with seen filtering (the blockwise path for the
+    zoo), held against a stable top-k of ``score_item_block`` over the
+    whole catalog with the seen items masked."""
+    import collie_tpu_torch
+    from collie_tpu_torch import (CollieTrainer, InteractionsDataLoader, auc, evaluate_in_batches,
+                                  mapk, mrr, stratified_split)
+    from collie_tpu_torch.data.synthetic import generate_implicit_interactions
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import NEG_INF, stable_topk
+    from collie_tpu_torch.retrieval import recommend
+
+    start = time.perf_counter()
+    train, _, test = stratified_split(generate_implicit_interactions(**ZOO_DATA), val_p=0.05,
+                                      test_p=0.05, seed=7, force_split=True)
+    seen_csr = train.mat.tocsr()
+    rng = np.random.default_rng(ZOO_DATA['seed'])
+    users = np.sort(rng.choice(train.num_users, REQUEST_USERS, replace=False))
+    log(f'zoo-scale data: {train.num_interactions} train / {test.num_interactions} test '
+        f'interactions, {train.num_users} users x {train.num_items} items, batch {ZOO_BATCH}, '
+        f'K={ZOO_DATA["num_negative_samples"]} ({time.perf_counter() - start:.1f}s on the host)')
+
+    reset_launch_counts()
+    results = {}
+    for name, kwargs in ZOO_MODELS:
+        loader = InteractionsDataLoader(interactions=train, batch_size=ZOO_BATCH, shuffle=True,
+                                        seed=42)
+        model = getattr(collie_tpu_torch, name)(train=loader, seed=42, **kwargs)
+        if model.device.type != DEVICE:
+            raise AssertionError(f'{name} built on {model.device}')
+        auc_before = evaluate_in_batches([auc], test, model, k=K, verbose=False)
+        losses = _LossLog()
+        trainer = CollieTrainer(model, max_epochs=ZOO_EPOCHS, verbosity=0, seed=42,
+                                logger=losses, enable_model_summary=False)
+        trainer.fit(model)
+        torch.cuda.synchronize()
+        per_epoch = [train.num_interactions / e['seconds'] for e in trainer.epoch_log]
+        t0 = time.perf_counter()
+        map_k, mrr_v, auc_v = evaluate_in_batches([mapk, mrr, auc], test, model, k=K,
+                                                  verbose=False)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        ids, scores = recommend(model, users, k=K)
+        torch.cuda.synchronize()
+        request_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            block = model.score_item_block(model.params, model._ids(users),
+                                           torch.arange(train.num_items, device=model.device))
+            rows = seen_csr[users]
+            r = np.repeat(np.arange(len(users)), np.diff(rows.indptr))
+            block[torch.as_tensor(r, device=model.device),
+                  torch.as_tensor(rows.indices.astype(np.int64), device=model.device)] = NEG_INF
+            ref_scores, ref_ids = stable_topk(block, K)
+        torch.cuda.synchronize()
+        log(f'zoo {name} {kwargs}: examples/s per epoch {[round(x) for x in per_epoch]} '
+            f'({smi}); per epoch ms (shuffle, sampler, train): '
+            f'{[tuple(round(e[k], 3) for k in SPLIT) for e in trainer.epoch_log]}; '
+            f'train loss per epoch {[round(x, 5) for x in losses.losses]}; '
+            f'{len(np.unique(test.mat.row))} test users: AUC {auc_before:.5f} before the fit, '
+            f'MAP@{K}={map_k:.5f} MRR={mrr_v:.5f} AUC={auc_v:.5f} after ({eval_s:.2f}s); '
+            f'recommend of {REQUEST_USERS} users (filter_seen) {request_ms:.1f} ms')
+        if len(losses.losses) != ZOO_EPOCHS or not np.all(np.isfinite(losses.losses)):
+            raise AssertionError(f'{name}: train losses {losses.losses}')
+        if not (np.isfinite(auc_v) and auc_v > auc_before):
+            raise AssertionError(f'{name}: test AUC {auc_v} after the fit, {auc_before} before')
+        if not np.array_equal(ids, ref_ids.cpu().numpy()):
+            raise AssertionError(f'{name}: recommend ids differ from the full-catalog top-k')
+        if not np.allclose(scores, ref_scores.cpu().numpy(), rtol=RTOL, atol=ATOL):
+            raise AssertionError(f'{name}: recommend scores differ from the full-catalog top-k')
+        results[name] = {'examples_per_s': per_epoch, 'losses': list(losses.losses),
+                         'auc_before': auc_before, 'mapk': map_k, 'mrr': mrr_v, 'auc': auc_v}
+        if name in ZOO_PROFILED:
+            trainer.max_epochs += 1
+            profile_epoch_call(f'zoo {name}, one more epoch of the fit', lambda: trainer.fit(model))
+        del model, trainer, block
+        torch.cuda.empty_cache()
+    launches = {w.__name__: w.launches for w in kernel_wrappers()}
+    log(f'zoo phase: kernel launches {launches} (the zoo and MF with dropout train through '
+        f'the generic epoch and serve through the dense and blockwise paths)')
+    if any(launches.values()):
+        raise AssertionError(f'a kernel launched on the zoo path: {launches}')
+    return results
+
+
 def serving_data(seed: int):
     """Seeded implicit interactions at the serving scale, split per user."""
     from collie_tpu_torch.data import Interactions, stratified_split
@@ -1567,6 +1703,7 @@ def main(argv=None):
     phase_serving(args.seed, topk)
     phase_training(ml10m['implicit'], fused)
     phase_explicit_training(ml10m['explicit'], explicit)
+    phase_zoo(smi)
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
     print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter]}))

@@ -9,7 +9,11 @@ serving path of ``MatrixFactorizationModel`` (data, model construction and
 npz load, ``recommend``, ``evaluate_in_batches``) and its training paths
 (``CollieTrainer.fit`` on in-memory implicit loaders and on explicit ratings
 with MSE/MAE and ``y_range``, through the fused epoch kernels on the card;
-``explicit_evaluate_in_batches``).
+``explicit_evaluate_in_batches``), embedding dropout, and the single-stage
+model zoo (``MLPMatrixFactorizationModel``,
+``NonlinearMatrixFactorizationModel``, ``NeuralCollaborativeFiltering``,
+``DeepFM``, ``CollaborativeMetricLearningModel``), trained through the
+generic autograd epoch and served through the blockwise retrieval path.
 
 Everything is re-exported flat from this module.
 """
@@ -26,8 +30,13 @@ from collie_tpu_torch.data import (BaseInteractions,
                                    stratified_split)
 from collie_tpu_torch.evaluate import (evaluate_in_batches, explicit_evaluate_in_batches,
                                       get_preds)
-from collie_tpu_torch.models import BasePipeline, MatrixFactorizationModel
-from collie_tpu_torch.ops import auc, mapk, mrr
+from collie_tpu_torch.models import (BasePipeline, CollaborativeMetricLearningModel, DeepFM,
+                                     MatrixFactorizationModel, MLPMatrixFactorizationModel,
+                                     NeuralCollaborativeFiltering,
+                                     NonlinearMatrixFactorizationModel)
+from collie_tpu_torch.ops import (adaptive_bpr_loss, adaptive_hinge_loss, auc, bpr_loss,
+                                  hinge_loss, ideal_difference_from_metadata, mae_loss, mapk,
+                                  mrr, mse_loss, warp_loss)
 from collie_tpu_torch.retrieval import build_retrieval_fn, recommend
 from collie_tpu_torch.training import (CollieMinimalTrainer, CollieTrainer,
                                        ReduceLROnPlateau, StepLR)
@@ -39,11 +48,14 @@ from collie_tpu_torch.weights import optimizer_state_from_jax, params_from_jax
 
 __all__ = [
     '__version__', 'DATA_PATH', 'BaseInteractions', 'BaseInteractionsDataLoader',
-    'BasePipeline', 'CollieMinimalTrainer', 'CollieTrainer', 'ExplicitInteractions', 'Interactions', 'InteractionsDataLoader',
-    'MatrixFactorizationModel', 'NegativeSampler', 'ReduceLROnPlateau', 'StepLR',
-    'auc', 'build_retrieval_fn', 'convert_to_implicit', 'evaluate_in_batches',
-    'explicit_evaluate_in_batches',
-    'get_init_arguments', 'get_preds', 'get_random_seed', 'mapk',
-    'merge_docstrings', 'mrr', 'optimizer_state_from_jax', 'params_from_jax', 'random_split', 'recommend',
-    'stratified_split',
+    'BasePipeline', 'CollaborativeMetricLearningModel', 'CollieMinimalTrainer',
+    'CollieTrainer', 'DeepFM', 'ExplicitInteractions', 'Interactions',
+    'InteractionsDataLoader', 'MLPMatrixFactorizationModel', 'MatrixFactorizationModel',
+    'NegativeSampler', 'NeuralCollaborativeFiltering', 'NonlinearMatrixFactorizationModel',
+    'ReduceLROnPlateau', 'StepLR', 'adaptive_bpr_loss', 'adaptive_hinge_loss', 'auc',
+    'bpr_loss', 'build_retrieval_fn', 'convert_to_implicit', 'evaluate_in_batches',
+    'explicit_evaluate_in_batches', 'get_init_arguments', 'get_preds', 'get_random_seed',
+    'hinge_loss', 'ideal_difference_from_metadata', 'mae_loss', 'mapk', 'merge_docstrings',
+    'mrr', 'mse_loss', 'optimizer_state_from_jax', 'params_from_jax', 'random_split',
+    'recommend', 'stratified_split', 'warp_loss',
 ]

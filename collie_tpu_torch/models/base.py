@@ -1,4 +1,4 @@
-"""``BasePipeline``: the model core, serving subset.
+"""``BasePipeline``: the model core.
 
 Port of ``collie_tpu/models/base.py``.  The model is an ``nn.Module`` whose
 parameters are registered under the JAX package's flat names
@@ -10,11 +10,14 @@ so parity tests compare like with like.
 Ported here: construction and hyperparameter capture, loss resolution (the
 ``_is_implicit`` hparam; ``loss_function`` is the resolved loss's name in
 ``ops/losses.LOSSES``), the training half (``calculate_loss``'s dense
-branch and ``optimizer_specs``' dual adam-embeddings / sgd-biases layout),
-``embeddings_dtype`` storage, full-catalog and tile scoring, the prediction
-and similarity APIs, and ``save_model`` / ``load_model_path`` in the JAX
+branch with dropout streams, and ``optimizer_specs``' dual adam-embeddings /
+sgd-biases layout), ``embeddings_dtype`` storage, full-catalog and tile
+scoring (the default hooks bounded for MLP towers), the prediction and
+similarity APIs, and ``save_model`` / ``load_model_path`` in the JAX
 package's npz format (``param:<name>`` arrays plus ``hparams_json``), so a
-model saved by either package loads in the other.
+model saved by either package loads in the other.  Dropout draws from an
+explicit ``torch.Generator`` (``ops/embeddings.py``); ``score(...,
+training=True, generator=g)`` applies it.
 
 Device: models live on ``cuda`` unless ``map_location`` asks for another
 device (``'cpu'`` in the tests); with no GPU and no explicit device,
@@ -33,6 +36,7 @@ from torch import nn
 from collie_tpu_torch.data import (BaseInteractions, ExplicitInteractions, Interactions,
                                    InteractionsDataLoader)
 from collie_tpu_torch.ops import losses as loss_lib
+from collie_tpu_torch.ops.embeddings import embedding_lookup, split_generator
 from collie_tpu_torch.training.optimizers import (OptimizerSpec, build_transform,
                                                   split_bias_keys)
 from collie_tpu_torch.utils import get_random_seed
@@ -339,12 +343,16 @@ class BasePipeline(nn.Module):
     def calculate_loss(self,
                        params: Dict[str, torch.Tensor],
                        batch: Dict[str, torch.Tensor],
+                       generator: Optional[torch.Generator] = None,
                        training: bool = True) -> torch.Tensor:
         """Batch-shape-dispatched loss (reference ``base_pipeline.py:582-654``).
 
         Implicit batches carry ``neg_items [B, K]``, explicit ones
         ``ratings``.  The implicit branch is the JAX package's dense form:
         every negative scored with the params it is differentiated against.
+        ``generator`` feeds dropout; it splits into one stream for the
+        positives and one for the negatives, as JAX's ``_split_or_none``
+        (``collie_tpu/models/base.py:893``).
         """
         mask = batch.get('mask')
         if 'neg_items' in batch:
@@ -353,9 +361,12 @@ class BasePipeline(nn.Module):
             users = batch['users'].long()
             pos_items = batch['pos_items'].long()
             neg_items = batch['neg_items'].long().T  # [K, B], the reference's convention
+            gen_pos, gen_neg = split_generator(generator)
             K = neg_items.shape[0]
-            pos_preds = self.score(params, users, pos_items)
-            neg_preds = self.pairwise_scores(params, users, neg_items)
+            pos_preds = self.score(params, users, pos_items,
+                                   training=training, generator=gen_pos)
+            neg_preds = self.pairwise_scores(params, users, neg_items,
+                                             training=training, generator=gen_neg)
             if K == 1:
                 neg_preds = neg_preds[0]
                 neg_items = neg_items[0]
@@ -371,24 +382,41 @@ class BasePipeline(nn.Module):
         if 'ratings' in batch:
             if self.hparams.get('_is_implicit') is True:
                 raise ValueError('Implicit loss with explicit data is invalid!')
-            preds = self.score(params, batch['users'].long(), batch['items'].long())
+            preds = self.score(params, batch['users'].long(), batch['items'].long(),
+                               training=training, generator=generator)
             return self._loss_fn()(preds, batch['ratings'].float(), sample_weights=mask)
         raise ValueError(f'Unexpected format for batch with keys: {sorted(batch)}.')
 
     def pairwise_scores(self,
                         params: Dict[str, torch.Tensor],
                         users: torch.Tensor,
-                        items: torch.Tensor) -> torch.Tensor:
+                        items: torch.Tensor,
+                        training: bool = False,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Scores ``[R, B]`` of users ``[B]`` against item ids ``[R, B]``.
-        Default: the pairwise ``score`` over the tiled users."""
+        Default: the pairwise ``score`` over the tiled users, the
+        reference's multi-negative forward (``base_pipeline.py:602-607``)."""
         R, B = items.shape
-        return self.score(params, users.repeat(R), items.reshape(-1)).reshape(R, B)
+        flat = self.score(params, users.repeat(R), items.reshape(-1),
+                          training=training, generator=generator)
+        return flat.reshape(R, B)
 
     _DROPOUT_HPARAMS = ('dropout_p', 'dense_dropout_p', 'embedding_dropout_p')
 
     def _score_is_deterministic(self) -> bool:
         """True when ``score()`` has no active dropout."""
         return all(not self.hparams.get(name) for name in self._DROPOUT_HPARAMS)
+
+    def supports_fused_tables(self) -> bool:
+        """The JAX package's fused ``[*, D+1]`` table layout gives the same
+        values faster; the port trains on the named layout only."""
+        return False
+
+    @staticmethod
+    def _emb_bias_lookup(params, emb_key: str, bias_key: str, ids: torch.Tensor):
+        """``(embedding rows, bias values)`` for ``ids`` of any shape: rows
+        come back as ``ids.shape + (d,)``, biases as ``ids.shape``."""
+        return embedding_lookup(params[emb_key], ids), params[bias_key][ids]
 
     # ----------------------------------------------------------- optimizers
 
@@ -435,9 +463,18 @@ class BasePipeline(nn.Module):
     def score(self,
               params: Dict[str, torch.Tensor],
               users: torch.Tensor,
-              items: torch.Tensor) -> torch.Tensor:
-        """Eval-mode forward pass: ``(params, user IDs, item IDs) -> scores``."""
+              items: torch.Tensor,
+              training: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Forward pass: ``(params, user IDs, item IDs) -> scores``;
+        ``training`` with a ``generator`` applies the model's dropout."""
         raise NotImplementedError('``score`` must be implemented in all subclasses.')
+
+    def _resolved_final_layer(self):
+        """NeuMF's and DeepFM's output activation: a callable ``final_layer``
+        (an attribute, never an hparam) or the hparam's string."""
+        final_layer = getattr(self, 'final_layer', None)
+        return final_layer if callable(final_layer) else self.hparams.get('final_layer')
 
     def _ids(self, ids) -> torch.Tensor:
         """Host ids (list, numpy, tensor) as an int64 tensor on the model's device."""
@@ -452,12 +489,17 @@ class BasePipeline(nn.Module):
         with torch.no_grad():
             return self.score(self.params, self._ids(users), self._ids(items)).cpu().numpy()
 
+    #: (user, item) pairs the default ``score_item_block`` scores in one
+    #: ``score`` call: an MLP tower's activations over 2**19 pairs stay
+    #: within a few hundred MB (the NeuMF concat of two 64-wide rows: 268 MB)
+    SCORE_BLOCK_PAIRS = 1 << 19
+
     def score_all_items(self,
                         params: Dict[str, torch.Tensor],
                         user_ids: torch.Tensor) -> torch.Tensor:
         """Full-catalog scores ``[len(user_ids), num_items]``, the primitive
-        behind evaluation.  Default: the pairwise ``score`` over every
-        (user, item) pair; factorization models override it with one matmul."""
+        behind evaluation.  Default: ``score_item_block`` over the whole
+        catalog; factorization models override it with one matmul."""
         num_items = self.hparams['num_items']
         items = torch.arange(num_items, device=user_ids.device)
         return self.score_item_block(params, user_ids, items)
@@ -468,11 +510,22 @@ class BasePipeline(nn.Module):
                          item_ids: torch.Tensor) -> torch.Tensor:
         """Scores for every (user, item) pair of a user batch x item tile:
         ``[len(user_ids), len(item_ids)]``, the tile primitive behind
-        blockwise retrieval.  Default: the pairwise ``score``; factorization
-        models override it with one matmul over the tile."""
+        blockwise retrieval.  Default: the pairwise ``score``, over item
+        chunks of at most ``SCORE_BLOCK_PAIRS`` pairs so that a tower's
+        activations stay bounded.  Each pair is scored alone and every chunk
+        of a call at one shape (the last one padded), so an item's score
+        does not depend on which chunk holds it.  Factorization models
+        override it with one matmul over the tile."""
         B, T = user_ids.shape[0], item_ids.shape[0]
-        flat = self.score(params, user_ids.repeat_interleave(T), item_ids.repeat(B))
-        return flat.reshape(B, T)
+        chunk = min(T, max(1, self.SCORE_BLOCK_PAIRS // max(B, 1)))
+        n_chunks = -(-T // chunk)
+        if n_chunks * chunk > T:
+            # pad the last chunk with its own last id
+            item_ids = torch.cat([item_ids, item_ids[-1:].expand(n_chunks * chunk - T)])
+        blocks = [self.score(params, user_ids.repeat_interleave(chunk),
+                             item_ids[start:start + chunk].repeat(B)).reshape(B, chunk)
+                  for start in range(0, n_chunks * chunk, chunk)]
+        return torch.cat(blocks, dim=1)[:, :T] if n_chunks > 1 else blocks[0]
 
     def get_item_predictions(self,
                              user_id: int = 0,

@@ -3,21 +3,21 @@
 Port of ``collie_tpu/models/matrix_factorization.py`` (reference
 ``collie/model/matrix_factorization.py:12-167``):
 ``score = dot(user_emb, item_emb) + user_bias + item_bias`` with an optional
-``y_range`` sigmoid rescale.  The constructor keeps collie's separate, slower
-SGD optimizer settings for the bias terms (``bias_lr=1e-2``,
+``y_range`` sigmoid rescale, and dropout on the embeddings (not the biases)
+in training (``:120-159``).  The constructor keeps collie's separate,
+slower SGD optimizer settings for the bias terms (``bias_lr=1e-2``,
 ``bias_optimizer='sgd'``) and the default ``ReduceLROnPlateau(patience=1)``
 schedule as hyperparameters.  ``pairwise_scores`` scores the K negatives of
-a training batch.  Embedding dropout is not ported yet (training with
-``dropout_p > 0`` raises).  Full-catalog and tile scoring are one matmul
-each, in full float32 (TF32 stays off).
+a training batch.  Full-catalog and tile scoring are one matmul each, in
+full float32 (TF32 stays off).
 """
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from collie_tpu_torch.models.base import INTERACTIONS_LIKE_INPUT, BasePipeline
-from collie_tpu_torch.ops.embeddings import embedding_lookup, scaled_embedding_init, \
-    zero_embedding_init
+from collie_tpu_torch.ops.embeddings import dropout, embedding_lookup, \
+    scaled_embedding_init, tiled_dropout_dots, zero_embedding_init
 from collie_tpu_torch.training.schedulers import ReduceLROnPlateau
 from collie_tpu_torch.utils import get_init_arguments, merge_docstrings
 
@@ -80,20 +80,30 @@ class MatrixFactorizationModel(BasePipeline):
             'item_biases': zero_embedding_init(num_items, device=generator.device),
         }
 
-    def score(self, params, users, items):
-        preds = ((embedding_lookup(params['user_embeddings'], users)
-                  * embedding_lookup(params['item_embeddings'], items)).sum(dim=1)
-                 + params['user_biases'][users] + params['item_biases'][items])
+    def score(self, params, users, items, training=False, generator=None):
+        user_embeddings, user_b = self._emb_bias_lookup(
+            params, 'user_embeddings', 'user_biases', users)
+        item_embeddings, item_b = self._emb_bias_lookup(
+            params, 'item_embeddings', 'item_biases', items)
+        p = self.hparams.get('dropout_p', 0.0)
+        user_embeddings = dropout(generator, user_embeddings, p, training)
+        item_embeddings = dropout(generator, item_embeddings, p, training)
+        preds = (user_embeddings * item_embeddings).sum(dim=1) + user_b + item_b
         return self._apply_y_range(preds)
 
-    def pairwise_scores(self, params, users, items):
+    def pairwise_scores(self, params, users, items, training=False, generator=None):
         """Scores ``[R, B]`` of users ``[B]`` against item ids ``[R, B]``: user
-        rows gathered once, item rows ``[R, B, d]`` once."""
-        user_emb = embedding_lookup(params['user_embeddings'], users)
-        item_emb = embedding_lookup(params['item_embeddings'], items)
-        preds = ((user_emb[None] * item_emb).sum(dim=-1)
-                 + params['user_biases'][users][None, :] + params['item_biases'][items])
-        return self._apply_y_range(preds)
+        rows gathered once, item rows ``[R, B, d]`` once.  Under dropout the
+        masks are drawn at ``[R, B, d]`` (``tiled_dropout_dots``), equal to
+        the tiled ``score`` path's element for element."""
+        R, B = items.shape
+        user_emb, user_b = self._emb_bias_lookup(params, 'user_embeddings', 'user_biases',
+                                                 users)
+        item_emb, item_b = self._emb_bias_lookup(params, 'item_embeddings', 'item_biases',
+                                                 items)
+        dots = tiled_dropout_dots(user_emb, item_emb, R, B, self.hparams.get('dropout_p', 0.0),
+                                  training, generator)
+        return self._apply_y_range(dots + user_b[None, :] + item_b)
 
     def _apply_y_range(self, preds):
         y_range = self.hparams.get('y_range')

@@ -2,9 +2,11 @@
 
 Port of ``collie_tpu/ops/embeddings.py``: ``ScaledEmbedding`` (normal with
 std ``1 / (embedding_dim * 2.5)``) and ``ZeroEmbedding`` (zeroed bias tables)
-of the reference's ``layers.py:6-17``, as plain tensors plus a lookup.  The
-draws come from an explicit ``torch.Generator``; they are not JAX's draws
-for the same seed, so parity tests copy params across instead.
+of the reference's ``layers.py:6-17``, as plain tensors plus a lookup, and
+the embedding dropout of the reference's ``matrix_factorization.py:130-138``.
+The draws come from an explicit ``torch.Generator``; they are not JAX's
+draws for the same seed, so parity tests copy params across instead, and
+hand ``dropout_mask`` JAX's masks.
 """
 from typing import Optional, Tuple
 
@@ -37,3 +39,63 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     (``embeddings_dtype='bfloat16'``) read half-width rows and every score
     downstream computes in float32."""
     return table[ids].float()
+
+
+def dropout_mask(generator: torch.Generator, shape, keep: float) -> torch.Tensor:
+    """Boolean keep-mask of ``shape``, each element kept with probability
+    ``keep``, drawn from ``generator`` on its device.  Every dropout mask of
+    the port is drawn here, in the JAX package's order and at its shapes, so
+    a test can hand this function JAX's masks instead."""
+    return torch.rand(shape, generator=generator, device=generator.device) < keep
+
+
+def dropout(generator: Optional[torch.Generator],
+            x: torch.Tensor,
+            rate: float,
+            training: bool) -> torch.Tensor:
+    """Inverted dropout (``torch.nn.Dropout`` semantics): kept elements
+    scaled by ``1 / (1 - rate)``, dropped ones zero.  The identity outside
+    training, at ``rate <= 0`` or without a generator."""
+    if not training or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = dropout_mask(generator, x.shape, keep)
+    return torch.where(mask, x / keep, 0.0)
+
+
+def tiled_dropout_dots(user_embeddings: torch.Tensor,
+                       item_embeddings: torch.Tensor,
+                       R: int,
+                       B: int,
+                       rate: float,
+                       training: bool,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``[R, B]`` dot products between ``[B, d]`` user rows and ``[R, B, d]``
+    item rows, the core of the table models' ``pairwise_scores``.
+
+    Under dropout the user rows are broadcast to ``[R, B, d]`` and masked,
+    then the item rows, both masks drawn at the ``[R, B, d]`` shape: the
+    draws fill row-major over the same element count, so they equal the
+    base hook's tiled ``[R*B, d]`` masks element for element."""
+    if training and rate and generator is not None:
+        dim = user_embeddings.shape[1]
+        tiled = dropout(generator, user_embeddings[None].expand(R, B, dim), rate, training)
+        item_embeddings = dropout(generator, item_embeddings, rate, training)
+        return (tiled * item_embeddings).sum(dim=-1)
+    return (user_embeddings[None] * item_embeddings).sum(dim=-1)
+
+
+def split_generator(generator: Optional[torch.Generator]):
+    """Two independent generators on ``generator``'s device, seeded from
+    draws of ``generator`` (the analog of ``jax.random.split``); ``None``
+    splits into two ``None``s."""
+    if generator is None:
+        return None, None
+    seeds = torch.randint(0, 2 ** 62, (2,), generator=generator,
+                          device=generator.device).tolist()
+    children = []
+    for seed in seeds:
+        child = torch.Generator(device=generator.device)
+        child.manual_seed(int(seed))
+        children.append(child)
+    return tuple(children)

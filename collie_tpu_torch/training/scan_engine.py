@@ -12,10 +12,12 @@ pass of the degree-bucketed complement sampler, and then trains:
   (``_fused_epoch_config``) and lives on ``cuda``;
 * otherwise through the generic epoch: per step, ``calculate_loss`` under
   autograd and each optimizer's update (the JAX package's ``lax.scan`` body
-  as a Python loop).  On the CPU the generic epoch runs, as the JAX package
-  does off the TPU; ``fused=True`` makes a CPU model take the fused
-  function's plain version, and ``fused=False`` makes any model take the
-  generic epoch (the JAX package's ``COLLIE_TPU_FUSED_EPOCH=0``).
+  as a Python loop); a model with dropout gets one generator per step,
+  seeded from the epoch and the step index (``dropout_step_seeds``).  On
+  the CPU the generic epoch runs, as the JAX package does off the TPU;
+  ``fused=True`` makes a CPU model take the fused function's plain
+  version, and ``fused=False`` makes any model take the generic epoch (the
+  JAX package's ``COLLIE_TPU_FUSED_EPOCH=0``).
 
 There is no path on which a CUDA model inside the envelope trains without
 the kernel: if the kernel cannot launch, the epoch raises.
@@ -157,6 +159,15 @@ def draw_epoch(seed: int, epoch_idx: int, training: bool, device,
     return keys, samples
 
 
+def dropout_step_seeds(seed: int, epoch_idx: int, num_steps: int) -> List[int]:
+    """One dropout seed per step of a generic training epoch, derived from
+    ``(seed, epoch)`` and the step index: the analog of the JAX engine's
+    ``fold_in(dropout_rng, step_i)`` (``collie_tpu/training/scan_engine.py:636-644``)."""
+    words = np.random.SeedSequence([int(seed), int(epoch_idx), 3]).generate_state(
+        num_steps, dtype=np.uint64)
+    return [int(w) for w in words]
+
+
 class _EpochClock:
     """Where an epoch's time goes: the shuffle, the sampler (with the batch
     assembly) and training, from CUDA events on the card (read after the
@@ -206,8 +217,6 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         raise NotImplementedError('mesh training is not ported yet (ROADMAP Queue 1)')
     inter = loader.interactions
     explicit = isinstance(inter, ExplicitInteractions)
-    if training and not model._score_is_deterministic():
-        raise NotImplementedError('training with dropout is not ported yet (ROADMAP Queue 1)')
     device = model.device
     n = inter.num_interactions
     B = loader.batch_size
@@ -253,9 +262,13 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         data['row_counts'] = put(counts_np)
         data['users_g'] = put(users_g_np)
         N_g = len(users_g_np)
-        if packable and shuffle and N_g >= 2 and (N_g - n) <= 0.02 * n:
+        drop_last = getattr(loader, 'drop_last', False)
+        if packable and shuffle and not drop_last and N_g >= 2 and (N_g - n) <= 0.02 * n:
             # slot-domain epoch: ids and a validity bit at grouped-slot
-            # positions (bucket-pad slots -> mask 0), one row gather per epoch
+            # positions (bucket-pad slots -> mask 0), one row gather per
+            # epoch.  Its steps cover every slot, so a loader that drops
+            # its last partial batch takes the reorder path, which truncates
+            # the epoch to whole batches
             packed_slots = np.zeros(N_g, np.int32)
             packed_slots[pos_of_np] = packed_np
             slot_mask = np.zeros(N_g, np.int32)
@@ -426,18 +439,25 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             return (new_params, fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i),
                     losses.mean())
     else:
+        with_dropout = not model._score_is_deterministic()
+
         def epoch_fn(params, opt_states, data_, seed, epoch_idx):
             clock.mark()
             batches = _epoch_batches(seed, epoch_idx)
             clock.mark()
             trained = [k for spec, on in zip(specs, active) if on for k in spec.keys]
+            step_seeds = dropout_step_seeds(seed, epoch_idx, S) if with_dropout else None
             states = list(opt_states)
             losses = []
             for s in range(S):
                 batch = {k: v[s] for k, v in batches.items()}
                 leaves = {k: (v.detach().requires_grad_() if k in trained else v.detach())
                           for k, v in params.items()}
-                loss = model.calculate_loss(leaves, batch, training=True)
+                generator = None
+                if with_dropout:
+                    generator = torch.Generator(device=device)
+                    generator.manual_seed(step_seeds[s])
+                loss = model.calculate_loss(leaves, batch, generator=generator, training=True)
                 grads = dict(zip(trained, torch.autograd.grad(
                     loss, [leaves[k] for k in trained], allow_unused=True)))
                 with torch.no_grad():

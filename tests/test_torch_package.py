@@ -89,6 +89,43 @@ def test_persistent_kernels_launch_once_and_cooperatively(source):
     assert (PACKAGE / 'csrc' / 'grid_barrier.cuh').is_file()
 
 
+ZOO_SLICE = ['ops/embeddings.py', 'ops/nn.py', 'models/base.py',
+             'models/matrix_factorization.py', 'models/mlp_matrix_factorization.py',
+             'models/nonlinear_matrix_factorization.py',
+             'models/neural_collaborative_filtering.py', 'models/deep_fm.py',
+             'models/collaborative_metric_learning.py', 'training/scan_engine.py']
+
+
+@pytest.mark.parametrize('module', ZOO_SLICE)
+def test_zoo_slice_modules_are_checked(module):
+    """The zoo slice's modules are among the files the import rule covers."""
+    assert PACKAGE / module in PROGRAM_FILES
+
+
+ZOO_NAMES = ['MLPMatrixFactorizationModel', 'NonlinearMatrixFactorizationModel',
+             'NeuralCollaborativeFiltering', 'DeepFM', 'CollaborativeMetricLearningModel']
+LOSS_NAMES = ['adaptive_bpr_loss', 'adaptive_hinge_loss', 'bpr_loss', 'hinge_loss',
+              'warp_loss', 'mse_loss', 'mae_loss', 'ideal_difference_from_metadata']
+
+
+@pytest.mark.parametrize('name', ZOO_NAMES + LOSS_NAMES)
+def test_zoo_and_losses_are_exported_under_the_jax_names(name):
+    """Each is exported flat, as in collie_tpu, and is the object its
+    defining module holds."""
+    import importlib
+
+    import collie_tpu_torch
+    from collie_tpu_torch import models
+    from collie_tpu_torch.ops import losses
+
+    assert name in collie_tpu_torch.__all__
+    source = losses if name in LOSS_NAMES else models
+    assert getattr(collie_tpu_torch, name) is getattr(source, name)
+    if name in LOSS_NAMES:
+        ops = importlib.import_module('collie_tpu_torch.ops')
+        assert name in ops.__all__ and getattr(ops, name) is getattr(losses, name)
+
+
 def test_explicit_evaluation_is_exported():
     import collie_tpu_torch
     from collie_tpu_torch import evaluate

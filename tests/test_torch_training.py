@@ -263,7 +263,44 @@ def test_unported_paths_raise_not_implemented(data_pair):
         CollieTrainer(max_epochs=1).resume_from_checkpoint('x')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         CollieMinimalTrainer(max_epochs=1)
+    # embedding dropout is ported: a fit with it runs
     model = MatrixFactorizationModel(train=train, embedding_dim=8, seed=0, map_location='cpu',
                                      dropout_p=0.5)
-    with pytest.raises(NotImplementedError, match='dropout'):
-        CollieTrainer(model, max_epochs=1, verbosity=0).fit(model)
+    CollieTrainer(model, max_epochs=1, verbosity=0).fit(model)
+    assert model.hparams['num_epochs_completed'] == 1
+
+
+def _slot_engaging_loader(drop_last):
+    """512 users with 128 interactions each (n = 65,536): one 128-wide
+    bucket, no pad slots, so the slot-domain epoch engages unless the
+    loader drops its last partial batch."""
+    from collie_tpu_torch import InteractionsDataLoader
+
+    rng = np.random.default_rng(0)
+    users = np.repeat(np.arange(512), 128)
+    items = np.concatenate([rng.choice(1024, 128, replace=False) for _ in range(512)])
+    inter = Interactions(users=users, items=items, num_users=512, num_items=1024,
+                         allow_missing_ids=True, num_negative_samples=2, seed=0,
+                         check_num_negative_samples_is_valid=False)
+    return InteractionsDataLoader(inter, batch_size=1000, shuffle=True, drop_last=drop_last,
+                                  seed=0)
+
+
+@pytest.mark.parametrize('drop_last', [True, False])
+def test_drop_last_truncates_the_slot_path_epoch(drop_last):
+    """With ``drop_last`` the epoch is 65 whole batches: 65,000 examples
+    train and are reported.  Without it the slot-domain epoch engages and
+    trains all 65,536."""
+    loader = _slot_engaging_loader(drop_last)
+    model = MatrixFactorizationModel(train=loader, embedding_dim=4, seed=0, map_location='cpu')
+    fn, data, S, n_used = scan_engine.build_scan_epoch_fns(
+        model, model.optimizer_specs(), [True, True], loader, shuffle=True)
+    batches = fn.epoch_batches(0, 1)
+    mask_sum = float(batches['mask'].sum())
+    if drop_last:
+        assert 'packed_slots' not in data
+        assert (S, n_used, mask_sum) == (65, 65_000, 65_000.0)
+    else:
+        assert 'packed_slots' in data
+        assert (S, n_used, mask_sum) == (66, 65_536, 65_536.0)
+    assert batches['users'].shape == (S, 1000)
