@@ -72,7 +72,22 @@ non-zero before the result line:
    over the whole catalog; one more epoch of MF with dropout and of NeuMF
    runs under ``torch.profiler`` (device launches, busy time and span).
    No kernel launches on this path;
-7. the kernels line (one JSON object), the card's name and power limit, and
+7. multi_stage: the multi-stage models on the same data at the same
+   benchmark's configuration (item metadata of 32 normal columns, buckets
+   ``arange % 200``, ``embedding_dim`` 32): HybridModel fit for one epoch
+   in ``matrix_factorization``, one in ``metadata_only`` and 3 in ``all``;
+   HybridPretrainedModel on an MF donor fit for one epoch through
+   ``fused_mf_epoch`` on the card, then 3 epochs with the embeddings frozen;
+   ColdStartModel one epoch in ``item_buckets`` and 3 in ``no_buckets``.
+   Examples/s per epoch and stage beside the card, finite losses, test AUC
+   rising over each fit, the tables each stage gates out bitwise unchanged,
+   ColdStart's per-item tables equal to the gathered bucket rows just after
+   ``advance_stage``, the donor unchanged by the hybrid's fit, one blockwise
+   ``recommend`` held against a full-catalog top-k, a save and load on the
+   card (final stage, equal scores); one more Hybrid epoch runs under
+   ``torch.profiler``.  ``fused_mf_epoch``'s launch count over the phase
+   must equal the donor's epochs and no other kernel may launch;
+8. the kernels line (one JSON object), the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
@@ -155,6 +170,25 @@ ZOO_MODELS = [
 ]
 # models of which one more epoch runs under torch.profiler after the checks
 ZOO_PROFILED = ('MatrixFactorizationModel', 'NeuralCollaborativeFiltering')
+# the multi-stage models at the same configuration
+# (benchmarks/bench_zoo_scale.py): item metadata of META_COLS normal columns
+# from default_rng(0) (:116-118), buckets arange % 200 (:120), the MF donor
+# fit for one epoch (:122-128) and each model's settings (:150-160; lr 0.1
+# for both of ColdStart's stages), fit for (stage, epochs) as listed
+MULTI_STAGE_META_COLS = 32
+MULTI_STAGE_BUCKETS = 200
+MULTI_STAGE_DONOR_EPOCHS = 1
+MULTI_STAGE_MODELS = [
+    ('HybridModel', dict(embedding_dim=ZOO_DIM, combined_layers_dims=[ZOO_DIM, 16], lr=1e-1,
+                         loss='adaptive'),
+     [('matrix_factorization', 1), ('metadata_only', 1), ('all', ZOO_EPOCHS)]),
+    ('HybridPretrainedModel', dict(combined_layers_dims=[ZOO_DIM, 16], lr=1e-2,
+                                   loss='adaptive'),
+     [(None, ZOO_EPOCHS)]),
+    ('ColdStartModel', dict(embedding_dim=ZOO_DIM, item_buckets_stage_lr=1e-1,
+                            no_buckets_stage_lr=1e-1, loss='adaptive'),
+     [('item_buckets', 1), ('no_buckets', ZOO_EPOCHS)]),
+]
 
 # fused_mf_epoch against its plain version: tables and moments within
 # EPOCH_RTOL * |ref| + EPOCH_ATOL_SCALE * max|ref| per tensor (atomics sum
@@ -1441,7 +1475,59 @@ class _LossLog:
         self.losses.append(metrics['train_loss_epoch'])
 
 
-def phase_zoo(smi: str) -> dict:
+def zoo_data():
+    """The zoo-scale data (``ZOO_DATA``, 90/5/5 split), the train CSR for
+    seen filtering and the ``REQUEST_USERS`` users of each request."""
+    from collie_tpu_torch import stratified_split
+    from collie_tpu_torch.data.synthetic import generate_implicit_interactions
+
+    start = time.perf_counter()
+    train, _, test = stratified_split(generate_implicit_interactions(**ZOO_DATA), val_p=0.05,
+                                      test_p=0.05, seed=7, force_split=True)
+    rng = np.random.default_rng(ZOO_DATA['seed'])
+    users = np.sort(rng.choice(train.num_users, REQUEST_USERS, replace=False))
+    log(f'zoo-scale data: {train.num_interactions} train / {test.num_interactions} test '
+        f'interactions, {train.num_users} users x {train.num_items} items, batch {ZOO_BATCH}, '
+        f'K={ZOO_DATA["num_negative_samples"]} ({time.perf_counter() - start:.1f}s on the host)')
+    return {'train': train, 'test': test, 'seen_csr': train.mat.tocsr(), 'users': users}
+
+
+def zoo_loader(train):
+    from collie_tpu_torch import InteractionsDataLoader
+
+    return InteractionsDataLoader(interactions=train, batch_size=ZOO_BATCH, shuffle=True,
+                                  seed=42)
+
+
+def check_blockwise_recommend(name, model, zoo) -> float:
+    """One ``recommend`` of the zoo's request users with seen filtering (the
+    blockwise path), held against a stable top-k of ``score_item_block``
+    over the whole catalog with the seen items masked; returns its ms."""
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import NEG_INF, stable_topk
+    from collie_tpu_torch.retrieval import recommend
+
+    users, seen_csr = zoo['users'], zoo['seen_csr']
+    t0 = time.perf_counter()
+    ids, scores = recommend(model, users, k=K)
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        block = model.score_item_block(model.params, model._ids(users),
+                                       torch.arange(zoo['train'].num_items, device=model.device))
+        rows = seen_csr[users]
+        r = np.repeat(np.arange(len(users)), np.diff(rows.indptr))
+        block[torch.as_tensor(r, device=model.device),
+              torch.as_tensor(rows.indices.astype(np.int64), device=model.device)] = NEG_INF
+        ref_scores, ref_ids = stable_topk(block, K)
+    torch.cuda.synchronize()
+    if not np.array_equal(ids, ref_ids.cpu().numpy()):
+        raise AssertionError(f'{name}: recommend ids differ from the full-catalog top-k')
+    if not np.allclose(scores, ref_scores.cpu().numpy(), rtol=RTOL, atol=ATOL):
+        raise AssertionError(f'{name}: recommend scores differ from the full-catalog top-k')
+    return request_ms
+
+
+def phase_zoo(smi: str, zoo: dict) -> dict:
     """The single-stage zoo and embedding dropout: each model of
     ``ZOO_MODELS`` built on the card at the zoo-scale configuration, fit for
     ``ZOO_EPOCHS`` through ``CollieTrainer`` (the generic autograd epoch: no
@@ -1451,28 +1537,13 @@ def phase_zoo(smi: str) -> dict:
     zoo), held against a stable top-k of ``score_item_block`` over the
     whole catalog with the seen items masked."""
     import collie_tpu_torch
-    from collie_tpu_torch import (CollieTrainer, InteractionsDataLoader, auc, evaluate_in_batches,
-                                  mapk, mrr, stratified_split)
-    from collie_tpu_torch.data.synthetic import generate_implicit_interactions
-    from collie_tpu_torch.ops.kernels.retrieval_kernel import NEG_INF, stable_topk
-    from collie_tpu_torch.retrieval import recommend
+    from collie_tpu_torch import CollieTrainer, auc, evaluate_in_batches, mapk, mrr
 
-    start = time.perf_counter()
-    train, _, test = stratified_split(generate_implicit_interactions(**ZOO_DATA), val_p=0.05,
-                                      test_p=0.05, seed=7, force_split=True)
-    seen_csr = train.mat.tocsr()
-    rng = np.random.default_rng(ZOO_DATA['seed'])
-    users = np.sort(rng.choice(train.num_users, REQUEST_USERS, replace=False))
-    log(f'zoo-scale data: {train.num_interactions} train / {test.num_interactions} test '
-        f'interactions, {train.num_users} users x {train.num_items} items, batch {ZOO_BATCH}, '
-        f'K={ZOO_DATA["num_negative_samples"]} ({time.perf_counter() - start:.1f}s on the host)')
-
+    train, test = zoo['train'], zoo['test']
     reset_launch_counts()
     results = {}
     for name, kwargs in ZOO_MODELS:
-        loader = InteractionsDataLoader(interactions=train, batch_size=ZOO_BATCH, shuffle=True,
-                                        seed=42)
-        model = getattr(collie_tpu_torch, name)(train=loader, seed=42, **kwargs)
+        model = getattr(collie_tpu_torch, name)(train=zoo_loader(train), seed=42, **kwargs)
         if model.device.type != DEVICE:
             raise AssertionError(f'{name} built on {model.device}')
         auc_before = evaluate_in_batches([auc], test, model, k=K, verbose=False)
@@ -1487,20 +1558,7 @@ def phase_zoo(smi: str) -> dict:
                                                   verbose=False)
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        ids, scores = recommend(model, users, k=K)
-        torch.cuda.synchronize()
-        request_ms = (time.perf_counter() - t0) * 1e3
-        with torch.no_grad():
-            block = model.score_item_block(model.params, model._ids(users),
-                                           torch.arange(train.num_items, device=model.device))
-            rows = seen_csr[users]
-            r = np.repeat(np.arange(len(users)), np.diff(rows.indptr))
-            block[torch.as_tensor(r, device=model.device),
-                  torch.as_tensor(rows.indices.astype(np.int64), device=model.device)] = NEG_INF
-            ref_scores, ref_ids = stable_topk(block, K)
-        torch.cuda.synchronize()
+        request_ms = check_blockwise_recommend(name, model, zoo)
         log(f'zoo {name} {kwargs}: examples/s per epoch {[round(x) for x in per_epoch]} '
             f'({smi}); per epoch ms (shuffle, sampler, train): '
             f'{[tuple(round(e[k], 3) for k in SPLIT) for e in trainer.epoch_log]}; '
@@ -1512,22 +1570,247 @@ def phase_zoo(smi: str) -> dict:
             raise AssertionError(f'{name}: train losses {losses.losses}')
         if not (np.isfinite(auc_v) and auc_v > auc_before):
             raise AssertionError(f'{name}: test AUC {auc_v} after the fit, {auc_before} before')
-        if not np.array_equal(ids, ref_ids.cpu().numpy()):
-            raise AssertionError(f'{name}: recommend ids differ from the full-catalog top-k')
-        if not np.allclose(scores, ref_scores.cpu().numpy(), rtol=RTOL, atol=ATOL):
-            raise AssertionError(f'{name}: recommend scores differ from the full-catalog top-k')
         results[name] = {'examples_per_s': per_epoch, 'losses': list(losses.losses),
                          'auc_before': auc_before, 'mapk': map_k, 'mrr': mrr_v, 'auc': auc_v}
         if name in ZOO_PROFILED:
             trainer.max_epochs += 1
             profile_epoch_call(f'zoo {name}, one more epoch of the fit', lambda: trainer.fit(model))
-        del model, trainer, block
+        del model, trainer
         torch.cuda.empty_cache()
     launches = {w.__name__: w.launches for w in kernel_wrappers()}
     log(f'zoo phase: kernel launches {launches} (the zoo and MF with dropout train through '
         f'the generic epoch and serve through the dense and blockwise paths)')
     if any(launches.values()):
         raise AssertionError(f'a kernel launched on the zoo path: {launches}')
+    return results
+
+
+def _trained_keys(model) -> set:
+    """The params the current stage's optimizer specs train."""
+    return {k for spec in model.optimizer_specs() if spec.stage in (None, model.current_stage)
+            for k in spec.keys}
+
+
+def _save_and_load(name, model, users: np.ndarray) -> None:
+    """``save_model`` then a load on the card: the loaded model is in the
+    final stage, holds equal params and gives equal scores."""
+    import shutil
+
+    import collie_tpu_torch
+
+    path = os.path.join('data', f'chip_smoke_{name}_{os.getpid()}')
+    if name == 'ColdStartModel':
+        path += '.npz'
+    try:
+        model.save_model(path)
+        loaded = getattr(collie_tpu_torch, name)(load_model_path=path)
+    finally:
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        elif os.path.exists(path):
+            os.unlink(path)
+    if loaded.device.type != DEVICE or loaded.current_stage != model.current_stage:
+        raise AssertionError(f'{name}: loaded on {loaded.device} in stage '
+                             f'{loaded.current_stage}, saved in {model.current_stage}')
+    for key, value in model.params.items():
+        if not torch.equal(value, loaded.params[key]):
+            raise AssertionError(f'{name}: the save and load changed {key}')
+    items = (users * 37) % model.hparams['num_items']
+    if not np.allclose(loaded(users, items), model(users, items), rtol=RTOL, atol=ATOL):
+        raise AssertionError(f'{name}: the loaded model scores differently')
+
+
+def hold_donor_fit(donor, trainer) -> dict:
+    """The donor's fit by ``trainer``, held against ``fused_mf_epoch_plain``
+    before it runs: the very batches the fit draws (the trainer's seed, each
+    of its epochs) at the donor's shape, each step of the kernel starting
+    from the plain version's state before that step and held as the ML-10M
+    epoch is (``compare_epoch`` with ``MAX_FLIPPED_FRACTION``), and the first
+    3 steps also as one launch.  Returns the max abs error and the steps
+    held."""
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch, fused_mf_epoch_plain
+    from collie_tpu_torch.training.scan_engine import _fused_epoch_config, build_scan_epoch_fns
+
+    specs = donor.optimizer_specs()
+    active = [True] * len(specs)
+    loader = donor.train_loader
+    epoch_fn, _, S, _ = build_scan_epoch_fns(donor, specs, active, loader, shuffle=loader.shuffle,
+                                             dedup_rounds=trainer.exact_sampling_dedup_rounds)
+    cfg = _fused_epoch_config(donor, specs, active, loader, None)
+    if not epoch_fn.fused or cfg is None or cfg['meta_names']:
+        raise AssertionError('the donor is outside fused_mf_epoch\'s envelope')
+    lr_emb = specs[cfg['emb_idx']].transform.lr
+    lr_bias = specs[cfg['bias_idx']].transform.lr
+    params = donor.params
+    current = [params[k].clone() for k in ('user_embeddings', 'item_embeddings', 'item_biases')] \
+        + [torch.zeros_like(params[k]) for k in ('user_embeddings', 'user_embeddings',
+                                                 'item_embeddings', 'item_embeddings')] \
+        + [torch.zeros((), dtype=torch.int32, device=DEVICE)]
+    U, D = params['user_embeddings'].shape
+    worst, steps = 0.0, 0
+    for epoch in range(1, trainer.max_epochs + 1):
+        batches = epoch_fn.epoch_batches(trainer.seed, epoch)
+        K = batches['neg_items'].shape[-1]
+        kw = dict(K=K, adaptive=cfg['adaptive'], loss_kind=cfg['loss_kind'],
+                  wd_emb=cfg['wd_emb'], wd_bias=cfg['wd_bias'])
+
+        def epoch_args(start, stop):
+            return [batches[k][start:stop] for k in ('users', 'pos_items', 'neg_items', 'mask')] \
+                + [lr_emb, lr_bias, None]
+        if epoch == 1:
+            # the first 3 steps as one launch: the kernel's own step loop
+            ref = fused_mf_epoch_plain(*current, *epoch_args(0, 3), **kw)
+            out = fused_mf_epoch(*[t.clone() for t in current], *epoch_args(0, 3), **kw)
+            torch.cuda.synchronize()
+            one_launch = compare_epoch('donor epoch 1, its first 3 steps as one launch', out,
+                                       ref, max_flipped=MAX_FLIPPED_FRACTION)
+        for step in range(S):
+            args = epoch_args(step, step + 1)
+            ref = fused_mf_epoch_plain(*current, *args, **kw)
+            out = fused_mf_epoch(*[t.clone() for t in current], *args, **kw)
+            torch.cuda.synchronize()
+            worst = max(worst, compare_epoch(f'donor epoch {epoch}, step {step}', out, ref,
+                                             max_flipped=MAX_FLIPPED_FRACTION, quiet=True))
+            current = list(ref[:8])
+            steps += 1
+    log(f'  multi_stage donor fit ({steps} steps: epochs 1 to {trainer.max_epochs}, {S} steps '
+        f'each) held step by step against fused_mf_epoch_plain, U={U} '
+        f'I={params["item_embeddings"].shape[0]} D={D} B={loader.batch_size} K={K} '
+        f'{cfg["loss_kind"]} adaptive={cfg["adaptive"]}: max_abs_err={worst:.3g}')
+    return {'max_abs_err': max(worst, one_launch), 'steps': steps}
+
+
+def phase_multi_stage(smi: str, zoo: dict) -> dict:
+    """The multi-stage models at the zoo-scale configuration: HybridModel
+    through its three stages, HybridPretrainedModel on an MF donor fit for
+    ``MULTI_STAGE_DONOR_EPOCHS`` through ``fused_mf_epoch`` (first held
+    step by step against its plain version on the fit's own batches; the
+    launch count of the fit must equal the donor's epochs, and the donor's
+    test AUC must rise), ColdStartModel through its two.
+    Each stage's fit must leave the tables it gates out bitwise unchanged;
+    just after ColdStart's ``advance_stage`` the per-item tables must equal
+    the gathered bucket rows exactly; the HybridPretrained fit must leave the
+    donor unchanged.  Each model: finite losses, test AUC rising over the
+    fit, one blockwise ``recommend`` held against a full-catalog top-k, and
+    a save and load on the card in the final stage with equal scores."""
+    import collie_tpu_torch
+    from collie_tpu_torch import CollieTrainer, MatrixFactorizationModel, auc, \
+        evaluate_in_batches, mapk, mrr
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch
+
+    start = time.perf_counter()
+    train, test = zoo['train'], zoo['test']
+    n = train.num_interactions
+    item_metadata = np.random.default_rng(0).normal(
+        size=(train.num_items, MULTI_STAGE_META_COLS)).astype(np.float32)
+    item_buckets = np.arange(train.num_items) % min(MULTI_STAGE_BUCKETS, train.num_items)
+    donor = MatrixFactorizationModel(train=zoo_loader(train), embedding_dim=ZOO_DIM, lr=1e-1,
+                                     loss='adaptive', seed=42)
+    donor_trainer = CollieTrainer(donor, max_epochs=MULTI_STAGE_DONOR_EPOCHS, verbosity=0, seed=42,
+                                  enable_model_summary=False)
+    results = {'donor': hold_donor_fit(donor, donor_trainer)}
+    results['donor']['auc_before'] = evaluate_in_batches([auc], test, donor, k=K, verbose=False)
+    reset_launch_counts()
+    for name, kwargs, plan in MULTI_STAGE_MODELS:
+        extra, donor_before = {}, None
+        if name == 'ColdStartModel':
+            extra['item_buckets'] = item_buckets
+        else:
+            extra['item_metadata'] = item_metadata
+        if name == 'HybridPretrainedModel':
+            donor_trainer.fit(donor)
+            torch.cuda.synchronize()
+            if not donor_trainer.epoch_log or fused_mf_epoch.launches != len(
+                    donor_trainer.epoch_log):
+                raise AssertionError(f'donor fit: {fused_mf_epoch.launches} fused_mf_epoch '
+                                     f'launches for {len(donor_trainer.epoch_log)} epochs')
+            donor_auc = evaluate_in_batches([auc], test, donor, k=K, verbose=False)
+            donor_auc_before = results['donor']['auc_before']
+            log(f'multi_stage donor MF: examples/s per epoch '
+                f'{[round(n / e["seconds"]) for e in donor_trainer.epoch_log]} ({smi}) through '
+                f'fused_mf_epoch ({fused_mf_epoch.launches} launches); test AUC '
+                f'{donor_auc_before:.5f} before the fit, {donor_auc:.5f} after')
+            if not (np.isfinite(donor_auc) and donor_auc > donor_auc_before):
+                raise AssertionError(f'donor: test AUC {donor_auc} after the fit, '
+                                     f'{donor_auc_before} before')
+            results['donor']['auc'] = donor_auc
+            extra['trained_model'] = donor
+            donor_before = {k: v.clone() for k, v in donor.params.items()}
+        model = getattr(collie_tpu_torch, name)(train=zoo_loader(train), seed=42, **kwargs,
+                                                **extra)
+        if model.device.type != DEVICE:
+            raise AssertionError(f'{name} built on {model.device}')
+        auc_before = evaluate_in_batches([auc], test, model, k=K, verbose=False)
+        losses = _LossLog()
+        trainer = CollieTrainer(model, max_epochs=0, verbosity=0, seed=42, logger=losses,
+                                enable_model_summary=False)
+        stages = []
+        for stage, epochs in plan:
+            if stage is not None and model.current_stage != stage:
+                params = model.params
+                model.advance_stage()
+                if name == 'ColdStartModel':
+                    buckets = torch.as_tensor(item_buckets, device=model.device)
+                    for key in ('embeddings', 'biases'):
+                        if not torch.equal(model.params[f'item_{key}'],
+                                           params[f'item_bucket_{key}'][buckets]):
+                            raise AssertionError(f'{name}: item_{key} after advance_stage are '
+                                                 f'not the gathered bucket rows')
+            gated = {k: v.clone() for k, v in model.params.items()
+                     if k not in _trained_keys(model)}
+            trainer.max_epochs += epochs
+            trainer.fit(model)
+            torch.cuda.synchronize()
+            for key, value in gated.items():
+                if not torch.equal(model.params[key], value):
+                    raise AssertionError(f'{name}: {key} changed in stage {stage}, which '
+                                         f'gates it out')
+            stages.append({'stage': stage, 'gated': sorted(gated),
+                           'examples_per_s': [n / e['seconds'] for e in trainer.epoch_log],
+                           'split_ms': [tuple(round(e[k], 3) for k in SPLIT)
+                                        for e in trainer.epoch_log]})
+        t0 = time.perf_counter()
+        map_k, mrr_v, auc_v = evaluate_in_batches([mapk, mrr, auc], test, model, k=K,
+                                                  verbose=False)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        request_ms = check_blockwise_recommend(name, model, zoo)
+        for stage in stages:
+            log(f'multi_stage {name} stage {stage["stage"]}: examples/s per epoch '
+                f'{[round(x) for x in stage["examples_per_s"]]} ({smi}); per epoch ms (shuffle, '
+                f'sampler, train): {stage["split_ms"]}; bitwise unchanged: {stage["gated"]}')
+        log(f'multi_stage {name} {kwargs}: train loss per epoch '
+            f'{[round(x, 5) for x in losses.losses]}; {len(np.unique(test.mat.row))} test '
+            f'users: AUC {auc_before:.5f} before the fit, MAP@{K}={map_k:.5f} MRR={mrr_v:.5f} '
+            f'AUC={auc_v:.5f} after ({eval_s:.2f}s); recommend of {REQUEST_USERS} users '
+            f'(filter_seen) {request_ms:.1f} ms ({smi})')
+        if len(losses.losses) != sum(e for _, e in plan) or not np.all(np.isfinite(losses.losses)):
+            raise AssertionError(f'{name}: train losses {losses.losses}')
+        if not (np.isfinite(auc_v) and auc_v > auc_before):
+            raise AssertionError(f'{name}: test AUC {auc_v} after the fit, {auc_before} before')
+        if donor_before is not None:
+            for key, value in donor_before.items():
+                if not torch.equal(extra['trained_model'].params[key], value):
+                    raise AssertionError(f'{name}: the fit changed the donor\'s {key}')
+        _save_and_load(name, model, zoo['users'])
+        results[name] = {'stages': stages, 'losses': list(losses.losses),
+                         'auc_before': auc_before, 'mapk': map_k, 'mrr': mrr_v, 'auc': auc_v,
+                         'recommend_ms': request_ms}
+        if name == 'HybridModel':
+            trainer.max_epochs += 1
+            profile_epoch_call(f'multi_stage {name}, one more epoch in stage {model.current_stage}',
+                               lambda: trainer.fit(model))
+        del model, trainer, extra
+        torch.cuda.empty_cache()
+    launches = {w.__name__: w.launches for w in kernel_wrappers()}
+    log(f'multi_stage phase: kernel launches {launches} (the donor MF\'s fit through '
+        f'fused_mf_epoch, {MULTI_STAGE_DONOR_EPOCHS} epoch; the multi-stage models train through '
+        f'the generic epoch and serve through the blockwise path); '
+        f'{time.perf_counter() - start:.1f}s')
+    expected = {w.__name__: 0 for w in kernel_wrappers()}
+    expected['fused_mf_epoch'] = MULTI_STAGE_DONOR_EPOCHS
+    if launches != expected:
+        raise AssertionError(f'multi_stage kernel launches {launches}, expected {expected}')
     return results
 
 
@@ -1703,7 +1986,10 @@ def main(argv=None):
     phase_serving(args.seed, topk)
     phase_training(ml10m['implicit'], fused)
     phase_explicit_training(ml10m['explicit'], explicit)
-    phase_zoo(smi)
+    zoo = zoo_data()
+    phase_zoo(smi, zoo)
+    multi_stage = phase_multi_stage(smi, zoo)
+    fused['max_abs_err'] = max(fused['max_abs_err'], multi_stage['donor']['max_abs_err'])
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
     print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter]}))

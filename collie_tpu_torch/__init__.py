@@ -12,7 +12,9 @@ with MSE/MAE and ``y_range``, through the fused epoch kernels on the card;
 ``explicit_evaluate_in_batches``), embedding dropout, and the single-stage
 model zoo (``MLPMatrixFactorizationModel``,
 ``NonlinearMatrixFactorizationModel``, ``NeuralCollaborativeFiltering``,
-``DeepFM``, ``CollaborativeMetricLearningModel``), trained through the
+``DeepFM``, ``CollaborativeMetricLearningModel``) and the multi-stage
+models (``MultiStagePipeline``, ``ColdStartModel``, ``HybridModel``,
+``HybridPretrainedModel``, trained stage by stage), all trained through the
 generic autograd epoch and served through the blockwise retrieval path.
 
 Everything is re-exported flat from this module.
@@ -30,8 +32,10 @@ from collie_tpu_torch.data import (BaseInteractions,
                                    stratified_split)
 from collie_tpu_torch.evaluate import (evaluate_in_batches, explicit_evaluate_in_batches,
                                       get_preds)
-from collie_tpu_torch.models import (BasePipeline, CollaborativeMetricLearningModel, DeepFM,
-                                     MatrixFactorizationModel, MLPMatrixFactorizationModel,
+from collie_tpu_torch.models import (BasePipeline, ColdStartModel,
+                                     CollaborativeMetricLearningModel, DeepFM, HybridModel,
+                                     HybridPretrainedModel, MatrixFactorizationModel,
+                                     MLPMatrixFactorizationModel, MultiStagePipeline,
                                      NeuralCollaborativeFiltering,
                                      NonlinearMatrixFactorizationModel)
 from collie_tpu_torch.ops import (adaptive_bpr_loss, adaptive_hinge_loss, auc, bpr_loss,
@@ -48,9 +52,10 @@ from collie_tpu_torch.weights import optimizer_state_from_jax, params_from_jax
 
 __all__ = [
     '__version__', 'DATA_PATH', 'BaseInteractions', 'BaseInteractionsDataLoader',
-    'BasePipeline', 'CollaborativeMetricLearningModel', 'CollieMinimalTrainer',
-    'CollieTrainer', 'DeepFM', 'ExplicitInteractions', 'Interactions',
-    'InteractionsDataLoader', 'MLPMatrixFactorizationModel', 'MatrixFactorizationModel',
+    'BasePipeline', 'ColdStartModel', 'CollaborativeMetricLearningModel',
+    'CollieMinimalTrainer', 'CollieTrainer', 'DeepFM', 'ExplicitInteractions',
+    'HybridModel', 'HybridPretrainedModel', 'Interactions', 'InteractionsDataLoader',
+    'MLPMatrixFactorizationModel', 'MatrixFactorizationModel', 'MultiStagePipeline',
     'NegativeSampler', 'NeuralCollaborativeFiltering', 'NonlinearMatrixFactorizationModel',
     'ReduceLROnPlateau', 'StepLR', 'adaptive_bpr_loss', 'adaptive_hinge_loss', 'auc',
     'bpr_loss', 'build_retrieval_fn', 'convert_to_implicit', 'evaluate_in_batches',

@@ -15,7 +15,11 @@ sgd-biases layout), ``embeddings_dtype`` storage, full-catalog and tile
 scoring (the default hooks bounded for MLP towers), the prediction and
 similarity APIs, and ``save_model`` / ``load_model_path`` in the JAX
 package's npz format (``param:<name>`` arrays plus ``hparams_json``), so a
-model saved by either package loads in the other.  Dropout draws from an
+model saved by either package loads in the other.  The constructor's
+keyword arguments reach ``_setup_model`` and ``_load_model_init_helper``
+(metadata arrays, a donor model), and ``_extra_save_arrays`` /
+``_restore_extra_arrays`` let a subclass add arrays to the npz, as in the
+JAX package.  Dropout draws from an
 explicit ``torch.Generator`` (``ops/embeddings.py``); ``score(...,
 training=True, generator=g)`` applies it.
 
@@ -143,7 +147,7 @@ class BasePipeline(nn.Module):
         self.hparams: Dict[str, Any] = HParams()
 
         if load_model_path is not None:
-            self._load_model_init_helper(load_model_path=load_model_path)
+            self._load_model_init_helper(load_model_path=load_model_path, **kwargs)
             return
 
         if self.train_loader is None:
@@ -206,7 +210,7 @@ class BasePipeline(nn.Module):
             )
             self.hparams['weight_decay'] = 0.0
 
-        self._setup_model()
+        self._setup_model(**kwargs)
 
     # ------------------------------------------------------------------ setup
 
@@ -214,9 +218,11 @@ class BasePipeline(nn.Module):
     #: (lookups upcast right after the row gather)
     _EMBEDDINGS_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
-    def _setup_model(self) -> None:
+    def _setup_model(self, **kwargs) -> None:
         """Build the parameters from a ``torch.Generator`` on the model's
-        device, seeded from ``hparams['seed']``."""
+        device, seeded from ``hparams['seed']``.  ``kwargs`` are the
+        constructor's (metadata arrays, a donor model), for subclasses that
+        need them."""
         generator = torch.Generator(device=self._device)
         generator.manual_seed(int(self.hparams['seed']))
         self.load_params(self._build_params(generator))
@@ -626,6 +632,7 @@ class BasePipeline(nn.Module):
             arrays.update({
                 f'lossmeta:{k}': np.asarray(v) for k, v in self.metadata_for_loss.items()
             })
+        arrays.update(self._extra_save_arrays())
         hparams_serializable = {
             k: v for k, v in self.hparams.items() if _json_safe(v)
         }
@@ -635,8 +642,13 @@ class BasePipeline(nn.Module):
         Path(filename).parent.mkdir(parents=True, exist_ok=True)
         np.savez(str(filename), **arrays)
 
-    def _load_model_init_helper(self, load_model_path: Union[str, Path]) -> None:
-        """Restore hparams and weights (reference ``base_pipeline.py:245-257``)."""
+    def _extra_save_arrays(self) -> Dict[str, np.ndarray]:
+        """Hook for subclasses: more named arrays for the npz."""
+        return {}
+
+    def _load_model_init_helper(self, load_model_path: Union[str, Path], **kwargs) -> None:
+        """Restore hparams and weights (reference ``base_pipeline.py:245-257``).
+        The file's params replace a build, so none is made."""
         with np.load(str(load_model_path), allow_pickle=False) as loaded:
             hparams = json.loads(bytes(loaded['hparams_json']).decode())
             hparams.pop('_model_class', None)
@@ -648,10 +660,15 @@ class BasePipeline(nn.Module):
             }
             if lossmeta:
                 self.metadata_for_loss = lossmeta
+            self._restore_extra_arrays(loaded, **kwargs)
             self.load_params({
                 k[len('param:'):]: torch.from_numpy(np.array(loaded[k]))
                 for k in loaded.files if k.startswith('param:')
             })
+
+    def _restore_extra_arrays(self, loaded, **kwargs) -> None:
+        """Hook for subclasses to restore ``_extra_save_arrays``' arrays
+        (``loaded`` is the open npz) before the params load."""
 
 
 def _as_array_dict(metadata):

@@ -94,21 +94,27 @@ ZOO_SLICE = ['ops/embeddings.py', 'ops/nn.py', 'models/base.py',
              'models/nonlinear_matrix_factorization.py',
              'models/neural_collaborative_filtering.py', 'models/deep_fm.py',
              'models/collaborative_metric_learning.py', 'training/scan_engine.py']
+MULTI_STAGE_SLICE = ['models/multi_stage.py', 'models/cold_start_matrix_factorization.py',
+                     'models/_hybrid_common.py', 'models/hybrid_matrix_factorization.py',
+                     'models/hybrid_pretrained_matrix_factorization.py']
 
 
-@pytest.mark.parametrize('module', ZOO_SLICE)
+@pytest.mark.parametrize('module', ZOO_SLICE + MULTI_STAGE_SLICE)
 def test_zoo_slice_modules_are_checked(module):
-    """The zoo slice's modules are among the files the import rule covers."""
+    """The zoo and multi-stage slices' modules are among the files the
+    import rule covers."""
     assert PACKAGE / module in PROGRAM_FILES
 
 
 ZOO_NAMES = ['MLPMatrixFactorizationModel', 'NonlinearMatrixFactorizationModel',
              'NeuralCollaborativeFiltering', 'DeepFM', 'CollaborativeMetricLearningModel']
+MULTI_STAGE_NAMES = ['MultiStagePipeline', 'ColdStartModel', 'HybridModel',
+                     'HybridPretrainedModel']
 LOSS_NAMES = ['adaptive_bpr_loss', 'adaptive_hinge_loss', 'bpr_loss', 'hinge_loss',
               'warp_loss', 'mse_loss', 'mae_loss', 'ideal_difference_from_metadata']
 
 
-@pytest.mark.parametrize('name', ZOO_NAMES + LOSS_NAMES)
+@pytest.mark.parametrize('name', ZOO_NAMES + MULTI_STAGE_NAMES + LOSS_NAMES)
 def test_zoo_and_losses_are_exported_under_the_jax_names(name):
     """Each is exported flat, as in collie_tpu, and is the object its
     defining module holds."""
@@ -120,6 +126,8 @@ def test_zoo_and_losses_are_exported_under_the_jax_names(name):
 
     assert name in collie_tpu_torch.__all__
     source = losses if name in LOSS_NAMES else models
+    if source is models:
+        assert name in models.__all__
     assert getattr(collie_tpu_torch, name) is getattr(source, name)
     if name in LOSS_NAMES:
         ops = importlib.import_module('collie_tpu_torch.ops')
