@@ -87,7 +87,31 @@ non-zero before the result line:
    card (final stage, equal scores); one more Hybrid epoch runs under
    ``torch.profiler``.  ``fused_mf_epoch``'s launch count over the phase
    must equal the donor's epochs and no other kernel may launch;
-8. the kernels line (one JSON object), the card's name and power limit, and
+8. trainer (run after phase 5, on its ML-10M-scale data): (a) the
+   bucketed, padded and CSR sampler tables on the card (bytes of each); on
+   one epoch's per-position uniforms the padded and CSR negatives are
+   bit-identical, equal a numpy host reference on ``SAMPLER_HOST_CHECKS``
+   positions, and hold no positive; each pass timed (CUDA events, median
+   of 5) beside the bucketed one; (b) a 3-epoch fit with
+   ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB=0`` (``auto`` takes the CSR
+   sampler) through ``fused_mf_epoch``, whose MAP@10 on the 5,000 test
+   users must reach 0.85x phase 5(b)'s; (c) a 3-epoch fit with the
+   approximate loader, whose MAP@10 must beat the untrained model's; (d)
+   the ML-10M-scale fit for 5 epochs with a checkpoint each epoch, and a
+   fresh model and trainer resumed from its epoch-3 file for 2 more
+   (``RESUME_EPOCHS``, ``RESUME_FROM``); the explicit gate configuration
+   for 10, resumed from epoch 5 for 5 more:
+   each checkpoint holds the live state bit for bit, the first resumed
+   epoch equals the uninterrupted fit's (``compare_epoch``), counters and
+   schedulers match, final MAP@10 / test MSE within 5%; (e)
+   ``CollieMinimalTrainer(epoch_mode='step')`` for one epoch of the gate
+   configuration on the card, on the CPU from the same params and loader
+   seed, and on the card through a ``PrefetchLoader`` (params and per-step
+   losses within ``STEP_RTOL``; no kernel launches); (f) a momentum-SGD
+   optimizer factory at the gate configuration for 2 epochs (the generic
+   epoch; the train loss falls).  Over the phase ``fused_mf_epoch`` must
+   launch 3 + 3 + 5 + 2 times, ``fused_mf_explicit_epoch`` 15, the others 0;
+9. the kernels line (one JSON object), the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
@@ -104,6 +128,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -189,6 +214,25 @@ MULTI_STAGE_MODELS = [
                             no_buckets_stage_lr=1e-1, loss='adaptive'),
      [('item_buckets', 1), ('no_buckets', ZOO_EPOCHS)]),
 ]
+
+# the trainer phase: positions of one ML-10M-scale epoch whose CSR negatives
+# are held to a numpy host reference; the per-step path on the card against
+# the CPU (params within STEP_RTOL * |cpu| + STEP_ATOL_SCALE * max|cpu|,
+# per-step losses within STEP_RTOL); the learning rate of the momentum-SGD
+# factory at the gate configuration
+SAMPLER_HOST_CHECKS = 4096
+# checkpoint/resume of the ML-10M-scale fit: RESUME_EPOCHS uninterrupted, and
+# a fresh model and trainer resumed from the RESUME_FROM checkpoint.  The
+# epoch held is the first after the plateau's lr cut (lr 0.1 -> 0.01 at the
+# end of epoch 3: the train loss rises over epochs 2-3).  At lr 0.1 two
+# launches of epoch 3 from one state diverge (hardest-negative choices turn
+# the atomics' rounding differences into other updates: per-step losses
+# from 1e-7 to 2e-3 apart over the epoch), so no tolerance holds there
+RESUME_EPOCHS = 5
+RESUME_FROM = 3
+STEP_RTOL = 1e-3
+STEP_ATOL_SCALE = 1e-5
+CUSTOM_SGD_LR = 1.0
 
 # fused_mf_epoch against its plain version: tables and moments within
 # EPOCH_RTOL * |ref| + EPOCH_ATOL_SCALE * max|ref| per tensor (atomics sum
@@ -1314,7 +1358,7 @@ def phase_kernel_explicit_epoch(ml10m_explicit):
 def phase_training(ml10m, record: dict):
     """The training path: the gate configuration for 10 epochs, then the
     ML-10M-scale configuration for 3, both through ``CollieTrainer``."""
-    from collie_tpu_torch import (CollieTrainer, Interactions, MatrixFactorizationModel, auc,
+    from collie_tpu_torch import (CollieTrainer, MatrixFactorizationModel, auc,
                                   evaluate_in_batches, mapk, mrr)
     from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch
 
@@ -1367,13 +1411,7 @@ def phase_training(ml10m, record: dict):
         log(f'  epoch {e["epoch"]}: {e["seconds"] * 1e3:.3f} ms = shuffle {e["shuffle_ms"]:.3f} '
             f'+ sampler {e["sample_ms"]:.3f} + kernel {e["train_ms"]:.3f} + host {host_ms:.3f}')
 
-    rng = np.random.default_rng(0)
-    sample = np.sort(rng.choice(np.unique(test.mat.row), ML10M_EVAL_USERS, replace=False))
-    keep = np.isin(test.mat.row, sample)
-    sub = Interactions(users=test.mat.row[keep], items=test.mat.col[keep],
-                       num_users=test.num_users, num_items=test.num_items,
-                       allow_missing_ids=True, check_num_negative_samples_is_valid=False,
-                       seed=0)
+    sub = ml10m_eval_users(test)
     map_k, mrr_v, auc_v = evaluate_in_batches([mapk, mrr, auc], sub, model, k=K,
                                               batch_size=512, verbose=False)
     untrained = MatrixFactorizationModel(train=model.train_loader, embedding_dim=ML10M_DIM,
@@ -1389,6 +1427,21 @@ def phase_training(ml10m, record: dict):
     if not map_k > untrained_map:
         raise AssertionError(f'trained MAP@{K} {map_k} does not beat untrained {untrained_map}')
     record['launches'] = launches
+    return {'mapk': map_k, 'untrained_mapk': untrained_map}
+
+
+def ml10m_eval_users(test):
+    """The ``ML10M_EVAL_USERS`` test users the ML-10M-scale fits are
+    evaluated on, drawn with a fixed seed, as an ``Interactions``."""
+    from collie_tpu_torch import Interactions
+
+    rng = np.random.default_rng(0)
+    sample = np.sort(rng.choice(np.unique(test.mat.row), ML10M_EVAL_USERS, replace=False))
+    keep = np.isin(test.mat.row, sample)
+    return Interactions(users=test.mat.row[keep], items=test.mat.col[keep],
+                        num_users=test.num_users, num_items=test.num_items,
+                        allow_missing_ids=True, check_num_negative_samples_is_valid=False,
+                        seed=0)
 
 
 def phase_explicit_training(ml10m_explicit, record: dict):
@@ -1814,6 +1867,445 @@ def phase_multi_stage(smi: str, zoo: dict) -> dict:
     return results
 
 
+class _MetricLog:
+    """A trainer logger keeping each epoch's and each logged step's train
+    loss."""
+
+    def __init__(self):
+        self.epochs, self.steps = [], []
+
+    def log_metrics(self, metrics, step):
+        if 'train_loss_epoch' in metrics:
+            self.epochs.append(metrics['train_loss_epoch'])
+        if 'train_loss_step' in metrics:
+            self.steps.append(metrics['train_loss_step'])
+
+
+class _MomentumSGD:
+    """A custom optimizer factory's transform: optax.sgd(learning_rate,
+    momentum=0.9) written to the port's ``Transform`` contract."""
+
+    def __init__(self, learning_rate, momentum=0.9):
+        self.learning_rate, self.momentum = learning_rate, momentum
+
+    def init(self, params):
+        return {k: torch.zeros_like(v) for k, v in params.items()}
+
+    def update(self, grads, state, params):
+        trace = {k: grads[k] + self.momentum * state[k] for k in grads}
+        return {k: -self.learning_rate * t for k, t in trace.items()}, trace
+
+
+def _kernel_counts() -> dict:
+    return {w.__name__: w.launches for w in kernel_wrappers()}
+
+
+def _count_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _kernel_counts().items()}
+
+
+def check_samplers(train, smi: str) -> dict:
+    """8(a): the bucketed, padded and CSR tables of the ML-10M-scale train
+    set on the card; the padded and CSR samplers on one epoch's per-position
+    uniforms (the engine's reorder layout, 2 rounds with dedup 1),
+    bit-identical to each other, equal to a numpy host reference on
+    ``SAMPLER_HOST_CHECKS`` positions, and never a positive; each sampler's
+    pass timed beside the bucketed pass over the same epoch."""
+    from collie_tpu_torch.ops import device_sampling as sampling
+
+    mat = train.mat.tocsr()
+    mat.sort_indices()
+    num_items, k = train.num_items, ML10M_DATA['num_negative_samples']
+
+    def put(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=DEVICE)
+
+    specs_np, counts_np, users_g_np, pos_of_np = sampling.build_bucketed_complement_tables(
+        mat, train.mat.row)
+    bucket_specs = tuple((put(r), put(t)) for r, t in specs_np)
+    counts, users_g, pos_of = put(counts_np), put(users_g_np), put(pos_of_np)
+    shifted_pad = put(sampling.build_padded_complement_table(mat)[0])
+    indptr_np, shifted_np = sampling.build_complement_tables(mat)
+    indptr, shifted = put(indptr_np), put(shifted_np)
+    keys = sampling.csr_keys(indptr, shifted)
+    nbytes = {
+        'bucketed': sum(t.numel() * t.element_size() for spec in bucket_specs for t in spec)
+        + users_g.numel() * 4 + pos_of.numel() * 4,
+        'padded': shifted_pad.numel() * 4,
+        'csr': indptr.numel() * 4 + shifted.numel() * 4 + keys.numel() * 8}
+    log(f'trainer (a) sampler tables on the card, {train.num_users} users: bucketed '
+        f'{nbytes["bucketed"]:,} B (tables + slot maps; budget rule counts '
+        f'{sampling.bucketed_table_bytes(mat):,} B), padded {nbytes["padded"]:,} B, '
+        f'CSR {nbytes["csr"]:,} B (indptr, shifted, int64 keys)')
+
+    n = train.num_interactions
+    steps = -(-n // ML10M_BATCH)
+    generator = torch.Generator(device=DEVICE)
+    generator.manual_seed(7)
+    perm = torch.randperm(n, generator=generator, device=DEVICE)
+    idx = torch.cat([perm, perm[:steps * ML10M_BATCH - n]])
+    users = put(train.mat.row.astype(np.int32))[idx]
+    u01 = torch.rand((2, steps * ML10M_BATCH, k), generator=generator, device=DEVICE)
+    u01_grouped = torch.rand((len(users_g_np), k + sampling.SPARES_PER_ROUND),
+                             generator=generator, device=DEVICE)
+    passes = {
+        'padded': lambda: sampling.complement_sample_negatives_padded_impl(
+            u01, users, shifted_pad, counts, num_items, k, dedup_rounds=1),
+        'csr': lambda: sampling.complement_sample_negatives_impl(
+            u01, users, indptr, shifted, num_items, k, dedup_rounds=1, keys=keys),
+        'bucketed': lambda: sampling.complement_sample_negatives_bucketed(
+            u01_grouped, idx, pos_of, users_g, bucket_specs, counts, num_items, k,
+            dedup_rounds=1)}
+    negs = {name: fn() for name, fn in passes.items()}
+    torch.cuda.synchronize()
+    if not torch.equal(negs['padded'], negs['csr']):
+        raise AssertionError(f'padded and CSR negatives differ at '
+                             f'{int((negs["padded"] != negs["csr"]).sum())} positions')
+    positives = sampling.csr_keys(put(mat.indptr.astype(np.int64)), put(mat.indices))
+    for name in ('csr', 'bucketed'):
+        hits = int(sampling.keys_contain(positives, users[:, None], negs[name]).sum())
+        if hits:
+            raise AssertionError(f'{hits} {name} negatives are positives')
+    if int(negs['csr'].min()) < 0 or int(negs['csr'].max()) >= num_items:
+        raise AssertionError('CSR negatives out of the item range')
+
+    # numpy host reference: the r-th non-positive item, then one redraw of
+    # the within-row duplicates from the second round's uniforms
+    pick = np.random.default_rng(1).choice(n, SAMPLER_HOST_CHECKS, replace=False)
+    u_host = u01[:, pick].cpu().numpy()
+    users_host = users[pick].cpu().numpy()
+    got = negs['csr'][pick].cpu().numpy()
+    for j, user in enumerate(users_host):
+        complement = np.setdiff1d(np.arange(num_items),
+                                  mat.indices[mat.indptr[user]:mat.indptr[user + 1]])
+        size = np.float32(len(complement))
+
+        def draw(u):
+            return complement[np.minimum((u * size).astype(np.int32), len(complement) - 1)]
+
+        row = draw(u_host[0, j])
+        dup = np.array([row[i] in row[:i] for i in range(k)])
+        row = np.where(dup, draw(u_host[1, j]), row)
+        if not np.array_equal(row, got[j]):
+            raise AssertionError(f'position {pick[j]} (user {user}): {got[j]} vs host {row}')
+
+    times = {name: cuda_median_ms(fn, warmup=1, runs=5) for name, fn in passes.items()}
+    log(f'trainer (a) one epoch of negatives ({steps * ML10M_BATCH} positions x {k}, dedup 1): '
+        f'padded == CSR bit for bit, both equal the host reference on {SAMPLER_HOST_CHECKS} '
+        f'positions, no positive among {negs["csr"].numel():,} CSR or bucketed negatives; '
+        f'pass ms (CUDA events, median of 5): padded {times["padded"]:.3f}, CSR '
+        f'{times["csr"]:.3f}, bucketed {times["bucketed"]:.3f} ({smi})')
+    del negs, passes, u01, u01_grouped
+    torch.cuda.empty_cache()
+    return {'bytes': nbytes, 'ms': times}
+
+
+def _ml10m_fit(model, epochs, label, smi, sub, **trainer_kw):
+    """Fit ``model`` on the card and evaluate MAP@K on ``sub``; returns
+    ``(trainer, map)``."""
+    from collie_tpu_torch import CollieTrainer, evaluate_in_batches, mapk
+
+    trainer = CollieTrainer(model, max_epochs=epochs, verbosity=0, seed=7,
+                            enable_model_summary=False, **trainer_kw)
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    map_k = evaluate_in_batches([mapk], sub, model, k=K, batch_size=512, verbose=False)
+    log(f'trainer {label}: {trainer.last_fit_examples_per_sec:,.0f} examples/s ({smi}); '
+        f'per epoch ms (shuffle, sampler, kernel): '
+        f'{[tuple(round(e[s], 3) for s in SPLIT) for e in trainer.epoch_log]}; '
+        f'MAP@{K}={map_k:.5f}')
+    return trainer, map_k
+
+
+def _live_state(params, opt_states, schedulers, trainer) -> dict:
+    from collie_tpu_torch.training.trainer import state_from_leaves, state_leaves
+
+    def clone(state):
+        return state_from_leaves(state, iter([x.clone() if torch.is_tensor(x) else x
+                                              for x in state_leaves(state)]))
+    return {'params': {k: v.clone() for k, v in params.items()},
+            'opt_states': [clone(s) for s in opt_states],
+            'schedulers': [None if s is None else dict(vars(s)) for s in schedulers],
+            'global_step': trainer.global_step, 'best_epoch_loss': trainer.best_epoch_loss}
+
+
+def _checkpointed_fit(model, epochs, directory, resume=None, seed=7):
+    """Fit with a checkpoint every epoch, keeping a copy of the live state
+    each checkpoint was written from; ``resume`` arms the fit from a file."""
+    from collie_tpu_torch import CollieTrainer
+
+    log_ = _MetricLog()
+    trainer = CollieTrainer(model, max_epochs=epochs, verbosity=0, seed=seed,
+                            enable_model_summary=False, checkpoint_dir=directory, logger=log_)
+    live, write = {}, trainer._write_checkpoint
+
+    def capture(params, opt_states, schedulers, epoch):
+        live[epoch] = _live_state(params, opt_states, schedulers, trainer)
+        write(params, opt_states, schedulers, epoch)
+
+    trainer._write_checkpoint = capture
+    if resume is not None:
+        trainer.resume_from_checkpoint(resume)
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    first = min(live)
+    return trainer, {e: dict(state, loss=log_.epochs[e - first]) for e, state in live.items()}
+
+
+def _check_checkpoint_file(label, path, live, epoch):
+    """The file holds the live state it was written from, bit for bit."""
+    from collie_tpu_torch import read_checkpoint
+    from collie_tpu_torch.training.trainer import state_leaves
+
+    ckpt = read_checkpoint(path)
+    for k, v in live['params'].items():
+        if not np.array_equal(ckpt['params'][k], v.cpu().numpy()):
+            raise AssertionError(f'{label}: checkpoint param {k} differs from the live one')
+    for saved, state in zip(ckpt['opt_states'], live['opt_states']):
+        for a, b in zip(saved, state_leaves(state), strict=True):
+            same = (np.array_equal(a, b.cpu().numpy()) if torch.is_tensor(b) else a == b)
+            if not same:
+                raise AssertionError(f'{label}: checkpoint optimizer leaf differs: {a} vs {b}')
+    if (ckpt['schedulers'], ckpt['epoch'], ckpt['global_step'], ckpt['best_epoch_loss']) != \
+            (live['schedulers'], epoch, live['global_step'], live['best_epoch_loss']):
+        raise AssertionError(f'{label}: checkpoint counters or schedulers differ')
+
+
+def _epoch_state(live, explicit):
+    """A captured epoch's state as ``compare_epoch`` takes a kernel's
+    outputs: tables, moments, Adam count, losses."""
+    p, emb = live['params'], live['opt_states'][0]
+    tables = [p['user_embeddings'], p['item_embeddings']] \
+        + ([p['user_biases']] if explicit else []) + [p['item_biases']]
+    moments = [emb.mu['user_embeddings'], emb.nu['user_embeddings'],
+               emb.mu['item_embeddings'], emb.nu['item_embeddings']]
+    return (*tables, *moments, emb.adam_count,
+            torch.tensor([live['loss']], dtype=torch.float32))
+
+
+def _check_resumed(label, whole, resumed, first, last, explicit):
+    """The first resumed epoch against the uninterrupted fit's same epoch
+    (both from the same checkpointed state) at the epoch kernels'
+    tolerance; counters and schedulers at the last epoch."""
+    names = EXPLICIT_STATE if explicit else IMPLICIT_STATE
+    err = compare_epoch(f'{label} resumed epoch {first} vs uninterrupted',
+                        _epoch_state(resumed[first], explicit), _epoch_state(whole[first],
+                                                                              explicit),
+                        max_flipped=MAX_FLIPPED_FRACTION, names=names)
+    a, b = whole[last], resumed[last]
+    for sa, sb in zip(a['opt_states'], b['opt_states']):
+        if (sa.count, sa.learning_rate) != (sb.count, sb.learning_rate) or \
+                (sa.adam_count is not None and int(sa.adam_count) != int(sb.adam_count)):
+            raise AssertionError(f'{label}: optimizer counters or lr differ at epoch {last}')
+    for sa, sb in zip(a['schedulers'], b['schedulers']):
+        if sa['num_bad_epochs'] != sb['num_bad_epochs'] or \
+                not np.isclose(sa['best'], sb['best'], rtol=EPOCH_RTOL):
+            raise AssertionError(f'{label}: scheduler state {sa} vs {sb}')
+    if a['global_step'] != b['global_step'] or a['best_epoch_loss'][0] != \
+            b['best_epoch_loss'][0]:
+        raise AssertionError(f'{label}: counters {a["global_step"]}, {a["best_epoch_loss"]} vs '
+                             f'{b["global_step"]}, {b["best_epoch_loss"]}')
+    return err
+
+
+def check_resume(ml10m, sub, smi) -> float:
+    """8(d): the implicit ML-10M-scale fit for ``RESUME_EPOCHS`` epochs
+    with a checkpoint each epoch, and a fresh model and trainer resumed
+    from its ``RESUME_FROM`` file for the rest; the explicit gate
+    configuration for 10, resumed from epoch 5 for 5 more.  Returns the max
+    abs error of the resumed epochs."""
+    from collie_tpu_torch import explicit_evaluate_in_batches, evaluate_in_batches, mapk
+
+    train, _, test = ml10m
+    errors = []
+    with tempfile.TemporaryDirectory() as whole_dir, \
+            tempfile.TemporaryDirectory() as resumed_dir:
+        model = ml10m_model(train)
+        _, whole = _checkpointed_fit(model, RESUME_EPOCHS, whole_dir)
+        map_whole = evaluate_in_batches([mapk], sub, model, k=K, batch_size=512, verbose=False)
+        checkpoint = os.path.join(whole_dir, f'checkpoint_epoch_{RESUME_FROM}.pkl')
+        _check_checkpoint_file('implicit', checkpoint, whole[RESUME_FROM], RESUME_FROM)
+        resumed_model = ml10m_model(train)
+        _, resumed = _checkpointed_fit(resumed_model, RESUME_EPOCHS, resumed_dir,
+                                       resume=checkpoint)
+        map_resumed = evaluate_in_batches([mapk], sub, resumed_model, k=K, batch_size=512,
+                                          verbose=False)
+        errors.append(_check_resumed('implicit ML-10M', whole, resumed, RESUME_FROM + 1,
+                                     RESUME_EPOCHS, False))
+        log(f'trainer (d) implicit ML-10M-scale: {RESUME_EPOCHS} epochs uninterrupted '
+            f'MAP@{K}={map_whole:.5f}, {RESUME_FROM} + {RESUME_EPOCHS - RESUME_FROM} resumed '
+            f'MAP@{K}={map_resumed:.5f}; epoch-{RESUME_FROM} checkpoint equals the live state '
+            f'bit for bit; train loss by epoch {[round(whole[e]["loss"], 5) for e in sorted(whole)]}'
+            f'; lr after each epoch '
+            f'{[whole[e]["opt_states"][0].learning_rate for e in sorted(whole)]}')
+        if abs(map_resumed - map_whole) > 0.05 * map_whole:
+            raise AssertionError(f'resumed MAP@{K} {map_resumed} vs {map_whole}')
+        del model, resumed_model, whole, resumed
+
+    with tempfile.TemporaryDirectory() as whole_dir, \
+            tempfile.TemporaryDirectory() as resumed_dir:
+        model, _, test_e = explicit_gate_model()
+        _, whole = _checkpointed_fit(model, GATE_EPOCHS, whole_dir, seed=0)
+        mse_whole = explicit_evaluate_in_batches(['mse'], test_e, model, verbose=False)
+        _check_checkpoint_file('explicit', os.path.join(whole_dir, 'checkpoint_epoch_5.pkl'),
+                               whole[5], 5)
+        resumed_model = explicit_gate_model()[0]
+        _, resumed = _checkpointed_fit(resumed_model, GATE_EPOCHS, resumed_dir, seed=0,
+                                       resume=os.path.join(whole_dir, 'checkpoint_epoch_5.pkl'))
+        mse_resumed = explicit_evaluate_in_batches(['mse'], test_e, resumed_model,
+                                                   verbose=False)
+        errors.append(_check_resumed('explicit gate', whole, resumed, 6, GATE_EPOCHS, True))
+        log(f'trainer (d) explicit gate config: 10 epochs uninterrupted test MSE '
+            f'{mse_whole:.5f}, 5 + 5 resumed {mse_resumed:.5f}')
+        if abs(mse_resumed - mse_whole) > 0.05 * mse_whole:
+            raise AssertionError(f'resumed test MSE {mse_resumed} vs {mse_whole}')
+    return max(errors)
+
+
+def check_step_path(smi) -> None:
+    """8(e): ``CollieMinimalTrainer(epoch_mode='step')`` for one epoch of
+    the gate configuration on the card, the same epoch on the CPU from the
+    same params and loader seed, and the card's fit through a
+    ``PrefetchLoader``; params and per-step losses held at ``STEP_RTOL``."""
+    from collie_tpu_torch import (CollieMinimalTrainer, InteractionsDataLoader,
+                                  MatrixFactorizationModel, PrefetchLoader)
+
+    model, train, _ = gate_model()
+    params0 = {k: v.clone() for k, v in model.params.items()}
+    runs = {}
+    for name, device, wrap in (('card', None, None), ('cpu', 'cpu', None),
+                               ('card, PrefetchLoader', None, PrefetchLoader)):
+        loader = InteractionsDataLoader(interactions=train, batch_size=1024, shuffle=True,
+                                        seed=42)
+        m = MatrixFactorizationModel(train=wrap(loader) if wrap else loader, embedding_dim=10,
+                                     lr=1e-1, loss='adaptive', seed=42, map_location=device)
+        m.load_params({k: v.to(m.device) for k, v in params0.items()})
+        log_ = _MetricLog()
+        trainer = CollieMinimalTrainer(m, max_epochs=1, verbosity=0, seed=42,
+                                       epoch_mode='step', logger=log_, log_every_n_steps=1,
+                                       enable_model_summary=False)
+        trainer.fit(m)
+        if device is None:
+            torch.cuda.synchronize()
+        steps = trainer.epoch_log[0]['steps']
+        runs[name] = {'params': {k: v.cpu() for k, v in m.params.items()},
+                      'losses': np.asarray(log_.steps), 'steps': steps}
+        log(f'trainer (e) per-step path on the {name}: {steps} steps, '
+            f'{steps / trainer.epoch_log[0]["seconds"]:.1f} steps/s, '
+            f'{trainer.last_fit_examples_per_sec:,.0f} examples/s'
+            + (f' ({smi})' if device is None else ''))
+    ref = runs['cpu']
+    for name in ('card', 'card, PrefetchLoader'):
+        run = runs[name]
+        if run['steps'] != ref['steps'] or len(run['losses']) != ref['steps']:
+            raise AssertionError(f'{name}: {run["steps"]} steps vs {ref["steps"]}')
+        if not np.allclose(run['losses'], ref['losses'], rtol=STEP_RTOL, atol=0):
+            raise AssertionError(f'{name}: per-step losses differ from the CPU\'s: '
+                                 f'{run["losses"][:4]} vs {ref["losses"][:4]}')
+        for k, b in ref['params'].items():
+            a = run['params'][k]
+            diff = (a - b).abs()
+            if not bool((diff <= STEP_RTOL * b.abs() + STEP_ATOL_SCALE * b.abs().max()).all()):
+                raise AssertionError(f'{name}: param {k} differs from the CPU\'s by up to '
+                                     f'{float(diff.max()):.3g}')
+        log(f'  {name} vs cpu: per-step losses within rtol {STEP_RTOL}, params within '
+            f'{STEP_RTOL} x |cpu| + {STEP_ATOL_SCALE} x max|cpu| (max abs difference '
+            f'{max(float((run["params"][k] - b).abs().max()) for k, b in ref["params"].items()):.3g})')
+
+
+def check_custom_optimizer(smi) -> None:
+    """8(f): the gate configuration for 2 epochs with a momentum-SGD
+    factory: the generic epoch on the card, the train loss falls."""
+    from collie_tpu_torch import CollieTrainer, InteractionsDataLoader, MatrixFactorizationModel
+
+    _, train, _ = gate_model()
+    loader = InteractionsDataLoader(interactions=train, batch_size=1024, shuffle=True, seed=42)
+    model = MatrixFactorizationModel(train=loader, embedding_dim=10, lr=CUSTOM_SGD_LR,
+                                     loss='adaptive', seed=42,
+                                     optimizer=lambda learning_rate: _MomentumSGD(learning_rate))
+    log_ = _MetricLog()
+    trainer = CollieTrainer(model, max_epochs=2, verbosity=0, seed=42, logger=log_,
+                            enable_model_summary=False)
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    log(f'trainer (f) momentum-SGD factory, gate config, 2 epochs through the generic epoch: '
+        f'{trainer.last_fit_examples_per_sec:,.0f} examples/s ({smi}); train loss '
+        f'{[round(x, 5) for x in log_.epochs]}')
+    if not (len(log_.epochs) == 2 and log_.epochs[1] < log_.epochs[0]):
+        raise AssertionError(f'custom optimizer fit: train loss {log_.epochs}')
+
+
+def phase_trainer(ml10m, smi: str, ml10m_fit: dict) -> dict:
+    """The rest of the single-device trainer on the card: (a) the padded and
+    CSR samplers at the ML-10M scale; (b) a fit there through the CSR
+    sampler; (c) one with the approximate loader; (d) checkpoint/resume,
+    implicit and explicit; (e) the per-step path against the CPU; (f) a
+    custom optimizer factory.  Launch counts over the phase: fused_mf_epoch
+    3 + 3 + 5 + 2, fused_mf_explicit_epoch 10 + 5, the others 0."""
+    from collie_tpu_torch import (ApproximateNegativeSamplingInteractionsDataLoader,
+                                  MatrixFactorizationModel)
+    from collie_tpu_torch.training.scan_engine import select_sampler
+
+    train, _, test = ml10m
+    sub = ml10m_eval_users(test)
+    start = time.perf_counter()
+    reset_launch_counts()
+    samplers = check_samplers(train, smi)
+
+    # (b) above the table budget, auto routes to the CSR sampler
+    os.environ['COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB'] = '0'
+    try:
+        if select_sampler(train.mat) != 'csr':
+            raise AssertionError('a budget of 0 does not route auto to the CSR sampler')
+        before = _kernel_counts()
+        _, map_csr = _ml10m_fit(ml10m_model(train), ML10M_EPOCHS,
+                                '(b) ML-10M-scale fit through the CSR sampler', smi, sub)
+    finally:
+        del os.environ['COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB']
+    if _count_delta(before)['fused_mf_epoch'] != ML10M_EPOCHS:
+        raise AssertionError(f'CSR fit: launches {_count_delta(before)}')
+    if not map_csr >= 0.85 * ml10m_fit['mapk']:
+        raise AssertionError(f'CSR-sampled MAP@{K} {map_csr} < 0.85 x {ml10m_fit["mapk"]}')
+
+    # (c) the approximate loader switches the shared Interactions in place:
+    # put it back for the fits after it
+    saved = train.max_number_of_samples_to_consider
+    try:
+        before = _kernel_counts()
+        loader = ApproximateNegativeSamplingInteractionsDataLoader(
+            interactions=train, batch_size=ML10M_BATCH, shuffle=True, seed=7)
+        model = MatrixFactorizationModel(train=loader, embedding_dim=ML10M_DIM, lr=1e-1,
+                                         loss='adaptive', seed=7)
+        _, map_approx = _ml10m_fit(model, ML10M_EPOCHS,
+                                   '(c) ML-10M-scale fit with the approximate loader', smi, sub)
+    finally:
+        train.max_number_of_samples_to_consider = saved
+    if _count_delta(before)['fused_mf_epoch'] != ML10M_EPOCHS:
+        raise AssertionError(f'approximate fit: launches {_count_delta(before)}')
+    if not map_approx > ml10m_fit['untrained_mapk']:
+        raise AssertionError(f'approximate MAP@{K} {map_approx} does not beat untrained '
+                             f'{ml10m_fit["untrained_mapk"]}')
+    del model, loader
+
+    resume_err = check_resume(ml10m, sub, smi)
+    before = _kernel_counts()
+    check_step_path(smi)
+    if any(_count_delta(before).values()):
+        raise AssertionError(f'a kernel launched on the per-step path: {_count_delta(before)}')
+    check_custom_optimizer(smi)
+    launches = _kernel_counts()
+    expected = {'mf_topk_retrieve': 0,
+                'fused_mf_epoch': 2 * ML10M_EPOCHS + 2 * RESUME_EPOCHS - RESUME_FROM,
+                'fused_mf_explicit_epoch': 15, 'binned_gather_scatter': 0}
+    log(f'trainer phase: kernel launches {launches} (expected {expected}); '
+        f'{time.perf_counter() - start:.1f}s')
+    if launches != expected:
+        raise AssertionError(f'trainer phase launches {launches}, expected {expected}')
+    torch.cuda.empty_cache()
+    return {'samplers': samplers, 'map_csr': map_csr, 'map_approx': map_approx,
+            'resume_max_abs_err': resume_err, 'launches': launches}
+
+
 def serving_data(seed: int):
     """Seeded implicit interactions at the serving scale, split per user."""
     from collie_tpu_torch.data import Interactions, stratified_split
@@ -1984,8 +2476,11 @@ def main(argv=None):
     fused = phase_kernel_fused_epoch(ml10m['implicit'])
     explicit = phase_kernel_explicit_epoch(ml10m['explicit'])
     phase_serving(args.seed, topk)
-    phase_training(ml10m['implicit'], fused)
+    ml10m_fit = phase_training(ml10m['implicit'], fused)
     phase_explicit_training(ml10m['explicit'], explicit)
+    trainer_launches = phase_trainer(ml10m['implicit'], smi, ml10m_fit)['launches']
+    fused['launches'] += trainer_launches['fused_mf_epoch']
+    explicit['launches'] += trainer_launches['fused_mf_explicit_epoch']
     zoo = zoo_data()
     phase_zoo(smi, zoo)
     multi_stage = phase_multi_stage(smi, zoo)

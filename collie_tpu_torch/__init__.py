@@ -7,9 +7,14 @@ a CUDA device unless the caller asks for the CPU (``map_location='cpu'``),
 and its kernels are hand-written CUDA (``csrc/``).  Ported so far: the
 serving path of ``MatrixFactorizationModel`` (data, model construction and
 npz load, ``recommend``, ``evaluate_in_batches``) and its training paths
-(``CollieTrainer.fit`` on in-memory implicit loaders and on explicit ratings
-with MSE/MAE and ``y_range``, through the fused epoch kernels on the card;
-``explicit_evaluate_in_batches``), embedding dropout, and the single-stage
+(``CollieTrainer.fit`` on in-memory implicit loaders, exact or approximate,
+and on explicit ratings with MSE/MAE and ``y_range``, through the fused
+epoch kernels on the card, with the bucketed, padded or CSR sampler;
+``explicit_evaluate_in_batches``), the rest of the single-device trainer
+(checkpoint/resume, JAX checkpoints included; the per-step path for
+``epoch_mode='step'``, ``PrefetchLoader`` and custom loaders;
+``CollieMinimalTrainer``; custom optimizer factories), the data-prep
+helpers of ``utils``, embedding dropout, and the single-stage
 model zoo (``MLPMatrixFactorizationModel``,
 ``NonlinearMatrixFactorizationModel``, ``NeuralCollaborativeFiltering``,
 ``DeepFM``, ``CollaborativeMetricLearningModel``) and the multi-stage
@@ -22,12 +27,16 @@ Everything is re-exported flat from this module.
 from collie_tpu_torch._version import __version__
 
 from collie_tpu_torch.config import DATA_PATH
-from collie_tpu_torch.data import (BaseInteractions,
+from collie_tpu_torch.data import (ApproximateNegativeSamplingInteractionsDataLoader,
+                                   BaseInteractions,
                                    BaseInteractionsDataLoader,
                                    ExplicitInteractions,
+                                   HDF5Interactions,
+                                   HDF5InteractionsDataLoader,
                                    Interactions,
                                    InteractionsDataLoader,
                                    NegativeSampler,
+                                   PrefetchLoader,
                                    random_split,
                                    stratified_split)
 from collie_tpu_torch.evaluate import (evaluate_in_batches, explicit_evaluate_in_batches,
@@ -44,23 +53,33 @@ from collie_tpu_torch.ops import (adaptive_bpr_loss, adaptive_hinge_loss, auc, b
 from collie_tpu_torch.retrieval import build_retrieval_fn, recommend
 from collie_tpu_torch.training import (CollieMinimalTrainer, CollieTrainer,
                                        ReduceLROnPlateau, StepLR)
-from collie_tpu_torch.utils import (convert_to_implicit,
+from collie_tpu_torch.utils import (Timer,
+                                    convert_to_implicit,
+                                    create_ratings_matrix,
+                                    df_to_html,
+                                    df_to_interactions,
                                     get_init_arguments,
                                     get_random_seed,
-                                    merge_docstrings)
-from collie_tpu_torch.weights import optimizer_state_from_jax, params_from_jax
+                                    merge_docstrings,
+                                    remove_users_with_fewer_than_n_interactions,
+                                    trunc_normal)
+from collie_tpu_torch.weights import optimizer_state_from_jax, params_from_jax, read_checkpoint
 
 __all__ = [
-    '__version__', 'DATA_PATH', 'BaseInteractions', 'BaseInteractionsDataLoader',
+    '__version__', 'DATA_PATH', 'ApproximateNegativeSamplingInteractionsDataLoader',
+    'BaseInteractions', 'BaseInteractionsDataLoader',
     'BasePipeline', 'ColdStartModel', 'CollaborativeMetricLearningModel',
     'CollieMinimalTrainer', 'CollieTrainer', 'DeepFM', 'ExplicitInteractions',
-    'HybridModel', 'HybridPretrainedModel', 'Interactions', 'InteractionsDataLoader',
+    'HDF5Interactions', 'HDF5InteractionsDataLoader', 'HybridModel',
+    'HybridPretrainedModel', 'Interactions', 'InteractionsDataLoader',
     'MLPMatrixFactorizationModel', 'MatrixFactorizationModel', 'MultiStagePipeline',
     'NegativeSampler', 'NeuralCollaborativeFiltering', 'NonlinearMatrixFactorizationModel',
-    'ReduceLROnPlateau', 'StepLR', 'adaptive_bpr_loss', 'adaptive_hinge_loss', 'auc',
-    'bpr_loss', 'build_retrieval_fn', 'convert_to_implicit', 'evaluate_in_batches',
+    'PrefetchLoader', 'ReduceLROnPlateau', 'StepLR', 'Timer', 'adaptive_bpr_loss',
+    'adaptive_hinge_loss', 'auc', 'bpr_loss', 'build_retrieval_fn', 'convert_to_implicit',
+    'create_ratings_matrix', 'df_to_html', 'df_to_interactions', 'evaluate_in_batches',
     'explicit_evaluate_in_batches', 'get_init_arguments', 'get_preds', 'get_random_seed',
     'hinge_loss', 'ideal_difference_from_metadata', 'mae_loss', 'mapk', 'merge_docstrings',
     'mrr', 'mse_loss', 'optimizer_state_from_jax', 'params_from_jax', 'random_split',
-    'recommend', 'stratified_split', 'warp_loss',
+    'read_checkpoint', 'recommend', 'remove_users_with_fewer_than_n_interactions',
+    'stratified_split', 'trunc_normal', 'warp_loss',
 ]

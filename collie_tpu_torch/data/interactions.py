@@ -306,3 +306,14 @@ class ExplicitInteractions(BaseInteractions):
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         idx = np.asarray(index)
         return self.mat.row[idx], self.mat.col[idx], self.mat.data[idx]
+
+
+class HDF5Interactions:
+    """Out-of-core interactions over an HDF5 store
+    (``collie_tpu/data/interactions.py:310``), not ported: it needs
+    ``h5py``, which the card's machine lacks (ROADMAP Queue 1, the
+    out-of-core tier)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            'the out-of-core HDF5 tier is not ported yet (ROADMAP Queue 1)')

@@ -1,7 +1,8 @@
 """Batch loaders producing fixed-shape numpy batches.
 
-Numpy copy of ``collie_tpu.data.loaders`` (``InteractionsDataLoader`` only;
-the approximate and HDF5 loaders come with training).
+Numpy copy of ``collie_tpu.data.loaders`` (``InteractionsDataLoader`` and
+``ApproximateNegativeSamplingInteractionsDataLoader``; the HDF5 loader
+belongs to the out-of-core tier, see ROADMAP.md).
 
 Rebuild of the reference's ``collie/interactions/dataloaders.py`` (loaders at
 ``:70``, ``:176``, ``:297``) without ``torch.utils.data``: each loader is a
@@ -140,3 +141,52 @@ class InteractionsDataLoader(BaseInteractionsDataLoader):
                     'neg_items': negs,
                     'mask': mask,
                 }
+
+
+class ApproximateNegativeSamplingInteractionsDataLoader(InteractionsDataLoader):
+    """Loader with purely uniform ("approximate") negative sampling
+    (reference ``dataloaders.py:176-294``).
+
+    All loaders here are batch-vectorized, so this subclass only switches
+    off the exact-collision redraw rounds.  Rejects explicit data as the
+    reference does (``dataloaders.py:239-243``).  Like the reference, it
+    sets ``max_number_of_samples_to_consider = 0`` on the ``Interactions``
+    it is given, in place: every other loader over that object samples
+    approximately from then on.
+    """
+
+    def __init__(self,
+                 interactions: Optional[Interactions] = None,
+                 batch_size: int = 1024,
+                 shuffle: bool = False,
+                 drop_last: bool = False,
+                 seed: Optional[int] = None,
+                 **interactions_kwargs):
+        if interactions is not None and isinstance(interactions, ExplicitInteractions):
+            raise ValueError(
+                '``ApproximateNegativeSamplingInteractionsDataLoader`` does not support '
+                'explicit data — use ``InteractionsDataLoader`` instead.'
+            )
+        if interactions is None:
+            interactions_kwargs['max_number_of_samples_to_consider'] = 0
+            interactions = Interactions(**interactions_kwargs)
+        elif interactions.exact_negative_sampling:
+            # force approximate mode (reference ``dataloaders.py:256-265``)
+            interactions.max_number_of_samples_to_consider = 0
+        super().__init__(interactions=interactions,
+                         batch_size=batch_size,
+                         shuffle=shuffle,
+                         drop_last=drop_last,
+                         seed=seed)
+        self.approximate_negative_sampling = True
+
+
+class HDF5InteractionsDataLoader(BaseInteractionsDataLoader):
+    """The out-of-core chunked loader of collie_tpu
+    (``collie_tpu/data/loaders.py:179``), not ported: it needs ``h5py``,
+    which the card's machine lacks (ROADMAP Queue 1, the out-of-core
+    tier)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            'the out-of-core HDF5 tier is not ported yet (ROADMAP Queue 1)')

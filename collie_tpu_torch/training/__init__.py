@@ -1,5 +1,6 @@
-"""Training: optimizers written out by hand, host lr schedulers, the
-whole-epoch engine and the trainer."""
+"""Training: optimizers written out by hand (and custom optimizer
+factories), host lr schedulers, the whole-epoch engine and the trainer with
+its per-step path and checkpoints."""
 from collie_tpu_torch.training.optimizers import (OptimizerSpec, OptState, build_transform,
                                                   get_lr, set_lr, split_bias_keys)
 from collie_tpu_torch.training.schedulers import ReduceLROnPlateau, StepLR, resolve_scheduler

@@ -22,9 +22,23 @@ parameter's dtype.  The learning rate lives in the state (``OptState.
 learning_rate``, a float32 value) so host schedulers change it between
 epochs through ``set_lr``.  ``OptState.count`` is ``inject_hyperparams``'
 own per-update counter, which the fused epoch advances by its step count.
+
+Custom optimizer factories (``collie_tpu/training/optimizers.py:51-63``):
+``build_transform(factory, lr, wd)`` calls ``factory(learning_rate=lr,
+weight_decay=wd)``, or ``factory(learning_rate=lr)`` when that raises
+``TypeError``.  Where the JAX factory returns an optax transform, the port's
+returns an object with this module's ``Transform`` contract: ``init(params)
+-> state`` and ``update(grads, state, params) -> (updates, state)``.  It is
+wrapped so that bfloat16 params and grads reach it as float32 and only its
+update is cast back (``_f32_optimizer_math``).  ``get_lr`` / ``set_lr`` need a
+state with a ``learning_rate`` field; on any other state they raise the JAX
+package's ``ValueError``, so a scheduler that fires on a custom factory's
+state fails there, as in JAX.  JAX's ``match_lr_aval`` / ``adopt_lr_aval``
+have no counterpart: the learning rate here is a host float32 with no
+abstract value to keep stable across a resume.
 """
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -84,10 +98,6 @@ class Transform:
     the updates to the params."""
 
     def __init__(self, optimizer: str, lr: float, weight_decay: float = 0.0):
-        if not isinstance(optimizer, str):
-            raise NotImplementedError(
-                'custom optimizer factories are not ported yet (ROADMAP Queue 1); '
-                "use 'sgd', 'adagrad', 'adam' or 'sparse_adam'")
         if optimizer not in _SCALERS:
             raise ValueError(f'{optimizer} is not a valid optimizer!')
         if optimizer == 'sparse_adam':
@@ -148,20 +158,61 @@ class OptimizerSpec:
     stage: Optional[str] = None  # None -> active in every stage
 
 
-def build_transform(optimizer: str, lr: float, weight_decay: float = 0.0) -> Transform:
+class _F32OptimizerMath:
+    """A custom factory's transform run at float32 whatever the params'
+    storage dtype: bfloat16 grads and params are upcast on the way in (so
+    its state starts and stays float32), and each update is cast back to
+    its param's dtype.  For float32 params every cast is the identity."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    @staticmethod
+    def _f32(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: (v.float() if v.dtype == torch.bfloat16 else v) for k, v in tree.items()}
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Any:
+        return self.inner.init(self._f32(params))
+
+    def update(self, grads: Dict[str, torch.Tensor], state: Any,
+               params: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], Any]:
+        out, new_state = self.inner.update(self._f32(grads), state, self._f32(params))
+        return {k: u.to(params[k].dtype) for k, u in out.items()}, new_state
+
+
+def build_transform(optimizer: Union[str, Callable[..., Any]], lr: float,
+                    weight_decay: float = 0.0):
     """A transform with torch-coupled weight decay and a state-resident
-    learning rate."""
+    learning rate, or a custom factory's transform (module docstring)."""
+    if callable(optimizer) and not isinstance(optimizer, str):
+        try:
+            inner = optimizer(learning_rate=lr, weight_decay=weight_decay)
+        except TypeError:
+            inner = optimizer(learning_rate=lr)
+        return _F32OptimizerMath(inner)
     return Transform(optimizer, lr, weight_decay)
 
 
-def get_lr(opt_state: OptState) -> float:
+def _check_lr_state(opt_state) -> None:
+    if not hasattr(opt_state, 'learning_rate'):
+        raise ValueError(
+            'Optimizer state carries no injected hyperparams; learning-rate scheduling '
+            'requires transforms built by ``build_transform``.'
+        )
+
+
+def get_lr(opt_state) -> float:
     """The learning rate in ``opt_state``."""
+    _check_lr_state(opt_state)
     return float(opt_state.learning_rate)
 
 
-def set_lr(opt_state: OptState, new_lr: float) -> OptState:
+def set_lr(opt_state, new_lr: float):
     """``opt_state`` with the learning rate replaced (stored as float32)."""
-    return dataclasses.replace(opt_state, learning_rate=_f32_value(new_lr))
+    _check_lr_state(opt_state)
+    if dataclasses.is_dataclass(opt_state):
+        return dataclasses.replace(opt_state, learning_rate=_f32_value(new_lr))
+    return opt_state._replace(learning_rate=_f32_value(new_lr))
 
 
 def split_bias_keys(param_keys: Sequence[str]) -> Tuple[list, list]:

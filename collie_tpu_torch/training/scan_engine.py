@@ -4,7 +4,8 @@ Port of ``collie_tpu/training/scan_engine.py`` for single-device in-memory
 loaders, implicit and explicit.  Per epoch the interaction ids (and, for
 explicit data, the ratings) live on the device; the engine shuffles them with
 the Feistel permutation, samples every negative of an implicit epoch in one
-pass of the degree-bucketed complement sampler, and then trains:
+pass of an exact complement sampler (or draws them uniformly for an
+approximate loader), and then trains:
 
 * through a fused kernel (``ops/kernels/fused_mf_epoch.py``: ``fused_mf_epoch``
   for implicit data, ``fused_mf_explicit_epoch`` for ratings), one call per
@@ -22,21 +23,36 @@ pass of the degree-bucketed complement sampler, and then trains:
 There is no path on which a CUDA model inside the envelope trains without
 the kernel: if the kernel cannot launch, the epoch raises.
 
+Exact sampling chooses its sampler as the JAX engine does
+(``scan_engine.py:291-306``): ``COLLIE_TPU_SAMPLER`` (``auto``, ``bucketed``,
+``padded`` or ``csr``; any other value means ``csr``) and, for ``auto``, the
+table budget ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB`` (default 1024): the
+degree-bucketed tables when they fit it, else the padded table when it
+fits, else the CSR tables (a budget of 0 routes ``auto`` to ``csr``).  The
+bucketed tables take at least 512 B a user, so above 2,097,152 users the
+default budget routes to the CSR sampler, whose tables grow with the
+interactions alone.
+
 Epoch layouts follow the JAX engine: ``(row, col)`` ids packed into one
 int32 where they fit; the slot-domain one-gather epoch when shuffling
 packable implicit ids with at most 2% bucket-pad slots (``:331-375``,
 ``:409-445``), whose pad slots are clamped into the item range before any
 gather (``_unpack_rows``, ``:496-527``); the reorder path otherwise, and
 always for explicit data (``items`` and ``ratings`` gathered by the same
-permutation, ``:465-467``).
+permutation, ``:465-467``) and for the padded and CSR samplers, which draw
+per batch position (``:470-487``).
 
 Randomness: per epoch one generator stream (seeded from the trainer's seed
-and the epoch) gives the four Feistel keys, then the sampler's uniforms (an
-explicit epoch draws the keys alone).  It
+and the epoch) gives the four Feistel keys, then the sampler's draws:
+``[N_g, K + 2 * dedup_rounds]`` uniforms for the bucketed sampler, ``[1 +
+dedup_rounds, S * B, K]`` (one block per round) for the padded and CSR
+samplers, ``[S * B, K]`` item ids for approximate sampling (an explicit
+epoch draws the keys alone).  It
 cannot reproduce JAX's threefry draws; ``draw_epoch`` is the one place the
 draws are made, so a test can hand it JAX's keys and uniforms instead.
 """
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -46,14 +62,16 @@ import torch
 from collie_tpu_torch.data import ExplicitInteractions, Interactions, InteractionsDataLoader
 from collie_tpu_torch.ops.device_sampling import (
     SPARES_PER_ROUND, bucketed_table_bytes, build_bucketed_complement_tables,
-    complement_sample_negatives_bucketed, complement_sample_negatives_bucketed_grouped)
+    build_complement_tables, build_padded_complement_table,
+    complement_sample_negatives_bucketed, complement_sample_negatives_bucketed_grouped,
+    complement_sample_negatives_impl, complement_sample_negatives_padded_impl, csr_keys,
+    padded_table_bytes)
 from collie_tpu_torch.ops.kernels.fused_mf_epoch import (MAX_DIM, fused_mf_epoch,
                                                          fused_mf_explicit_epoch)
 from collie_tpu_torch.ops.shuffle import draw_feistel_keys, feistel_permutation_from_keys
 
-#: the JAX engine's bucketed-sampler table budget; above it JAX takes the
-#: padded or CSR samplers, which are not ported yet
-_SAMPLER_BUDGET_BYTES = 1024 * 2 ** 20
+#: the default sampler table budget (``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB``)
+_PADDED_SAMPLER_BUDGET_MB = 1024
 _KERNEL_LOSSES = {'hinge': ('hinge', False), 'adaptive_hinge': ('hinge', True),
                   'bpr': ('bpr', False), 'adaptive_bpr': ('bpr', True),
                   'warp': ('warp', False)}
@@ -130,6 +148,22 @@ def _fused_epoch_config(model, specs, active, loader, mesh=None) -> Optional[dic
             'emb_idx': emb_idx, 'bias_idx': bias_idx}
 
 
+def select_sampler(mat) -> str:
+    """The exact sampler an epoch over ``mat`` takes: ``'bucketed'``,
+    ``'padded'`` or ``'csr'``, chosen by ``COLLIE_TPU_SAMPLER`` and, for
+    ``auto``, ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB`` (the JAX engine's rule,
+    ``scan_engine.py:295-306``)."""
+    budget = float(os.environ.get('COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB',
+                                  _PADDED_SAMPLER_BUDGET_MB)) * 2 ** 20
+    kind = os.environ.get('COLLIE_TPU_SAMPLER', 'auto')
+    if kind == 'auto':
+        if bucketed_table_bytes(mat) <= budget:
+            return 'bucketed'
+        # never taken by the default budget (bucketed <= padded), as in JAX
+        return 'padded' if padded_table_bytes(mat) <= budget else 'csr'
+    return kind if kind in ('bucketed', 'padded') else 'csr'
+
+
 def loader_is_scannable(loader) -> bool:
     """True when the loader's epoch can be materialized as device tensors."""
     return (isinstance(loader, InteractionsDataLoader)
@@ -143,7 +177,8 @@ def draw_epoch(seed: int, epoch_idx: int, training: bool, device,
     """One epoch's randomness from one generator stream, seeded from
     ``(seed, epoch, training)``: the four Feistel keys (when ``perm_n`` is
     set), then the sampler's draws of
-    ``sample_shape`` — float32 uniforms for exact sampling, item ids in
+    ``sample_shape`` — float32 uniforms for exact sampling (a leading axis
+    of draw rounds for the padded and CSR samplers), item ids in
     ``[0, num_items)`` for approximate sampling."""
     generator = torch.Generator(device=device)
     generator.manual_seed((int(seed) * 1_000_003 + int(epoch_idx) * 2 + int(training))
@@ -166,6 +201,32 @@ def dropout_step_seeds(seed: int, epoch_idx: int, num_steps: int) -> List[int]:
     words = np.random.SeedSequence([int(seed), int(epoch_idx), 3]).generate_state(
         num_steps, dtype=np.uint64)
     return [int(w) for w in words]
+
+
+def train_step(model, specs, active: List[bool], params: Dict[str, torch.Tensor],
+               opt_states: tuple, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None):
+    """One optimizer step on one batch: ``calculate_loss`` under autograd,
+    then each active optimizer's update of its params (the JAX package's
+    ``train_step``, ``collie_tpu/training/trainer.py:960-972``).  Returns
+    ``(params, opt_states, loss)``; ``generator`` feeds dropout."""
+    trained = [k for spec, on in zip(specs, active) if on for k in spec.keys]
+    leaves = {k: (v.detach().requires_grad_() if k in trained else v.detach())
+              for k, v in params.items()}
+    loss = model.calculate_loss(leaves, batch, generator=generator, training=True)
+    grads = dict(zip(trained, torch.autograd.grad(
+        loss, [leaves[k] for k in trained], allow_unused=True)))
+    states = list(opt_states)
+    with torch.no_grad():
+        for i, spec in enumerate(specs):
+            if not active[i]:
+                continue
+            sub_params = {k: params[k] for k in spec.keys}
+            sub_grads = {k: (grads[k] if grads[k] is not None else torch.zeros_like(params[k]))
+                         for k in spec.keys}
+            updates, states[i] = spec.transform.update(sub_grads, states[i], sub_params)
+            params = {**params, **{k: sub_params[k] + updates[k] for k in spec.keys}}
+    return params, tuple(states), loss.detach()
 
 
 class _EpochClock:
@@ -205,7 +266,9 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     ``training=True``: ``epoch_fn(params, opt_states, data, seed, epoch_idx)
     -> (params, opt_states, mean_loss)``, with ``epoch_fn.epoch_batches(seed,
     epoch_idx)`` (the epoch's batches), ``epoch_fn.split_ms()`` (shuffle,
-    sampler and train milliseconds of the last epoch) and ``epoch_fn.fused``; for
+    sampler and train milliseconds of the last epoch), ``epoch_fn.fused``
+    and ``epoch_fn.sampler`` (``select_sampler``'s choice, None without exact
+    sampling); for
     validation:
     ``epoch_fn(params, data, seed, epoch_idx) -> mean_loss``.  ``mean_loss``
     is a 0-d tensor on the model's device.  ``fused``: ``None`` (the
@@ -251,11 +314,8 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     if explicit:
         data['ratings'] = put(inter.mat.data.astype(np.float32))
     N_g = 0
-    if exact:
-        if bucketed_table_bytes(inter.mat) > _SAMPLER_BUDGET_BYTES:
-            raise NotImplementedError(
-                'the bucketed sampler tables exceed 1 GB; the padded and CSR samplers '
-                'the JAX engine takes there are not ported yet (ROADMAP Queue 1)')
+    sampler = select_sampler(inter.mat) if exact else None
+    if sampler == 'bucketed':
         specs_np, counts_np, users_g_np, pos_of_np = build_bucketed_complement_tables(
             inter.mat, inter.mat.row)
         data['bucket_specs'] = tuple((put(r), put(t)) for r, t in specs_np)
@@ -280,6 +340,15 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             slot_tail = S * B - N_g
         else:
             data['pos_of'] = put(pos_of_np)
+    elif sampler == 'padded':
+        pad_np, counts_np = build_padded_complement_table(inter.mat)
+        data['shifted_pad'] = put(pad_np)
+        data['row_counts'] = put(counts_np)
+    elif sampler == 'csr':
+        indptr_np, shifted_np = build_complement_tables(inter.mat)
+        data['indptr'] = put(indptr_np)
+        data['shifted_cols'] = put(shifted_np)
+        data['csr_keys'] = csr_keys(data['indptr'], data['shifted_cols'])
     W = K + SPARES_PER_ROUND * dedup_rounds
     clock = _EpochClock(device)
 
@@ -290,8 +359,12 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         perm_n = n if shuffle and n >= 2 else None
         if explicit:
             shape = None
+        elif sampler == 'bucketed':
+            shape = (N_g, W)
+        elif exact:
+            shape = (1 + dedup_rounds, S * B, K)   # one block per draw round
         else:
-            shape = (N_g, W) if exact else (S * B, K)
+            shape = (S * B, K)
         return draw_epoch(seed, epoch_idx, training, device, perm_n, shape, num_items, exact)
 
     def _epoch_batches(seed, epoch_idx) -> Dict[str, torch.Tensor]:
@@ -341,10 +414,21 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                     'items': cols_flat.reshape(S, B),
                     'ratings': data['ratings'][idx].reshape(S, B),
                     'mask': data['mask_flat'].reshape(S, B)}
-        if exact:
+        if sampler == 'bucketed':
             negs = complement_sample_negatives_bucketed(
                 samples, idx, data['pos_of'], data['users_g'], data['bucket_specs'],
                 data['row_counts'], num_items, K, dedup_rounds=dedup_rounds)
+        elif sampler is not None:
+            if sampler == 'padded':
+                negs = complement_sample_negatives_padded_impl(
+                    samples, users_flat, data['shifted_pad'], data['row_counts'],
+                    num_items, K, dedup_rounds=dedup_rounds)
+            else:
+                negs = complement_sample_negatives_impl(
+                    samples, users_flat, data['indptr'], data['shifted_cols'], num_items,
+                    K, dedup_rounds=dedup_rounds, keys=data['csr_keys'])
+            # a user holding every item draws -1: clamp before any gather
+            negs = torch.clamp(negs, 0, num_items - 1)
         else:
             negs = samples
         return {'users': users_flat.reshape(S, B),
@@ -360,6 +444,7 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                                                training=False) for s in range(S)]
             return torch.stack(losses).mean()
 
+        val_epoch_fn.sampler = sampler
         return val_epoch_fn, data, S, n_used
 
     cfg = None if fused is False else _fused_epoch_config(model, specs, active, loader, mesh)
@@ -445,39 +530,23 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             clock.mark()
             batches = _epoch_batches(seed, epoch_idx)
             clock.mark()
-            trained = [k for spec, on in zip(specs, active) if on for k in spec.keys]
             step_seeds = dropout_step_seeds(seed, epoch_idx, S) if with_dropout else None
-            states = list(opt_states)
             losses = []
             for s in range(S):
-                batch = {k: v[s] for k, v in batches.items()}
-                leaves = {k: (v.detach().requires_grad_() if k in trained else v.detach())
-                          for k, v in params.items()}
                 generator = None
                 if with_dropout:
                     generator = torch.Generator(device=device)
                     generator.manual_seed(step_seeds[s])
-                loss = model.calculate_loss(leaves, batch, generator=generator, training=True)
-                grads = dict(zip(trained, torch.autograd.grad(
-                    loss, [leaves[k] for k in trained], allow_unused=True)))
-                with torch.no_grad():
-                    for i, spec in enumerate(specs):
-                        if not active[i]:
-                            continue
-                        sub_params = {k: params[k] for k in spec.keys}
-                        sub_grads = {k: (grads[k] if grads[k] is not None
-                                         else torch.zeros_like(params[k]))
-                                     for k in spec.keys}
-                        updates, states[i] = spec.transform.update(
-                            sub_grads, states[i], sub_params)
-                        params = {**params,
-                                  **{k: sub_params[k] + updates[k] for k in spec.keys}}
-                losses.append(loss.detach())
+                params, opt_states, loss = train_step(
+                    model, specs, active, params, opt_states,
+                    {k: v[s] for k, v in batches.items()}, generator)
+                losses.append(loss)
             clock.mark()
-            return params, tuple(states), torch.stack(losses).mean()
+            return params, opt_states, torch.stack(losses).mean()
 
     epoch_fn.split_ms = clock.split_ms
     epoch_fn.fused = use_fused
+    epoch_fn.sampler = sampler
     epoch_fn.epoch_batches = _epoch_batches
     return epoch_fn, data, S, n_used
 

@@ -1,32 +1,104 @@
 """Training engine: one epoch function call per epoch, a host loop around it.
 
-Port of ``collie_tpu/training/trainer.py`` for single-device in-memory
-loaders of implicit or explicit data.  ``CollieTrainer.fit`` builds the
-epoch functions of ``scan_engine`` once per fit and runs the per-epoch host
-loop of the JAX package's ``_run_epochs`` (``:676-790``): the epoch call (a
-fused kernel for an MF on ``cuda``: ``fused_mf_epoch`` for implicit data,
-``fused_mf_explicit_epoch`` for ratings), the ``terminate_on_nan`` trip, the
-validation loss,
-host ``ReduceLROnPlateau`` / ``StepLR`` stepping through ``set_lr``, early
-stopping on the monitored loss, ``num_epochs_completed`` and the verbose
-lines.  The base seed is ``seed`` (0 when not given), as the JAX trainer's
-``PRNGKey(seed)``.
+Port of ``collie_tpu/training/trainer.py`` for single-device fits of
+implicit or explicit data.  ``CollieTrainer.fit`` runs the per-epoch host
+loop of the JAX package's ``_run_epochs`` (``:762-869``) over one of two
+epoch paths, chosen as JAX does (``:196-222``):
 
-Not ported yet (ROADMAP Queue 1): the whole-fit single dispatch (a CUDA
-graph on this card), checkpoint/resume, the HDF5 chunk tier and the per-step
-path, mesh training, multi-process fits and ``CollieMinimalTrainer``.
-Asking for any of them raises ``NotImplementedError``.
+* the whole-epoch path (``scan_engine``) for in-memory loaders, unless
+  ``epoch_mode='step'``: the epoch functions are built once per fit, and an
+  MF on ``cuda`` trains through a fused kernel (``fused_mf_epoch`` for
+  implicit data, ``fused_mf_explicit_epoch`` for ratings);
+* the per-step path for ``epoch_mode='step'`` and for any loader the
+  whole-epoch path cannot take (a ``PrefetchLoader``, a custom iterable of
+  batch dicts): each numpy batch of the loader's host iterator goes to the
+  device and through one ``scan_engine.train_step``.  JAX groups such steps
+  into ``lax.scan`` chunks (``COLLIE_TPU_STEP_SCAN_GROUP``), a TPU dispatch
+  device that changes no value; here the steps run one by one, each with
+  the dropout seed of its global step (``step_dropout_seed``, the analog of
+  ``fold_in(PRNGKey(seed), step)``).  ``global_step`` counts these steps
+  and ``train_loss_step`` is logged every ``log_every_n_steps``; the
+  whole-epoch path leaves ``global_step`` alone, as JAX's does.  Validation
+  from a loader the whole-epoch path cannot take is the mean of per-batch
+  losses.
+
+Around the epoch: the ``terminate_on_nan`` trip, the validation loss, host
+``ReduceLROnPlateau`` / ``StepLR`` stepping through ``set_lr``, checkpoints,
+early stopping on the monitored loss, ``num_epochs_completed`` and the
+verbose lines.  The base seed is ``seed`` (0 when not given), as the JAX
+trainer's ``PRNGKey(seed)``.
+
+Checkpoints (``:104-157``, the host-pickle format): with ``checkpoint_dir``,
+``checkpoint_epoch_<n>.pkl`` every ``checkpoint_every_n_epochs`` epochs,
+published through a ``.tmp`` file and a rename, with JAX's keys
+(``params``, ``opt_states``, ``schedulers``, ``epoch``, ``global_step``,
+``best_epoch_loss``).  Every array is a host numpy array (bfloat16 as its
+bit pattern, ``weights.host_leaf``), so a checkpoint written on the card
+loads on a host without one; an optimizer state is stored as the list of
+its leaves in a fixed order and a scheduler as its attributes.
+``resume_from_checkpoint`` reads such a file, or one the JAX package wrote
+(``weights.read_checkpoint``), and arms the next ``fit`` with the whole
+state.
+
+Not ported (ROADMAP.md): mesh training and its ``.shards`` checkpoints, the
+HDF5 chunk tier, multi-process fits and the whole-fit single dispatch.
 """
+import dataclasses
+import os
+import pickle
 import time
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from collie_tpu_torch.training.optimizers import get_lr, set_lr
-from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns, loader_is_scannable
+from collie_tpu_torch.training.scan_engine import (build_scan_epoch_fns, loader_is_scannable,
+                                                   train_step)
 from collie_tpu_torch.training.schedulers import resolve_scheduler
+from collie_tpu_torch.weights import (device_leaf, host_leaf, optimizer_state_from_jax,
+                                      read_checkpoint)
 
 _ROADMAP = 'not ported yet (ROADMAP Queue 1)'
+
+
+def step_dropout_seed(seed: int, global_step: int) -> int:
+    """The dropout seed of one per-step-path step, from ``(seed,
+    global_step)``."""
+    return int(np.random.SeedSequence([int(seed), int(global_step), 4]).generate_state(
+        1, dtype=np.uint64)[0])
+
+
+def state_leaves(tree: Any) -> List[Any]:
+    """The leaves of an optimizer state in a fixed order: dataclass fields
+    in declaration order, dict entries by sorted key, sequence items in
+    order; anything else is a leaf."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [leaf for f in dataclasses.fields(tree)
+                for leaf in state_leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in state_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in state_leaves(item)]
+    return [tree]
+
+
+def state_from_leaves(template: Any, leaves) -> Any:
+    """``template``'s structure with ``state_leaves``' order filled from the
+    iterator ``leaves``."""
+    if dataclasses.is_dataclass(template) and not isinstance(template, type):
+        return dataclasses.replace(template, **{
+            f.name: state_from_leaves(getattr(template, f.name), leaves)
+            for f in dataclasses.fields(template)})
+    if isinstance(template, dict):
+        return {k: state_from_leaves(template[k], leaves) for k in sorted(template)}
+    if isinstance(template, (list, tuple)):
+        items = [state_from_leaves(item, leaves) for item in template]
+        if hasattr(template, '_fields'):
+            return type(template)(*items)
+        return type(template)(items)
+    return next(leaves)
 
 
 class CollieTrainer:
@@ -53,10 +125,6 @@ class CollieTrainer:
         assert epoch_mode in ('auto', 'scan', 'step'), epoch_mode
         if mesh is not None:
             raise NotImplementedError(f'mesh training is {_ROADMAP}')
-        if checkpoint_dir is not None:
-            raise NotImplementedError(f'checkpointing is {_ROADMAP}')
-        if epoch_mode == 'step':
-            raise NotImplementedError(f'the per-step path is {_ROADMAP}')
         self.max_epochs = max_epochs
         self.benchmark = benchmark
         self.deterministic = deterministic
@@ -76,17 +144,73 @@ class CollieTrainer:
         self.checkpoint_every_n_epochs = checkpoint_every_n_epochs
         self.enable_model_summary = enable_model_summary
         self.exact_sampling_dedup_rounds = exact_sampling_dedup_rounds
+        self._pending_resume: Optional[Dict[str, Any]] = None
         #: training examples per second of the last ``fit``
         self.last_fit_examples_per_sec: Optional[float] = None
         #: per epoch of the last ``fit``: ``epoch``, ``seconds`` (host clock,
-        #: validation included), ``shuffle_ms``, ``sample_ms`` (the sampler
-        #: and the batch assembly; for explicit data, which has no sampler,
-        #: the batch gather alone) and ``train_ms`` (the kernel, or the
-        #: generic epoch's steps)
+        #: validation included) and, on the whole-epoch path, ``shuffle_ms``,
+        #: ``sample_ms`` (the sampler and the batch assembly; for explicit
+        #: data, which has no sampler, the batch gather alone) and
+        #: ``train_ms`` (the kernel, or the generic epoch's steps); on the
+        #: per-step path, ``steps``
         self.epoch_log: List[Dict[str, float]] = []
 
+    # ---------------------------------------------------------- checkpoints
+
+    def _write_checkpoint(self, params, opt_states, schedulers, epoch: int) -> None:
+        Path(self.checkpoint_dir).mkdir(parents=True, exist_ok=True)
+        payload = {
+            'params': {k: host_leaf(v) for k, v in params.items()},
+            'opt_states': tuple([host_leaf(leaf) for leaf in state_leaves(state)]
+                                for state in opt_states),
+            'schedulers': [None if s is None else dict(vars(s)) for s in schedulers],
+            'epoch': epoch,
+            'global_step': self.global_step,
+            'best_epoch_loss': self.best_epoch_loss,
+        }
+        path = Path(self.checkpoint_dir) / f'checkpoint_epoch_{epoch}.pkl'
+        tmp = path.with_suffix('.tmp')
+        with open(tmp, 'wb') as f:
+            pickle.dump(payload, f)
+        tmp.rename(path)  # atomic publish: readers never see partial files
+        if self.verbosity > 1:
+            print(f'  checkpoint -> {path}')
+
     def resume_from_checkpoint(self, path) -> int:
-        raise NotImplementedError(f'checkpoint/resume is {_ROADMAP}')
+        """Arm the next ``fit`` call to restore the full training state
+        (parameters, optimizer moments and learning rates, scheduler and
+        early-stopping state, epoch and step counters) from a checkpoint
+        written by either package.  Returns the checkpoint's epoch."""
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                f'per-shard checkpoints of mesh fits are {_ROADMAP}')
+        self._pending_resume = read_checkpoint(path)
+        return self._pending_resume['epoch']
+
+    def _restore(self, model, ckpt, opt_states, schedulers):
+        """The state a checkpoint holds, on the model's device: ``(params,
+        opt_states, schedulers)``; the counters go to the model and the
+        trainer.  ``opt_states`` and ``schedulers`` are the fit's fresh ones,
+        whose structure a port checkpoint's leaves fill."""
+        device = model.device
+        params = {k: device_leaf(v, device) for k, v in ckpt['params'].items()}
+        restored = []
+        for saved, fresh in zip(ckpt['opt_states'], opt_states):
+            if hasattr(saved, 'hyperparams'):      # an optax state of the JAX package
+                restored.append(optimizer_state_from_jax(saved, device))
+            else:
+                leaves = iter([device_leaf(leaf, device) for leaf in saved])
+                restored.append(state_from_leaves(fresh, leaves))
+        new_schedulers = []
+        for saved, fresh in zip(ckpt['schedulers'], schedulers):
+            if isinstance(saved, dict):
+                fresh.__dict__.update(saved)
+                saved = fresh
+            new_schedulers.append(saved)
+        model.hparams['num_epochs_completed'] = ckpt['epoch']
+        self.global_step = ckpt['global_step']
+        self.best_epoch_loss = tuple(ckpt['best_epoch_loss'])
+        return params, tuple(restored), new_schedulers
 
     # ------------------------------------------------------------------- fit
 
@@ -97,27 +221,38 @@ class CollieTrainer:
         params = dict(model.params)
         self._pre_fit_report(model, params, specs, active)
 
-        if not loader_is_scannable(model.train_loader):
-            raise NotImplementedError(
-                f'training from {type(model.train_loader).__name__} (the per-step and HDF5 '
-                f'paths) is {_ROADMAP}; use an in-memory InteractionsDataLoader')
-        if model.val_loader is not None and not loader_is_scannable(model.val_loader):
-            raise NotImplementedError(
-                f'validation from {type(model.val_loader).__name__} is {_ROADMAP}')
+        use_scan_train = (self.epoch_mode != 'step'
+                          and loader_is_scannable(model.train_loader))
+        use_scan_val = (model.val_loader is not None and self.epoch_mode != 'step'
+                        and loader_is_scannable(model.val_loader))
+        if self.epoch_mode == 'scan' and not use_scan_train:
+            raise ValueError(
+                'epoch_mode="scan" requires an in-memory InteractionsDataLoader '
+                '(HDF5/out-of-core and custom loaders must use the per-step path).'
+            )
+        self._device_put_loss_metadata(model)
 
-        train_fn, train_data, _, train_examples = build_scan_epoch_fns(
-            model, specs, active, model.train_loader,
-            shuffle=getattr(model.train_loader, 'shuffle', True), training=True,
-            dedup_rounds=self.exact_sampling_dedup_rounds)
-        val_fn = val_data = None
-        if model.val_loader is not None:
+        train_fn = train_data = val_fn = val_data = None
+        train_examples = 0
+        if use_scan_train:
+            train_fn, train_data, _, train_examples = build_scan_epoch_fns(
+                model, specs, active, model.train_loader,
+                shuffle=getattr(model.train_loader, 'shuffle', True), training=True,
+                dedup_rounds=self.exact_sampling_dedup_rounds)
+        if use_scan_val:
             val_fn, val_data, _, _ = build_scan_epoch_fns(
                 model, specs, active, model.val_loader, shuffle=False, training=False)
+        steps = None
+        if not use_scan_train or (model.val_loader is not None and not use_scan_val):
+            steps = self._build_steps(model, specs, active)
 
         # optimizer state resets each fit (reference semantics)
         opt_states = tuple(spec.transform.init({k: params[k] for k in spec.keys})
                            for spec in specs)
         schedulers = [resolve_scheduler(model.lr_scheduler_func) for _ in specs]
+        if self._pending_resume is not None:
+            ckpt, self._pending_resume = self._pending_resume, None
+            params, opt_states, schedulers = self._restore(model, ckpt, opt_states, schedulers)
         start_epoch = model.hparams.get('num_epochs_completed', 0) + 1
         self.epoch_log = []
         state = {'params': params, 'opt_states': opt_states, 'total_examples': 0}
@@ -126,7 +261,7 @@ class CollieTrainer:
             self._run_epochs(model=model, specs=specs, schedulers=schedulers,
                              start_epoch=start_epoch, train_fn=train_fn,
                              train_data=train_data, train_examples=train_examples,
-                             val_fn=val_fn, val_data=val_data, state=state)
+                             val_fn=val_fn, val_data=val_data, state=state, steps=steps)
         finally:
             # the model holds the latest tables even when an epoch raises
             model.load_params(state['params'])
@@ -169,24 +304,36 @@ class CollieTrainer:
                     save()
 
     def _run_epochs(self, *, model, specs, schedulers, start_epoch, train_fn, train_data,
-                    train_examples, val_fn, val_data, state) -> None:
-        monitor_val = val_fn is not None
+                    train_examples, val_fn, val_data, state, steps=None) -> None:
+        monitor_val = model.val_loader is not None
         epochs_no_improvement = 0
         for epoch in range(start_epoch, self.max_epochs + 1):
             epoch_start = time.perf_counter()
-            params, opt_states, loss = train_fn(state['params'], state['opt_states'],
-                                                train_data, self.seed, epoch)
-            train_loss = float(loss)
+            if train_fn is not None:
+                params, opt_states, loss = train_fn(state['params'], state['opt_states'],
+                                                    train_data, self.seed, epoch)
+                train_loss = float(loss)
+                state['total_examples'] += train_examples
+                split = train_fn.split_ms()
+            else:
+                step0 = self.global_step
+                params, opt_states, train_loss, state['total_examples'] = \
+                    self._per_step_epoch(model=model, params=state['params'],
+                                         opt_states=state['opt_states'], train=steps[0],
+                                         total_examples=state['total_examples'])
+                split = {'steps': self.global_step - step0}
             state['params'], state['opt_states'] = params, opt_states
-            state['total_examples'] += train_examples
-            split = train_fn.split_ms()
 
             if self.terminate_on_nan and not np.isfinite(train_loss):
                 raise FloatingPointError(f'NaN/Inf train loss at epoch {epoch}.')
 
             val_loss = None
             if monitor_val:
-                val_loss = float(val_fn(params, val_data, self.seed, epoch))
+                if val_fn is not None:
+                    val_loss = float(val_fn(params, val_data, self.seed, epoch))
+                else:
+                    val_losses = [steps[1](params, batch) for batch in model.val_loader]
+                    val_loss = float(torch.stack(val_losses).mean())
 
             model.hparams['num_epochs_completed'] = epoch
             self.num_epochs_completed = epoch
@@ -219,6 +366,10 @@ class CollieTrainer:
                         print(f'  lr[{specs[i].name}] -> {max(current * factor, min_lr):.2e}')
             state['opt_states'] = tuple(new_states)
 
+            if (self.checkpoint_dir is not None
+                    and epoch % self.checkpoint_every_n_epochs == 0):
+                self._write_checkpoint(state['params'], state['opt_states'], schedulers, epoch)
+
             # early stopping on the best epoch loss
             if monitored < self.best_epoch_loss[1]:
                 self.best_epoch_loss = (epoch, monitored)
@@ -233,10 +384,58 @@ class CollieTrainer:
                               f'loss {self.best_epoch_loss[1]:.5f}).')
                     break
 
+    # ------------------------------------------------------------- per step
+
+    def _per_step_epoch(self, *, model, params, opt_states, train, total_examples):
+        """One epoch of the per-step path: every batch of the loader's host
+        iterator through ``train``, in order.  Returns ``(params,
+        opt_states, mean per-step loss, total_examples)``."""
+        losses = []
+        for batch in model.train_loader:
+            n_real = (int(np.asarray(batch['mask']).sum()) if 'mask' in batch
+                      else len(batch['users']))
+            params, opt_states, loss = train(params, opt_states, batch, self.global_step)
+            losses.append(loss)
+            total_examples += n_real
+            self.global_step += 1
+            if self.logger is not None and self.global_step % self.log_every_n_steps == 0:
+                self.logger.log_metrics({'train_loss_step': float(loss)},
+                                        step=self.global_step)
+        return params, opt_states, float(torch.stack(losses).mean()), total_examples
+
+    @staticmethod
+    def _device_put_loss_metadata(model) -> None:
+        """Put the loss metadata on the model's device once, before the
+        epochs (``BasePipeline.loss_metadata`` keeps the tensors)."""
+        model.loss_metadata()
+
+    def _build_steps(self, model, specs, active):
+        """``(train, val)`` of the per-step path: ``train(params,
+        opt_states, batch, global_step) -> (params, opt_states, loss)`` and
+        ``val(params, batch) -> loss`` over a numpy batch dict."""
+        device = model.device
+        with_dropout = not model._score_is_deterministic()
+        seed = self.seed
+
+        def to_device(batch):
+            return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
+
+        def train(params, opt_states, batch, global_step):
+            generator = None
+            if with_dropout:
+                generator = torch.Generator(device=device)
+                generator.manual_seed(step_dropout_seed(seed, global_step))
+            return train_step(model, specs, active, params, opt_states, to_device(batch),
+                              generator)
+
+        def val(params, batch):
+            with torch.no_grad():
+                return model.calculate_loss(params, to_device(batch), training=False)
+
+        return train, val
+
 
 class CollieMinimalTrainer(CollieTrainer):
-    """The reference's hand-rolled loop; in the JAX package an alias of
-    ``CollieTrainer``."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f'CollieMinimalTrainer is {_ROADMAP}; use CollieTrainer')
+    """Alias of ``CollieTrainer`` for API parity, as in the JAX package: the
+    reference's hand-rolled loop (``trainer.py:114-547``) and its Lightning
+    wrapper are one engine here."""

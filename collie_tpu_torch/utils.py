@@ -1,12 +1,16 @@
 """Host-side helpers used by the data layer and the models.
 
-A numpy / pandas copy of the helpers the serving slice needs: ratings-matrix
-construction, implicit conversion, ctor-argument capture and docstring
-merging.  The accelerator never sees any of this.
+A numpy / pandas copy of ``collie_tpu/utils.py``: ratings-matrix
+construction, DataFrame -> ``Interactions`` conversion, implicit conversion,
+user filtering, truncated-normal init, ctor-argument capture, HTML
+rendering, a wall-clock timer and docstring merging.  The accelerator never
+sees any of this.  ``pandas_df_to_hdf5`` belongs to the out-of-core tier
+(ROADMAP.md).
 """
 import datetime
 import inspect
-from typing import Any, Dict, Iterable, List, Optional, Union
+import time
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import pandas as pd
@@ -44,6 +48,48 @@ def _create_sparse_ratings_matrix_helper(users: Iterable[int],
     return coo_matrix((ratings, (users, items)), shape=(num_users, num_items))
 
 
+def create_ratings_matrix(df: pd.DataFrame,
+                          user_col: str = 'user_id',
+                          item_col: str = 'item_id',
+                          ratings_col: str = 'rating',
+                          sparse: bool = False) -> Union[np.ndarray, coo_matrix]:
+    """DataFrame -> dense pivot or sparse COO ratings matrix (reference: ``utils.py:29-86``).
+
+    IDs must start at 0; with ``sparse=False`` a dense ``num_users x num_items``
+    array is returned, otherwise a ``scipy.sparse.coo_matrix``.
+    """
+    if df[user_col].min() != 0 or df[item_col].min() != 0:
+        raise ValueError('User and item IDs must start at 0 to create the ratings matrix.')
+
+    if sparse:
+        return _create_sparse_ratings_matrix_helper(users=df[user_col].values,
+                                                    items=df[item_col].values,
+                                                    ratings=df[ratings_col].values)
+
+    num_users = df[user_col].max() + 1
+    num_items = df[item_col].max() + 1
+    mat = np.zeros((num_users, num_items), dtype=np.float64)
+    mat[df[user_col].values, df[item_col].values] = df[ratings_col].values
+    return mat
+
+
+def df_to_interactions(df: pd.DataFrame,
+                       user_col: str = 'user_id',
+                       item_col: str = 'item_id',
+                       ratings_col: Optional[str] = 'rating',
+                       **kwargs) -> 'Interactions':
+    """DataFrame -> ``Interactions`` (reference: ``utils.py:97-125``)."""
+    from collie_tpu_torch.data import Interactions
+
+    ratings = df[ratings_col].values if ratings_col is not None else None
+    return Interactions(users=df[user_col].values,
+                        items=df[item_col].values,
+                        ratings=ratings,
+                        **kwargs)
+
+
+
+
 def convert_to_implicit(df: pd.DataFrame,
                         min_rating_to_keep: float = 4,
                         user_col: str = 'user_id',
@@ -61,6 +107,32 @@ def convert_to_implicit(df: pd.DataFrame,
     df = df[df[ratings_col] >= min_rating_to_keep]
     df.loc[:, ratings_col] = 1
     return df.reset_index(drop=True)
+
+
+def remove_users_with_fewer_than_n_interactions(df: pd.DataFrame,
+                                                min_num_of_interactions: int = 3,
+                                                user_col: str = 'user_id') -> pd.DataFrame:
+    """Filter out low-activity users (reference: ``utils.py:168-193``)."""
+    counts = df[user_col].value_counts()
+    keep = counts[counts >= min_num_of_interactions].index
+    return df[df[user_col].isin(keep)].reset_index(drop=True)
+
+
+def trunc_normal(shape: Tuple[int, ...],
+                 mean: float = 0.0,
+                 std: float = 1.0,
+                 seed: Optional[int] = None,
+                 rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Approximate truncated normal used for embedding init (reference: ``utils.py:196-206``).
+
+    The reference uses the fastai trick ``normal().fmod_(2) * std + mean``; we
+    reproduce the same distribution with numpy on host so parameter init does
+    not depend on torch.
+    """
+    if rng is None:
+        rng = np.random.default_rng(seed)
+    return (np.fmod(rng.standard_normal(shape), 2) * std + mean).astype(np.float32)
+
 
 
 def get_init_arguments(exclude: Optional[Iterable[str]] = (),
@@ -86,6 +158,97 @@ def get_init_arguments(exclude: Optional[Iterable[str]] = (),
             print(f'Key {exclude_arg} not found in ``init_args`` '
                   'and will be ignored.')
     return captured
+
+
+def df_to_html(df: pd.DataFrame,
+               image_cols: Iterable[str] = (),
+               hyperlink_cols: Iterable[str] = (),
+               html_tags: Optional[Dict[str, Union[str, Iterable[str]]]] = None,
+               transpose: bool = False,
+               image_width: Optional[int] = None,
+               max_num_rows: int = 200,
+               **kwargs) -> str:
+    """Render a DataFrame to HTML with images / links / tags
+    (reference: ``utils.py:261-408``).
+
+    Reference semantics preserved exactly: image columns ignore all other
+    transformations (hyperlink / html-tag transforms skip them), hyperlink
+    anchors open in a new tab, and naming a column absent from ``df``
+    raises ``ValueError``.
+    """
+    def _wrap_cols(cols) -> list:
+        try:
+            iter(cols)
+        except TypeError:
+            cols = [cols]
+        if isinstance(cols, str):
+            cols = [cols]
+        return list(cols)
+
+    if html_tags is None:
+        html_tags = {}
+    if max_num_rows is None or len(df) <= max_num_rows:
+        df = df.copy()
+    else:
+        df = df.head(max_num_rows).copy()
+
+    image_cols = _wrap_cols(image_cols)
+    for col in image_cols:
+        if col not in df.columns:
+            raise ValueError(f'{col} not a column in df!')
+        if not image_width:
+            df[col] = df[col].map(lambda x: f'<img src="{x}">')
+        else:
+            df[col] = df[col].map(lambda x: f'<img src="{x}" width={image_width}>')
+
+    for col in _wrap_cols(hyperlink_cols):
+        if col not in df.columns:
+            raise ValueError(f'{col} not a column in df!')
+        if col in image_cols:
+            continue
+        df[col] = df[col].map(lambda x: f'<a target="_blank" href="{x}">{x}</a>')
+
+    for col, tags in html_tags.items():
+        if col not in df.columns:
+            raise ValueError(f'{col} not a column in df!')
+        if col in image_cols:
+            continue
+        if isinstance(tags, str):
+            tags = [tags]
+        opening = ''.join(f'<{t}>' for t in tags)
+        closing = ''.join(f'</{t}>' for t in reversed(tags))
+        df[col] = df[col].map(lambda x: f'{opening}{x}{closing}')
+
+    max_colwidth = pd.get_option('display.max_colwidth')
+    pd.set_option('display.max_colwidth', None)
+    try:
+        if transpose:
+            df = df.T
+        df_html = df.to_html(escape=False, **kwargs)
+    finally:
+        pd.set_option('display.max_colwidth', max_colwidth)
+    return df_html
+
+
+class Timer:
+    """Wall-clock section timer (reference: ``utils.py:411-431``)."""
+
+    def __init__(self):
+        self.start_time = time.time()
+        self.time = self.start_time
+
+    def timecheck(self, message: str = 'Finished') -> float:
+        now = time.time()
+        delta_mins = (now - self.time) / 60
+        self.time = now
+        print(f'{message} ({delta_mins:.2f} min)')
+        return round(delta_mins, 2)
+
+    def time_since_start(self, message: str = 'Total time') -> float:
+        delta_mins = (time.time() - self.start_time) / 60
+        print(f'{message}: {delta_mins:.2f} min')
+        return round(delta_mins, 2)
+
 
 
 def merge_docstrings(base_class: type, subclass_doc: Optional[str], init: Any) -> Optional[str]:

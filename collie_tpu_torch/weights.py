@@ -11,13 +11,30 @@ package's ``build_transform`` (with numpy leaves, e.g. after
 from the same state, which is how the parity tests compare them.  Whole
 models travel through the shared npz format instead (``save_model`` /
 ``load_model_path``).
+
+``read_checkpoint`` reads a training checkpoint (``checkpoint_epoch_<n>.pkl``)
+written by either package's ``CollieTrainer``, through an unpickler that
+imports nothing: it maps the few globals such a file names, given as
+strings, to stand-ins here (optax's state named tuples, numpy's array
+reconstruction, ``ml_dtypes.bfloat16``) or to the port's schedulers, and
+refuses every other global with ``pickle.UnpicklingError``.  So a
+checkpoint of the JAX package loads with neither JAX, optax nor
+``collie_tpu`` installed.  bfloat16 arrays come back as their bit pattern,
+``{BF16_BITS: uint16 array}``, which is also how the port writes them
+(``host_leaf``); ``device_leaf`` turns either back into a tensor.
 """
+import pickle
+from collections import namedtuple
 from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from collie_tpu_torch.training.optimizers import OptState
+from collie_tpu_torch.training.schedulers import ReduceLROnPlateau, StepLR
+
+#: the key of a bfloat16 leaf's bit pattern in a checkpoint
+BF16_BITS = '__bfloat16_bits__'
 
 
 def params_from_jax(params: Dict[str, np.ndarray],
@@ -73,3 +90,125 @@ def optimizer_state_from_jax(opt_state: Any,
     if rss is not None:
         state.sum_of_squares = params_from_jax(dict(rss.sum_of_squares), device)
     return state
+
+
+# ------------------------------------------------------------ checkpoints
+
+def host_leaf(value: Any) -> Any:
+    """A checkpoint leaf on the host: a tensor becomes a numpy array
+    (bfloat16 as ``{BF16_BITS: uint16 bits}``, since numpy has no bfloat16
+    without ``ml_dtypes``); anything else passes through."""
+    if not torch.is_tensor(value):
+        return value
+    value = value.detach().cpu()
+    if value.dtype == torch.bfloat16:
+        return {BF16_BITS: value.view(torch.int16).numpy().view(np.uint16).copy()}
+    return value.numpy().copy()
+
+
+def device_leaf(value: Any, device: Union[str, torch.device]) -> Any:
+    """``host_leaf``'s inverse: a numpy array or a bfloat16 bit pattern
+    becomes a tensor on ``device``."""
+    if isinstance(value, dict) and set(value) == {BF16_BITS}:
+        bits = np.ascontiguousarray(value[BF16_BITS]).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(np.array(value)).to(device)
+    return value
+
+
+# optax's state named tuples, as far as a build_transform state needs them
+EmptyState = namedtuple('EmptyState', [])
+ScaleByAdamState = namedtuple('ScaleByAdamState', ['count', 'mu', 'nu'])
+ScaleByRssState = namedtuple('ScaleByRssState', ['sum_of_squares'])
+InjectHyperparamsState = namedtuple('InjectHyperparamsState',
+                                    ['count', 'hyperparams', 'inner_state'])
+InjectStatefulHyperparamsState = namedtuple(
+    'InjectStatefulHyperparamsState',
+    ['count', 'hyperparams', 'hyperparams_states', 'inner_state'])
+
+
+class _BFloat16:
+    """Stands for ``ml_dtypes.bfloat16`` in a pickled dtype."""
+
+
+class _BFloat16Dtype:
+    """A pickled bfloat16 dtype; its pickled state carries nothing needed."""
+
+    def __setstate__(self, state):
+        pass
+
+
+def _dtype(obj, *args):
+    return _BFloat16Dtype() if obj is _BFloat16 else np.dtype(obj, *args)
+
+
+_NUMPY_RECONSTRUCT = np.zeros(1).__reduce__()[0]
+
+
+class _ArrayState:
+    """A pickled numpy array, rebuilt from its state when the unpickler
+    sets it; ``_materialize`` then puts ``value`` in its place."""
+
+    def __init__(self, *args):
+        self.value = None
+
+    def __setstate__(self, state):
+        _, shape, dtype, is_fortran, raw = state
+        if isinstance(dtype, _BFloat16Dtype):
+            bits = np.frombuffer(raw, dtype='<u2').reshape(shape, order='F' if is_fortran else 'C')
+            self.value = {BF16_BITS: np.ascontiguousarray(bits)}
+        else:
+            self.value = _NUMPY_RECONSTRUCT(np.ndarray, (0,), b'b')
+            self.value.__setstate__(state)
+
+
+_CHECKPOINT_GLOBALS = {
+    ('collie_tpu.training.schedulers', 'ReduceLROnPlateau'): ReduceLROnPlateau,
+    ('collie_tpu.training.schedulers', 'StepLR'): StepLR,
+    ('optax._src.base', 'EmptyState'): EmptyState,
+    ('optax._src.transform', 'ScaleByAdamState'): ScaleByAdamState,
+    ('optax._src.transform', 'ScaleByRssState'): ScaleByRssState,
+    ('optax.schedules._inject', 'InjectHyperparamsState'): InjectHyperparamsState,
+    ('optax.schedules._inject', 'InjectStatefulHyperparamsState'):
+        InjectStatefulHyperparamsState,
+    ('ml_dtypes', 'bfloat16'): _BFloat16,
+    ('numpy', 'dtype'): _dtype,
+    ('numpy', 'ndarray'): np.ndarray,
+    ('numpy.core.multiarray', '_reconstruct'): _ArrayState,
+    ('numpy._core.multiarray', '_reconstruct'): _ArrayState,
+}
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        try:
+            return _CHECKPOINT_GLOBALS[(module, name)]
+        except KeyError:
+            raise pickle.UnpicklingError(
+                f'a checkpoint may not name the global {module}.{name}') from None
+
+
+def _materialize(tree: Any) -> Any:
+    """Replace every ``_ArrayState`` in ``tree`` by its array."""
+    if isinstance(tree, _ArrayState):
+        return tree.value
+    if isinstance(tree, dict):
+        return {k: _materialize(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_materialize(v) for v in tree]
+    if isinstance(tree, tuple):
+        items = [_materialize(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, '_fields') else tuple(items)
+    return tree
+
+
+def read_checkpoint(path) -> Dict[str, Any]:
+    """The payload of a ``checkpoint_epoch_<n>.pkl`` written by either
+    package: ``params``, ``opt_states``, ``schedulers``, ``epoch``,
+    ``global_step`` and ``best_epoch_loss``, every array on the host.  A
+    JAX checkpoint's optimizer states come back as the optax stand-ins of
+    this module (``optimizer_state_from_jax`` turns each into an
+    ``OptState``)."""
+    with open(path, 'rb') as f:
+        return _materialize(_CheckpointUnpickler(f).load())

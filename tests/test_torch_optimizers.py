@@ -89,8 +89,11 @@ def test_set_lr_stores_float32_and_invalid_optimizer_raises():
     assert get_lr(new) == float(np.float32(0.1 / 3)) and get_lr(state) == float(np.float32(0.1))
     with pytest.raises(ValueError, match='not a valid optimizer'):
         build_transform('nonsense', lr=0.1)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_transform(lambda **kw: None, lr=0.1)
+    # a custom factory builds: its transform runs behind the float32 wrapper
+    custom = build_transform(lambda learning_rate: build_transform('sgd', learning_rate), lr=0.1)
+    updates, _ = custom.update({'w': torch.ones(3)}, custom.init({'w': torch.ones(3)}),
+                               {'w': torch.ones(3)})
+    assert torch.equal(updates['w'], torch.full((3,), -0.1))
 
 
 def test_split_bias_keys():

@@ -142,12 +142,39 @@ def test_explicit_evaluation_is_exported():
     assert collie_tpu_torch.explicit_evaluate_in_batches is evaluate.explicit_evaluate_in_batches
 
 
+TRAINER_SLICE = ['ops/device_sampling.py', 'training/scan_engine.py', 'training/trainer.py',
+                 'training/optimizers.py', 'data/loaders.py', 'data/prefetch.py', 'weights.py',
+                 'utils.py']
+TRAINER_NAMES = ['ApproximateNegativeSamplingInteractionsDataLoader', 'PrefetchLoader',
+                 'CollieMinimalTrainer', 'read_checkpoint']
+
+
+@pytest.mark.parametrize('module', TRAINER_SLICE)
+def test_trainer_slice_modules_are_checked(module):
+    """The trainer slice's modules are among the files the import rule
+    covers and among the modules imported with JAX blocked."""
+    assert PACKAGE / module in PROGRAM_FILES
+    name = 'collie_tpu_torch.' + module[:-3].replace('/', '.')
+    assert name in _package_modules()
+
+
+@pytest.mark.parametrize('name', TRAINER_NAMES)
+def test_trainer_slice_names_are_exported(name):
+    import collie_tpu_torch
+
+    assert name in collie_tpu_torch.__all__ and hasattr(collie_tpu_torch, name)
+
+
+def _package_modules():
+    return ['.'.join(p.relative_to(ROOT).with_suffix('').parts).replace('.__init__', '')
+            for p in PACKAGE.rglob('*.py')]
+
+
 def test_every_module_imports_with_jax_and_collie_tpu_blocked():
-    modules = ['.'.join(p.relative_to(ROOT).with_suffix('').parts).replace('.__init__', '')
-               for p in PACKAGE.rglob('*.py')]
+    modules = _package_modules()
     script = (
         'import sys, importlib\n'
-        "for name in ('jax', 'jaxlib', 'optax', 'collie_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'optax', 'ml_dtypes', 'collie_tpu'):\n"
         '    sys.modules[name] = None\n'
         f'for name in {sorted(modules) + ["chip_smoke"]!r}:\n'
         '    importlib.import_module(name)\n'

@@ -254,20 +254,34 @@ def test_nan_params_trip_a_real_fit(data_pair):
     assert model.hparams['num_epochs_completed'] == 0
 
 
-def test_unported_paths_raise_not_implemented(data_pair):
+def test_unported_paths_raise_not_implemented(data_pair, tmp_path):
+    """Mesh training and the HDF5 tier still raise with the ROADMAP
+    pointer; the paths the trainer slice ported (checkpoints, resume, the
+    per-step path, ``CollieMinimalTrainer``) and embedding dropout run."""
+    from collie_tpu_torch import HDF5Interactions, HDF5InteractionsDataLoader
+
     _, (train, _) = data_pair
-    for kwargs in ({'mesh': object()}, {'checkpoint_dir': 'ckpt'}, {'epoch_mode': 'step'}):
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        CollieTrainer(max_epochs=1, mesh=object())
+    for cls in (HDF5Interactions, HDF5InteractionsDataLoader):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
-            CollieTrainer(max_epochs=1, **kwargs)
+            cls('interactions.h5')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        CollieTrainer(max_epochs=1).resume_from_checkpoint('x')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        CollieMinimalTrainer(max_epochs=1)
-    # embedding dropout is ported: a fit with it runs
+        CollieTrainer(max_epochs=1).resume_from_checkpoint(tmp_path)
     model = MatrixFactorizationModel(train=train, embedding_dim=8, seed=0, map_location='cpu',
                                      dropout_p=0.5)
     CollieTrainer(model, max_epochs=1, verbosity=0).fit(model)
     assert model.hparams['num_epochs_completed'] == 1
+    trainer = CollieMinimalTrainer(model, max_epochs=2, verbosity=0, epoch_mode='step',
+                                   checkpoint_dir=str(tmp_path))
+    trainer.fit(model)
+    assert isinstance(trainer, CollieTrainer)
+    assert trainer.global_step == len(model.train_loader)
+    assert (tmp_path / 'checkpoint_epoch_2.pkl').is_file()
+    resumed = CollieTrainer(model, max_epochs=3, verbosity=0)
+    assert resumed.resume_from_checkpoint(tmp_path / 'checkpoint_epoch_2.pkl') == 2
+    resumed.fit(model)
+    assert model.hparams['num_epochs_completed'] == 3
 
 
 def _slot_engaging_loader(drop_last):
