@@ -110,9 +110,33 @@ non-zero before the result line:
    losses within ``STEP_RTOL``; no kernel launches); (f) a momentum-SGD
    optimizer factory at the gate configuration for 2 epochs (the generic
    epoch; the train loss falls).  Over the phase ``fused_mf_epoch`` must
-   launch 3 + 3 + 5 + 2 times, ``fused_mf_explicit_epoch`` 15, the others 0;
-9. the kernels line (one JSON object), the card's name and power limit, and
-   as the last line ``{"ok": true, "device": {...}}``.
+   launch 3 + 3 + 5 + 2 times, ``fused_mf_explicit_epoch`` 15, the others 0
+   but the cycle-walk (every scan-mode epoch shuffles through it);
+9. whole_fit (``phase_whole_fit``; every fit above already took the whole
+   fit, ``CollieTrainer``'s default, unless it checkpoints or steps): (a)
+   the Feistel cycle-walk kernel (``csrc/shuffle.cu``) against its plain
+   version bit for bit at ``SHUFFLE_SIZES`` under ``SHUFFLE_KEY_SETS``,
+   timed with its plain version at the two ML-10M sizes; (b) each epoch
+   kernel launched with ``live = 0``: tables, biases, moments and count
+   bit-identical, NaN losses; (c) the gate configuration (10 epochs, the
+   default plateau scheduler) and the ML-10M-scale configuration (3
+   epochs) fit with ``torch.cuda.set_sync_debug_mode('error')`` around
+   every flight (``trainer.flight_guard``), so any host sync inside a
+   flight raises; (d) whole fit against the per-epoch loop
+   (``COLLIE_TPU_WHOLE_FIT=0``) from the same initial params and seed: the
+   implicit gate configuration (at ``WHOLE_FIT_PAIR_LR``) and the explicit
+   one, the implicit one under a plateau that cuts every epoch after the
+   first, and one that early-stops inside a flight
+   (``early_stopping_patience=1``, a val loader, frozen learning rates):
+   ``ran`` mask, learning-rate trajectory, best epoch and epochs completed
+   equal, per-epoch train losses within ``WHOLE_FIT_LOSS_RTOL``; (e)
+   whole-fit and per-epoch examples/s of the gate, explicit gate and ML-10M
+   fits, the ML-10M epoch split with the shuffle kernel, and the explicit
+   whole fit's test MSE against ``benchmarks/gates.json`` (phase 5(a) holds
+   the implicit gate whole fit, at lr 0.1, to its gates).  ``fused_mf_epoch`` and
+   ``fused_mf_explicit_epoch`` must launch in the whole fits;
+10. the kernels line (one JSON object, five kernels), the card's name and
+   power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
 kernel at the gate and ML-10M-scale configurations; ``--kernel-times`` runs
@@ -123,6 +147,7 @@ for comparing two checkouts on one card: a copy of this script in the other
 checkout times that checkout.
 """
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -272,6 +297,22 @@ GS_OVERSIZE = dict(U=72_000, D=32, B=8192, n_bins=4, c_pad=2560, iters=50)
 TOPK_EDGES = [(B, D, k, 611) for (D, k), B in zip(
     [(D, k) for D in (1, 3, 12, 64, 65, 256) for k in (1, 10, 128)], (1, 37, 256, 300) * 5)]
 TOPK_EDGES += [(37, 12, 10, 100), (5, 64, 100, 100), (300, 65, 128, 128)]
+# the whole_fit phase: the cycle-walk kernel is held bit for bit against its
+# plain version at these sizes (2 and 3: the smallest Feistel domain; 1,024
+# and 1,025: a power of two and one past it; the ML-10M implicit and explicit
+# train sets) under each key set (the smallest and largest keys drawn, and
+# a mixed set); whole fits against the per-epoch loop: per-epoch train
+# losses within WHOLE_FIT_LOSS_RTOL (the epoch kernels' atomics sum in a
+# run-dependent order, so two fits from one state part at rounding level;
+# stated before the first run on the card), everything else equal.  The
+# implicit gate fits compared run at WHOLE_FIT_PAIR_LR: at the gate's lr 0.1
+# two fits whose updates differ at rounding level part by up to 8% within 10
+# epochs (hardest-negative choices flip; seen on the CPU, where the order of
+# threads plays the atomics' part), at 0.03 by 2e-5
+SHUFFLE_SIZES = (2, 3, 1024, 1025, 4_972_266, 8_932_941)
+SHUFFLE_KEY_SETS = ((0, 0, 0, 0), (2 ** 31 - 2,) * 4, (12_345, 2 ** 30 + 7, 99, 2 ** 31 - 3))
+WHOLE_FIT_LOSS_RTOL = 1e-3
+WHOLE_FIT_PAIR_LR = 0.03
 IMPLICIT_STATE = ['user_emb', 'item_emb', 'item_bias', 'mu_u', 'nu_u', 'mu_i', 'nu_i']
 EXPLICIT_STATE = ['user_emb', 'item_emb', 'user_bias', 'item_bias', 'mu_u', 'nu_u', 'mu_i',
                   'nu_i']
@@ -307,8 +348,10 @@ def kernel_wrappers():
                                                              fused_mf_explicit_epoch)
     from collie_tpu_torch.ops.kernels.gather_scatter import binned_gather_scatter
     from collie_tpu_torch.ops.kernels.retrieval_kernel import mf_topk_retrieve
+    from collie_tpu_torch.ops.shuffle import feistel_permutation_from_keys
 
-    return mf_topk_retrieve, fused_mf_epoch, fused_mf_explicit_epoch, binned_gather_scatter
+    return (mf_topk_retrieve, fused_mf_epoch, fused_mf_explicit_epoch, binned_gather_scatter,
+            feistel_permutation_from_keys)
 
 
 def reset_launch_counts():
@@ -1427,6 +1470,7 @@ def phase_training(ml10m, record: dict):
     if not map_k > untrained_map:
         raise AssertionError(f'trained MAP@{K} {map_k} does not beat untrained {untrained_map}')
     record['launches'] = launches
+    record['shuffle_launches'] = _kernel_counts()[SHUFFLE_WRAPPER]
     return {'mapk': map_k, 'untrained_mapk': untrained_map}
 
 
@@ -1516,6 +1560,7 @@ def phase_explicit_training(ml10m_explicit, record: dict):
     if not mse < untrained_mse:
         raise AssertionError(f'trained MSE {mse} is not below untrained {untrained_mse}')
     record['launches'] = launches
+    record['shuffle_launches'] = _kernel_counts()[SHUFFLE_WRAPPER]
 
 
 class _LossLog:
@@ -1630,11 +1675,12 @@ def phase_zoo(smi: str, zoo: dict) -> dict:
             profile_epoch_call(f'zoo {name}, one more epoch of the fit', lambda: trainer.fit(model))
         del model, trainer
         torch.cuda.empty_cache()
-    launches = {w.__name__: w.launches for w in kernel_wrappers()}
+    launches = _kernel_counts()
     log(f'zoo phase: kernel launches {launches} (the zoo and MF with dropout train through '
-        f'the generic epoch and serve through the dense and blockwise paths)')
-    if any(launches.values()):
-        raise AssertionError(f'a kernel launched on the zoo path: {launches}')
+        f'the generic epoch, shuffled by the cycle-walk kernel, and serve through the dense '
+        f'and blockwise paths)')
+    if launches.pop(SHUFFLE_WRAPPER) < 1 or any(launches.values()):
+        raise AssertionError(f'zoo path: kernel launches {_kernel_counts()}')
     return results
 
 
@@ -1862,7 +1908,8 @@ def phase_multi_stage(smi: str, zoo: dict) -> dict:
         f'{time.perf_counter() - start:.1f}s')
     expected = {w.__name__: 0 for w in kernel_wrappers()}
     expected['fused_mf_epoch'] = MULTI_STAGE_DONOR_EPOCHS
-    if launches != expected:
+    expected[SHUFFLE_WRAPPER] = launches[SHUFFLE_WRAPPER]
+    if launches != expected or not launches[SHUFFLE_WRAPPER]:
         raise AssertionError(f'multi_stage kernel launches {launches}, expected {expected}')
     return results
 
@@ -1894,6 +1941,10 @@ class _MomentumSGD:
     def update(self, grads, state, params):
         trace = {k: grads[k] + self.momentum * state[k] for k in grads}
         return {k: -self.learning_rate * t for k, t in trace.items()}, trace
+
+
+#: the cycle-walk's wrapper in ``_kernel_counts``
+SHUFFLE_WRAPPER = 'feistel_permutation_from_keys'
 
 
 def _kernel_counts() -> dict:
@@ -2296,14 +2347,294 @@ def phase_trainer(ml10m, smi: str, ml10m_fit: dict) -> dict:
     launches = _kernel_counts()
     expected = {'mf_topk_retrieve': 0,
                 'fused_mf_epoch': 2 * ML10M_EPOCHS + 2 * RESUME_EPOCHS - RESUME_FROM,
-                'fused_mf_explicit_epoch': 15, 'binned_gather_scatter': 0}
+                'fused_mf_explicit_epoch': 15, 'binned_gather_scatter': 0,
+                SHUFFLE_WRAPPER: launches[SHUFFLE_WRAPPER]}
     log(f'trainer phase: kernel launches {launches} (expected {expected}); '
         f'{time.perf_counter() - start:.1f}s')
-    if launches != expected:
+    if launches != expected or not launches[SHUFFLE_WRAPPER]:
         raise AssertionError(f'trainer phase launches {launches}, expected {expected}')
     torch.cuda.empty_cache()
     return {'samplers': samplers, 'map_csr': map_csr, 'map_approx': map_approx,
             'resume_max_abs_err': resume_err, 'launches': launches}
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Every host sync raises (``torch.cuda.set_sync_debug_mode('error')``)."""
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+
+
+def check_cycle_walk(n: int, keys) -> None:
+    """The cycle-walk kernel at ``n`` under ``keys`` against its plain
+    version, bit for bit."""
+    from collie_tpu_torch.ops.shuffle import feistel_permutation_cuda, feistel_permutation_plain
+
+    keys = torch.tensor(keys, dtype=torch.int64, device=DEVICE)
+    got = feistel_permutation_cuda(keys, n)
+    ref = feistel_permutation_plain(keys, n)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or not torch.equal(got, ref):
+        bad = int((got.long() != ref.long()).sum())
+        raise AssertionError(f'cycle-walk n={n} keys={keys.tolist()}: {bad} values differ')
+
+
+def check_skipped_launch(explicit: bool) -> None:
+    """One epoch kernel launched with ``live = 0`` at an edge shape:
+    tables, biases, moments and count bit-identical, every loss NaN."""
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_epoch,
+                                                             fused_mf_explicit_epoch)
+
+    live = torch.zeros((), dtype=torch.bool, device=DEVICE)
+    if explicit:
+        args = explicit_epoch_inputs(5, dup=True, tail=True)
+        out = fused_mf_explicit_epoch(*[a.clone() if torch.is_tensor(a) else a for a in args],
+                                      loss_kind='mse', y_range=Y_RANGE, wd_emb=1e-3,
+                                      wd_bias=1e-3, live=live)
+        n_state = len(EXPLICIT_STATE) + 1
+    else:
+        args, meta = epoch_inputs(5, K=4, F=1, dup=True)
+        out = fused_mf_epoch(*[a.clone() if torch.is_tensor(a) else a for a in args], meta,
+                             K=4, adaptive=True, meta_weights=(0.5,), wd_emb=1e-3,
+                             wd_bias=1e-3, live=live)
+        n_state = len(IMPLICIT_STATE) + 1
+    torch.cuda.synchronize()
+    for got, ref in zip(out[:n_state], args[:n_state]):
+        if not torch.equal(got, torch.as_tensor(ref, device=DEVICE).to(got.dtype)):
+            raise AssertionError(f'a skipped {"explicit" if explicit else "implicit"} launch '
+                                 f'changed its state')
+    if not bool(torch.isnan(out[-1]).all()):
+        raise AssertionError('a skipped launch reported a non-NaN loss')
+
+
+def record_fit(build, whole: bool, label: str, smi: str, guard=None, **trainer_kw) -> dict:
+    """Fit ``build()``'s model through ``CollieTrainer`` as the whole fit or
+    the per-epoch loop (``COLLIE_TPU_WHOLE_FIT``); returns the per-epoch
+    train losses, the learning-rate changes in epoch then optimizer order,
+    the ``ran`` mask (the per-epoch loop: one True an epoch it ran), best
+    epoch, epochs completed, examples/s and the epoch log.  ``guard``
+    replaces ``trainer.flight_guard`` for the fit."""
+    from collie_tpu_torch import CollieTrainer
+    from collie_tpu_torch.training import trainer as trainer_module
+    from collie_tpu_torch.training.optimizers import get_lr
+
+    model = build()
+    blocks, changes = [], []
+    saved = (trainer_module.build_scan_fit_fn, trainer_module.set_lr,
+             trainer_module.flight_guard)
+
+    def recording_build(*args, **kwargs):
+        fn = saved[0](*args, **kwargs)
+
+        def fit_fn(*a, **k):
+            out = fn(*a, **k)
+            blocks.append((out[6], out[7]))           # tensors, read after the fit
+            return out
+        return fit_fn
+
+    def recording_set_lr(state, lr):
+        if float(np.float32(lr)) != get_lr(state):     # a cut of 0 is no change
+            changes.append(float(np.float32(lr)))
+        return saved[1](state, lr)
+
+    os.environ['COLLIE_TPU_WHOLE_FIT'] = '1' if whole else '0'
+    trainer_module.build_scan_fit_fn, trainer_module.set_lr = recording_build, recording_set_lr
+    if guard is not None:
+        trainer_module.flight_guard = guard
+    losses = _LossLog()
+    try:
+        specs = model.optimizer_specs()
+        initial = [get_lr(s.transform.init({k: model.params[k] for k in s.keys}))
+                   for s in specs]
+        trainer = CollieTrainer(model, max_epochs=trainer_kw.pop('epochs'), verbosity=0,
+                                logger=losses, enable_model_summary=False, **trainer_kw)
+        trainer.fit(model)
+        torch.cuda.synchronize()
+    finally:
+        (trainer_module.build_scan_fit_fn, trainer_module.set_lr,
+         trainer_module.flight_guard) = saved
+        del os.environ['COLLIE_TPU_WHOLE_FIT']
+    if whole:
+        if not blocks or changes:
+            raise AssertionError(f'{label}: the whole fit did not run as one')
+        ran = torch.cat([r for _, r in blocks]).tolist()
+        lrs = [torch.cat([b[0][i] for b in blocks]).tolist() for i in range(len(specs))]
+        for j in range(len(ran)):
+            for i, trace in enumerate(lrs):
+                before = initial[i] if j == 0 else trace[j - 1]
+                if ran[j] and trace[j] == trace[j] and trace[j] != before:
+                    changes.append(trace[j])
+    else:
+        if blocks:
+            raise AssertionError(f'{label}: the per-epoch loop dispatched a whole-fit block')
+        ran = [True] * trainer.num_epochs_completed
+    return {'model': model, 'trainer': trainer, 'losses': list(losses.losses),
+            'changes': changes, 'ran': ran, 'best_epoch': trainer.best_epoch_loss[0],
+            'epochs': trainer.num_epochs_completed,
+            'examples_per_s': trainer.last_fit_examples_per_sec,
+            'epoch_log': list(trainer.epoch_log)}
+
+
+def compare_fits(label: str, whole: dict, per_epoch: dict, smi: str) -> None:
+    """(d): the whole fit against the per-epoch loop."""
+    n = per_epoch['epochs']
+    expected_ran = [True] * n + [False] * (len(whole['ran']) - n)
+    equal = {'epochs': whole['epochs'] == n, 'ran': whole['ran'] == expected_ran,
+             'lr trajectory': whole['changes'] == per_epoch['changes'],
+             'best epoch': whole['best_epoch'] == per_epoch['best_epoch']}
+    a, b = np.asarray(whole['losses']), np.asarray(per_epoch['losses'])
+    parted = float(np.max(np.abs(a - b) / np.abs(b))) if len(a) == len(b) and len(b) else None
+    log(f'whole_fit (d) {label}: {n} epochs, ran {whole["ran"]}, lr changes '
+        f'{whole["changes"]} (per-epoch loop {per_epoch["changes"]}), best epoch '
+        f'{whole["best_epoch"]}; train losses within {parted} of the per-epoch loop\'s '
+        f'(rtol {WHOLE_FIT_LOSS_RTOL}); examples/s whole fit '
+        f'{whole["examples_per_s"]:,.0f}, per-epoch loop {per_epoch["examples_per_s"]:,.0f} '
+        f'({smi})')
+    if not all(equal.values()) or parted is None or parted > WHOLE_FIT_LOSS_RTOL:
+        raise AssertionError(f'whole fit vs per-epoch loop, {label}: {equal}, losses parted '
+                             f'{parted}: {whole["losses"]} vs {per_epoch["losses"]}')
+
+
+def phase_whole_fit(ml10m: dict, smi: str) -> dict:
+    """(a)-(e) of phase 9 (module docstring); returns the cycle-walk's
+    record of the kernels line, its launches those of the fits here."""
+    from collie_tpu_torch import (InteractionsDataLoader, MatrixFactorizationModel,
+                                  ReduceLROnPlateau, explicit_evaluate_in_batches)
+    from collie_tpu_torch.ops.shuffle import feistel_permutation_cuda, feistel_permutation_plain
+
+    start = time.perf_counter()
+    # (a) the cycle-walk kernel against its plain version
+    for n in SHUFFLE_SIZES:
+        for keys in SHUFFLE_KEY_SETS:
+            check_cycle_walk(n, keys)
+    times = {}
+    keys = torch.tensor(SHUFFLE_KEY_SETS[2], dtype=torch.int64, device=DEVICE)
+    for n in SHUFFLE_SIZES[-2:]:
+        kernel_ms = cuda_median_ms(lambda: feistel_permutation_cuda(keys, n), warmup=2, runs=15)
+        plain_ms = cuda_median_ms(lambda: feistel_permutation_plain(keys, n), warmup=1, runs=5)
+        times[n] = {'ms': kernel_ms, 'plain_ms': plain_ms,
+                    'bound_ms': 4.0 * n / PEAK_BYTES_PER_S * 1e3}
+        log(f'whole_fit (a) feistel_cycle_walk n={n}: kernel_ms={kernel_ms:.4f} '
+            f'plain_ms={plain_ms:.4f} bound_ms={times[n]["bound_ms"]:.4f} (bytes: 4n written); '
+            f'library_ms=null: no single PyTorch call computes this keyed bijection ({smi})')
+    log(f'whole_fit (a) the cycle-walk kernel equals its plain version bit for bit at n in '
+        f'{SHUFFLE_SIZES} under {len(SHUFFLE_KEY_SETS)} key sets')
+    # (b) live = 0
+    check_skipped_launch(explicit=False)
+    check_skipped_launch(explicit=True)
+    log('whole_fit (b) fused_mf_epoch and fused_mf_explicit_epoch launched with live = 0: '
+        'tables, biases, moments and count bit-identical, losses NaN')
+
+    # (c) no host sync inside a flight; then (e)'s ML-10M pair
+    reset_launch_counts()
+    train, _, _ = ml10m
+    gate_whole = record_fit(lambda: gate_model()[0], True, 'gate', smi, guard=sync_errors,
+                            epochs=GATE_EPOCHS, seed=42)
+    ml_whole = record_fit(lambda: ml10m_model(train), True, 'ML-10M', smi, guard=sync_errors,
+                          epochs=ML10M_EPOCHS, seed=7)
+    launches = _kernel_counts()
+    if launches['fused_mf_epoch'] != GATE_EPOCHS + ML10M_EPOCHS:
+        raise AssertionError(f'whole fits under sync errors: launches {launches}')
+    log(f'whole_fit (c) the gate fit ({GATE_EPOCHS} epochs) and the ML-10M fit '
+        f'({ML10M_EPOCHS}) ran with set_sync_debug_mode("error") around every flight: no '
+        f'host sync inside a flight; kernel launches {launches}')
+    log(f'  (c) examples/s: gate {gate_whole["examples_per_s"]:,.0f}, ML-10M '
+        f'{ml_whole["examples_per_s"]:,.0f} ({smi})')
+    del gate_whole, ml_whole
+    torch.cuda.empty_cache()
+
+    # (e) examples/s of each tier, in the order per-epoch, whole, whole,
+    # per-epoch, so that neither tier alone pays for a cold first fit
+    rates = {}
+    for label, build, kw, epochs in (
+            ('gate config', lambda: gate_model()[0], dict(seed=42), GATE_EPOCHS),
+            ('explicit gate config', lambda: explicit_gate_model()[0], dict(seed=0),
+             GATE_EPOCHS),
+            ('ML-10M-scale', lambda: ml10m_model(train), dict(seed=7), ML10M_EPOCHS)):
+        rates[label] = {'whole fit': [], 'per-epoch loop': []}
+        for whole in (False, True, True, False):
+            fit = record_fit(build, whole, label, smi, epochs=epochs, **kw)
+            name = 'whole fit' if whole else 'per-epoch loop'
+            rates[label][name].append(fit['examples_per_s'])
+            if label == 'ML-10M-scale':
+                log(f'whole_fit (e) ML-10M-scale {name}: {fit["examples_per_s"]:,.0f} '
+                    f'examples/s; per epoch ms (seconds, shuffle, sampler, kernel): '
+                    + str([(round(e['seconds'] * 1e3, 3),) + tuple(round(e[k], 3)
+                                                                   for k in SPLIT)
+                           for e in fit['epoch_log']]))
+            del fit
+        log(f'whole_fit (e) {label}, examples/s (per-epoch, whole, whole, per-epoch): '
+            f'whole fit {[round(r) for r in rates[label]["whole fit"]]}, per-epoch loop '
+            f'{[round(r) for r in rates[label]["per-epoch loop"]]} ({smi})')
+    torch.cuda.empty_cache()
+
+    # (d) whole fit against the per-epoch loop; (e) the gate pairs
+    def val_gate_model():
+        model, train_g, test_g = gate_model()
+        return MatrixFactorizationModel(
+            train=model.train_loader,
+            val=InteractionsDataLoader(interactions=test_g, batch_size=1024, seed=42),
+            embedding_dim=10, lr=0.0, bias_lr=0.0, loss='adaptive', seed=42)
+
+    def pair_gate_model(**kwargs):
+        model, _, _ = gate_model()
+        return MatrixFactorizationModel(train=model.train_loader, embedding_dim=10,
+                                        lr=WHOLE_FIT_PAIR_LR, loss='adaptive', seed=42, **kwargs)
+
+    def plateau_gate_model():
+        return pair_gate_model(
+            lr_scheduler_func=ReduceLROnPlateau(factor=0.5, patience=0, threshold=0.5))
+
+    cases = [('implicit gate config', pair_gate_model, dict(seed=42)),
+             ('explicit gate config', lambda: explicit_gate_model()[0], dict(seed=0)),
+             ('gate config, a plateau cut every epoch', plateau_gate_model, dict(seed=42)),
+             ('gate config, early stop in a flight', val_gate_model,
+              dict(seed=42, early_stopping_patience=1))]
+    before = _kernel_counts()
+    pairs = {}
+    for label, build, kw in cases:
+        whole = record_fit(build, True, label, smi, epochs=GATE_EPOCHS, **kw)
+        per_epoch = record_fit(build, False, label, smi, epochs=GATE_EPOCHS, **kw)
+        compare_fits(label, whole, per_epoch, smi)
+        pairs[label] = (whole, per_epoch)
+    stop = pairs['gate config, early stop in a flight'][0]['epochs']
+    if not stop < GATE_EPOCHS:
+        raise AssertionError(f'the early-stopping fit ran all {stop} epochs')
+    if not any(pairs['gate config, a plateau cut every epoch'][0]['changes']):
+        raise AssertionError('no plateau cut in the plateau fit')
+    delta = _count_delta(before)
+    if not (delta['fused_mf_epoch'] and delta['fused_mf_explicit_epoch']):
+        raise AssertionError(f'(d): the whole fits did not launch both epoch kernels: {delta}')
+    with open(os.path.join('benchmarks', 'gates.json')) as f:
+        gates = {name: spec['gate'] for name, spec in json.load(f).items()}
+    # the implicit gate metrics are phase 5(a)'s, whose fit at lr 0.1 is a whole fit
+    _, _, explicit_test = explicit_gate_model()
+    mse = explicit_evaluate_in_batches(['mse'], explicit_test,
+                                       pairs['explicit gate config'][0]['model'], verbose=False)
+    log(f'whole_fit (e) the explicit gate whole fit: test MSE={mse:.5f} (gate: MSE < '
+        f'{gates["mse"]:.5f}); early stop at epoch {stop}; kernel launches in (d) {delta}; '
+        f'{time.perf_counter() - start:.1f}s')
+    if not mse < gates['mse']:
+        raise AssertionError(f'explicit gate whole fit: test MSE {mse} misses {gates["mse"]}')
+    big = times[SHUFFLE_SIZES[-1]]
+    return {
+        'name': 'feistel_cycle_walk',
+        'route': 'cuda',
+        'source': 'collie_tpu_torch/csrc/shuffle.cu',
+        'replaces': 'collie_tpu/ops/shuffle.py:65',
+        'launches': launches[SHUFFLE_WRAPPER] + delta[SHUFFLE_WRAPPER],
+        'max_abs_err': 0.0,
+        'ms': big['ms'],
+        'plain_ms': big['plain_ms'],
+        'bound_ms': big['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
+        'times_by_n': {str(n): t for n, t in times.items()},
+        'checked': True,
+    }
 
 
 def serving_data(seed: int):
@@ -2485,9 +2816,11 @@ def main(argv=None):
     phase_zoo(smi, zoo)
     multi_stage = phase_multi_stage(smi, zoo)
     fused['max_abs_err'] = max(fused['max_abs_err'], multi_stage['donor']['max_abs_err'])
+    shuffle = phase_whole_fit(ml10m['implicit'], smi)
+    shuffle['launches'] += fused['shuffle_launches'] + explicit['shuffle_launches']
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
-    print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter]}))
+    print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter, shuffle]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

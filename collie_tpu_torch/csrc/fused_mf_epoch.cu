@@ -81,6 +81,13 @@
 // success.  They update the tables, biases and moments in place, launch on
 // the given stream, do not synchronise and allocate nothing: the
 // accumulators, the losses and the barrier word come zeroed from the caller.
+// Two words come from device memory, so that a whole fit decides them on the
+// card without a host sync: lr[2] (the embeddings' and the biases' learning
+// rates, read once per launch) and *live.  When *live is 0 the launch is a
+// skipped epoch (the JAX whole fit's lax.cond skip branch): every block
+// returns before touching a table, a moment or an accumulator, and the
+// losses are NaN.  collie_fused_mf_epoch_abi() names this interface's
+// version; the wrapper refuses a library that answers another.
 
 #include <cuda_runtime.h>
 
@@ -93,6 +100,8 @@ namespace {
 constexpr int kWarpsPerBlock = 16;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kMaxDim = 256;
+// the C interface's version (2: lr and live in device memory)
+constexpr int kAbi = 2;
 
 // loss_kind: 0 hinge, 1 bpr (collie's modified BPR), 2 warp
 constexpr int kHinge = 0;
@@ -253,7 +262,7 @@ struct Update {
   float *item_bias, *dbi;
   long long n_user, n_item, n_ubias, n_ibias;  // elements
   int vec_user, vec_item;                // the table's four arrays are float4-aligned
-  float lr_emb, lr_bias, wd_emb, wd_bias;
+  float wd_emb, wd_bias;
 };
 
 // optax adam on one element, with torch-coupled decay
@@ -342,19 +351,20 @@ __device__ __forceinline__ void adam_range(float* __restrict__ emb, float* __res
 
 // Step s's update: Adam on both tables, sgd on the biases (the implicit
 // epoch passes n_ubias = 0: its user biases get no data gradient).
-__device__ void update_phase(const Update& u, float bc1, float bc2) {
-  adam_range(u.user_emb, u.mu_u, u.nu_u, u.du, u.n_user, u.vec_user, bc1, bc2, u.lr_emb,
+__device__ void update_phase(const Update& u, float bc1, float bc2, float lr_emb,
+                             float lr_bias) {
+  adam_range(u.user_emb, u.mu_u, u.nu_u, u.du, u.n_user, u.vec_user, bc1, bc2, lr_emb,
              u.wd_emb);
-  adam_range(u.item_emb, u.mu_i, u.nu_i, u.di, u.n_item, u.vec_item, bc1, bc2, u.lr_emb,
+  adam_range(u.item_emb, u.mu_i, u.nu_i, u.di, u.n_item, u.vec_item, bc1, bc2, lr_emb,
              u.wd_emb);
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   const size_t n_biases = static_cast<size_t>(u.n_ubias + u.n_ibias);
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n_biases;
        i += stride) {
     if (i < static_cast<size_t>(u.n_ubias))
-      sgd_elem(u.user_bias, u.dbu, i, u.lr_bias, u.wd_bias);
+      sgd_elem(u.user_bias, u.dbu, i, lr_bias, u.wd_bias);
     else
-      sgd_elem(u.item_bias, u.dbi, i - u.n_ubias, u.lr_bias, u.wd_bias);
+      sgd_elem(u.item_bias, u.dbi, i - u.n_ubias, lr_bias, u.wd_bias);
   }
 }
 
@@ -366,6 +376,15 @@ __device__ __forceinline__ void stamp(unsigned long long* timeline, int k) {
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     timeline[k] = t;
   }
+}
+
+// a skipped epoch (*live == 0): NaN for every step's loss, nothing else
+// written.  Every block takes the same branch, so no block waits at a barrier.
+__device__ __forceinline__ bool skipped(const int* live, float* losses, int S) {
+  if (__ldg(live) != 0) return false;
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < S; s += gridDim.x * blockDim.x)
+    losses[s] = __int_as_float(0x7fc00000);
+  return true;
 }
 
 // after the barrier that follows all of step s's loss atomics
@@ -385,6 +404,8 @@ struct ImplicitEpoch {
   float* losses;                      // [S]
   unsigned int* barrier;
   unsigned long long* timeline;       // [2 S + 1] or null
+  const float* lr;                    // [2]: embeddings, biases
+  const int* live;                    // 0: a skipped epoch
   int F, U, I, D, S, B, K, loss_kind, adaptive;
 };
 
@@ -539,13 +560,15 @@ __device__ void implicit_step(const ImplicitEpoch& e, int s,
 template <class L>
 __global__ void __launch_bounds__(kThreads) mf_epoch_kernel(const ImplicitEpoch e) {
   __shared__ float block_loss[kWarpsPerBlock];
+  if (skipped(e.live, e.losses, e.S)) return;
+  const float lr_emb = __ldg(e.lr), lr_bias = __ldg(e.lr + 1);
   stamp(e.timeline, 0);
   for (int s = 0; s < e.S; ++s) {
     implicit_step<L>(e, s, block_loss);
     collie::grid_sync(e.barrier);
     stamp(e.timeline, 2 * s + 1);
     finish_loss(e.losses, e.denoms, s);
-    update_phase(e.up, __ldg(e.bc1s + s), __ldg(e.bc2s + s));
+    update_phase(e.up, __ldg(e.bc1s + s), __ldg(e.bc2s + s), lr_emb, lr_bias);
     collie::grid_sync(e.barrier);
     stamp(e.timeline, 2 * s + 2);
   }
@@ -561,6 +584,8 @@ struct ExplicitEpoch {
   float* losses;                      // [S]
   unsigned int* barrier;
   unsigned long long* timeline;       // [2 S + 1] or null
+  const float* lr;                    // [2]: embeddings, biases
+  const int* live;                    // 0: a skipped epoch
   int U, I, D, S, B, loss_kind, y_range;
   float y_lo, y_span;
 };
@@ -625,13 +650,15 @@ __device__ void explicit_step(const ExplicitEpoch& e, int s,
 template <class L>
 __global__ void __launch_bounds__(kThreads) mf_explicit_epoch_kernel(const ExplicitEpoch e) {
   __shared__ float block_loss[kWarpsPerBlock];
+  if (skipped(e.live, e.losses, e.S)) return;
+  const float lr_emb = __ldg(e.lr), lr_bias = __ldg(e.lr + 1);
   stamp(e.timeline, 0);
   for (int s = 0; s < e.S; ++s) {
     explicit_step<L>(e, s, block_loss);
     collie::grid_sync(e.barrier);
     stamp(e.timeline, 2 * s + 1);
     finish_loss(e.losses, e.denoms, s);
-    update_phase(e.up, __ldg(e.bc1s + s), __ldg(e.bc2s + s));
+    update_phase(e.up, __ldg(e.bc1s + s), __ldg(e.bc2s + s), lr_emb, lr_bias);
     collie::grid_sync(e.barrier);
     stamp(e.timeline, 2 * s + 2);
   }
@@ -687,6 +714,8 @@ cudaError_t launch_epoch(void (*kernel)(Params), Params& params, int B, const Up
 
 extern "C" int collie_fused_mf_epoch_max_dim() { return kMaxDim; }
 
+extern "C" int collie_fused_mf_epoch_abi() { return kAbi; }
+
 extern "C" int collie_fused_mf_epoch(
     float* user_emb, float* item_emb, float* item_bias,      // state, updated in place
     float* mu_u, float* nu_u, float* mu_i, float* nu_i,
@@ -698,15 +727,16 @@ extern "C" int collie_fused_mf_epoch(
     float* losses, unsigned int* barrier,                    // [S] and one word, zeroed
     unsigned long long* timeline,                            // [2 S + 1] or null
     int U, int I, int D, int S, int B, int K, int loss_kind, int adaptive,
-    float lr_emb, float lr_bias, float wd_emb, float wd_bias, void* stream_ptr) {
+    const float* lr, const int* live,                        // [2] and one word, on the device
+    float wd_emb, float wd_bias, void* stream_ptr) {
   if (D < 1 || D > kMaxDim || K < 1 || B < 1 || U < 1 || I < 1 || S < 0 || F < 0 ||
-      loss_kind < kHinge || loss_kind > kWarp)
+      loss_kind < kHinge || loss_kind > kWarp || lr == nullptr || live == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   ImplicitEpoch e{};
   e.up = Update{user_emb, mu_u, nu_u, du, item_emb, mu_i, nu_i, di, nullptr, nullptr,
                 item_bias, db, static_cast<long long>(U) * D, static_cast<long long>(I) * D, 0, I,
                 vec_ok(U, D, user_emb, mu_u, nu_u, du), vec_ok(I, D, item_emb, mu_i, nu_i, di),
-                lr_emb, lr_bias, wd_emb, wd_bias};
+                wd_emb, wd_bias};
   e.users = users;
   e.pos = pos;
   e.negs = negs;
@@ -719,6 +749,8 @@ extern "C" int collie_fused_mf_epoch(
   e.losses = losses;
   e.barrier = barrier;
   e.timeline = timeline;
+  e.lr = lr;
+  e.live = live;
   e.F = F;
   e.U = U;
   e.I = I;
@@ -748,15 +780,16 @@ extern "C" int collie_fused_mf_explicit_epoch(
     float* losses, unsigned int* barrier,                    // [S] and one word, zeroed
     unsigned long long* timeline,                            // [2 S + 1] or null
     int U, int I, int D, int S, int B, int loss_kind, int y_range, float y_lo, float y_span,
-    float lr_emb, float lr_bias, float wd_emb, float wd_bias, void* stream_ptr) {
+    const float* lr, const int* live,                        // [2] and one word, on the device
+    float wd_emb, float wd_bias, void* stream_ptr) {
   if (D < 1 || D > kMaxDim || B < 1 || U < 1 || I < 1 || S < 0 || loss_kind < kMse ||
-      loss_kind > kMae)
+      loss_kind > kMae || lr == nullptr || live == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   ExplicitEpoch e{};
   e.up = Update{user_emb, mu_u, nu_u, du, item_emb, mu_i, nu_i, di, user_bias, dbu,
                 item_bias, dbi, static_cast<long long>(U) * D, static_cast<long long>(I) * D, U, I,
                 vec_ok(U, D, user_emb, mu_u, nu_u, du), vec_ok(I, D, item_emb, mu_i, nu_i, di),
-                lr_emb, lr_bias, wd_emb, wd_bias};
+                wd_emb, wd_bias};
   e.users = users;
   e.items = items;
   e.ratings = ratings;
@@ -767,6 +800,8 @@ extern "C" int collie_fused_mf_explicit_epoch(
   e.losses = losses;
   e.barrier = barrier;
   e.timeline = timeline;
+  e.lr = lr;
+  e.live = live;
   e.U = U;
   e.I = I;
   e.D = D;

@@ -6,7 +6,11 @@ seconds, where a source that includes PyTorch's headers takes minutes.  The
 library goes into ``collie_tpu_torch/csrc/build/`` (listed in ``.gitignore``)
 under a name that carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing here runs at import time.
+unchanged one is loaded as it is.  A source may also export a version
+function (``load(..., abi=(symbol, version))``): a library that lacks it or
+answers another version is deleted, rebuilt under a new name and loaded
+from there, so a stale build is never used.  Nothing here runs at import
+time.
 """
 import ctypes
 import hashlib
@@ -17,7 +21,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = CSRC / 'build'
@@ -48,9 +52,10 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f'lib{Path(source).stem}_{digest}.so'
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its library already exists."""
-    out = library_path(source)
+def build(source: str, out: Optional[Path] = None) -> Path:
+    """Compile ``csrc/<source>`` into ``out`` (default ``library_path``)
+    unless that library already exists."""
+    out = out or library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -74,11 +79,34 @@ def build(source: str) -> Path:
     return out
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/<source>``; one load per process."""
+def _abi_matches(lib: ctypes.CDLL, abi: Optional[Tuple[str, int]]) -> bool:
+    if abi is None:
+        return True
+    fn = getattr(lib, abi[0], None)
+    if fn is None:
+        return False
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn() == abi[1]
+
+
+def load(source: str, abi: Optional[Tuple[str, int]] = None) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<source>``; one load per process.
+    ``abi = (symbol, version)``: the library's ``int symbol(void)`` must
+    return ``version``, else it is rebuilt (module docstring)."""
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
+            path = build(source)
+            lib = ctypes.CDLL(str(path))
+            if not _abi_matches(lib, abi):
+                # a stale library under the current name: delete it and load
+                # a fresh build from a new path (a path already opened would
+                # give back the same handle)
+                path.unlink(missing_ok=True)
+                fresh = path.with_name(f'{path.stem}_{os.getpid()}_{time.time_ns()}.so')
+                lib = ctypes.CDLL(str(build(source, fresh)))
+                if not _abi_matches(lib, abi):
+                    raise RuntimeError(f'{source}: a fresh build does not answer '
+                                       f'{abi[0]}() == {abi[1]}')
             _loaded[source] = lib
         return lib

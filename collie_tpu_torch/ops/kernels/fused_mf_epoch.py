@@ -27,6 +27,16 @@ and the Pallas kernels; the call checks shapes and types only, so it never
 waits for the card.  ``<wrapper>.launches`` counts kernel launches (one per
 epoch call).
 
+The learning rates ``lr_emb`` / ``lr_bias`` are Python floats or 0-d
+tensors, and ``live`` is None or a 0-d bool / integer tensor: the kernels
+read both from device memory, so a whole fit's device schedulers and its
+early stop reach them without a host sync (no wrapper calls ``float()`` or
+``.item()`` on a device value).  A falsy ``live`` is a skipped epoch: the
+state and the Adam count come back as they went in, the losses are NaN (the
+JAX whole fit's skip branch).  The plain versions take the same arguments
+with the same meaning: they run the epoch, then select the old state where
+``live`` is false.
+
 The plain versions are the same functions as Python loops over steps: the
 forward pass and the loss through ``collie_tpu_torch.ops.losses`` under
 autograd, and the hand-written optax update of
@@ -102,8 +112,7 @@ def _select_loss(loss_kind: str, adaptive: bool):
     return L.adaptive_bpr_loss if adaptive else L.bpr_loss
 
 
-def _optax_step(tables, biases, t, lr_emb: float, lr_bias: float, wd_emb: float,
-                wd_bias: float) -> None:
+def _optax_step(tables, biases, t, lr_emb, lr_bias, wd_emb: float, wd_bias: float) -> None:
     """One optimizer step in place, the plain versions' one copy of the
     update: optax Adam (step count ``t``) with torch-coupled decay on each
     ``(table, mu, nu, grad)``, sgd with coupled decay on each ``(bias, grad)``."""
@@ -122,12 +131,43 @@ def _optax_step(tables, biases, t, lr_emb: float, lr_bias: float, wd_emb: float,
             bias.add_(g * (-lr_bias))
 
 
+def _lr_value(lr, device) -> torch.Tensor:
+    """A learning rate (Python float or 0-d tensor) as a 0-d float32 tensor
+    on ``device``: a float is filled there, a tensor is cast, neither is
+    read back."""
+    if torch.is_tensor(lr):
+        return lr.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(lr), dtype=torch.float32, device=device)
+
+
+def _live_flag(live, device) -> torch.Tensor:
+    """``live`` (None: 1) as a contiguous 0-d int32 tensor on ``device``."""
+    if live is None:
+        return torch.ones((), dtype=torch.int32, device=device)
+    if not torch.is_tensor(live) or live.numel() != 1:
+        raise ValueError('live must be None or a one-element tensor')
+    return live.to(device=device, dtype=torch.int32).reshape(()).contiguous()
+
+
+def _skip_unless_live(live, new: Sequence[torch.Tensor], old: Sequence[torch.Tensor],
+                      count, S: int, losses) -> Tuple[list, torch.Tensor, torch.Tensor]:
+    """The plain versions' ``live`` select: ``(state, count, losses)`` of
+    the epoch, or of a skipped one (the old state and count, NaN losses)."""
+    if live is None:
+        return list(new), count + S, losses
+    on = _live_flag(live, count.device) != 0
+    return ([torch.where(on, a, b) for a, b in zip(new, old)],
+            torch.where(on, count + S, count),
+            torch.where(on, losses, torch.full_like(losses, float('nan'))))
+
+
 def fused_mf_epoch_plain(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count,
                          users, pos, negs, mask, lr_emb, lr_bias,
                          meta_rows: Optional[torch.Tensor] = None, *,
                          K: int, adaptive: bool, loss_kind: str = 'hinge',
                          meta_weights: Sequence[float] = (),
-                         wd_emb: float = 0.0, wd_bias: float = 0.0) -> Tuple[torch.Tensor, ...]:
+                         wd_emb: float = 0.0, wd_bias: float = 0.0,
+                         live: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch ``fused_mf_epoch``: a loop over steps, losses under
     autograd, the hand-written optax update.  Used for CPU tensors and as the
     kernel's reference; returns new tensors."""
@@ -140,9 +180,9 @@ def fused_mf_epoch_plain(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, 
                 if meta_weights else None)
     weights = {f: float(w) for f, w in enumerate(meta_weights)} if meta_weights else None
     count = torch.as_tensor(count, device=users.device).to(torch.int32).reshape(())
-    ue, ie, ib = user_emb.clone(), item_emb.clone(), item_bias.clone()
-    mu_u, nu_u, mu_i, nu_i = mu_u.clone(), nu_u.clone(), mu_i.clone(), nu_i.clone()
-    lr_emb, lr_bias = float(lr_emb), float(lr_bias)
+    old = (user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i)
+    ue, ie, ib, mu_u, nu_u, mu_i, nu_i = (t.clone() for t in old)
+    lr_emb, lr_bias = _lr_value(lr_emb, users.device), _lr_value(lr_bias, users.device)
     losses = torch.empty(S, dtype=torch.float32, device=users.device)
     for s in range(S):
         ue_g = ue.detach().requires_grad_()
@@ -162,17 +202,25 @@ def fused_mf_epoch_plain(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, 
         losses[s] = loss.detach()
         _optax_step(((ue, mu_u, nu_u, g_u), (ie, mu_i, nu_i, g_i)), ((ib, g_b),),
                     count + 1 + s, lr_emb, lr_bias, wd_emb, wd_bias)
-    return ue, ie, ib, mu_u, nu_u, mu_i, nu_i, count + S, losses
+    state, count, losses = _skip_unless_live(live, (ue, ie, ib, mu_u, nu_u, mu_i, nu_i), old,
+                                             count, S, losses)
+    return (*state, count, losses)
+
+
+#: the C interface's version, ``collie_fused_mf_epoch_abi()`` (2: the
+#: learning rates and the live flag in device memory)
+ABI = 2
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+    lib = _build.load(SOURCE, abi=('collie_fused_mf_epoch_abi', ABI))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # pointers and the stream as c_void_p: ctypes would cut a bare int to 32 bits
     lib.collie_fused_mf_epoch.argtypes = (
-        [p] * 7 + [p] * 4 + [p, p, i] + [p] * 3 + [p] * 6 + [i] * 8 + [f] * 4 + [p])
+        [p] * 7 + [p] * 4 + [p, p, i] + [p] * 3 + [p] * 6 + [i] * 8 + [p, p] + [f] * 2 + [p])
     lib.collie_fused_mf_epoch.restype = i
-    lib.collie_fused_mf_explicit_epoch.argtypes = [p] * 22 + [i] * 7 + [f] * 6 + [p]
+    lib.collie_fused_mf_explicit_epoch.argtypes = (
+        [p] * 22 + [i] * 7 + [f] * 2 + [p, p] + [f] * 2 + [p])
     lib.collie_fused_mf_explicit_epoch.restype = i
     lib.collie_fused_mf_epoch_max_dim.argtypes = []
     lib.collie_fused_mf_epoch_max_dim.restype = i
@@ -211,6 +259,7 @@ def fused_mf_epoch_cuda(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, c
                         K: int, adaptive: bool, loss_kind: str = 'hinge',
                         meta_weights: Sequence[float] = (),
                         wd_emb: float = 0.0, wd_bias: float = 0.0,
+                        live: Optional[torch.Tensor] = None,
                         timeline: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel on the current stream; updates the tables and
     moments in place.  ``timeline``: see ``_timeline_ptr``."""
@@ -231,8 +280,9 @@ def fused_mf_epoch_cuda(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, c
     count = torch.as_tensor(count, device=device).to(torch.int32).reshape(())
     F = len(meta_weights)
     meta = meta_rows.to(torch.int32).contiguous() if F else None
-    meta_w = torch.tensor([float(w) for w in meta_weights], dtype=torch.float32,
-                          device=device) if F else None
+    meta_w = torch.stack([_lr_value(w, device) for w in meta_weights]) if F else None
+    lrs = torch.stack([_lr_value(lr_emb, device), _lr_value(lr_bias, device)])
+    live = _live_flag(live, device)
     denoms = torch.clamp(mask.sum(dim=1), min=1.0).contiguous()
     bc1s, bc2s = adam_bias_corrections(count + 1 + torch.arange(S, device=device))
     bc1s, bc2s = bc1s.contiguous(), bc2s.contiguous()
@@ -250,11 +300,11 @@ def fused_mf_epoch_cuda(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, c
             du.data_ptr(), di.data_ptr(), db.data_ptr(), losses.data_ptr(), barrier.data_ptr(),
             _timeline_ptr(timeline, S, device),
             U, I, D, S, B, K, LOSS_KINDS[loss_kind], int(bool(adaptive)),
-            float(lr_emb), float(lr_bias), float(wd_emb), float(wd_bias), stream)
+            lrs.data_ptr(), live.data_ptr(), float(wd_emb), float(wd_bias), stream)
     if err != 0:
         raise RuntimeError(f'collie_fused_mf_epoch launch failed: cudaError_t {err}')
     fused_mf_epoch.launches += 1
-    return (user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count + S, losses)
+    return (user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count + S * live, losses)
 
 
 def fused_mf_epoch(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count,
@@ -262,7 +312,8 @@ def fused_mf_epoch(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count,
                    meta_rows: Optional[torch.Tensor] = None, *,
                    K: int, adaptive: bool, loss_kind: str = 'hinge',
                    meta_weights: Sequence[float] = (),
-                   wd_emb: float = 0.0, wd_bias: float = 0.0) -> Tuple[torch.Tensor, ...]:
+                   wd_emb: float = 0.0, wd_bias: float = 0.0,
+                   live: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """Run one training epoch; returns ``(user_emb, item_emb, item_bias,
     mu_u, nu_u, mu_i, nu_i, count, losses [S])``.
 
@@ -270,11 +321,12 @@ def fused_mf_epoch(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count,
     moments are float32, ``count`` the 0-d Adam step count, ``users``/``pos``
     ``[S, B]`` and ``negs [S, B, K]`` int32, ``mask [S, B]`` float32.
     ``meta_rows [F, I]`` / ``meta_weights``: per-item categorical fields and
-    their partial-credit weights.  CUDA tensors go through the kernel (in
-    place), CPU tensors through ``fused_mf_epoch_plain``."""
+    their partial-credit weights.  ``lr_emb`` / ``lr_bias``: floats or 0-d
+    tensors; ``live``: see the module docstring.  CUDA tensors go through
+    the kernel (in place), CPU tensors through ``fused_mf_epoch_plain``."""
     device = users.device
     kwargs = dict(K=K, adaptive=adaptive, loss_kind=loss_kind,
-                  meta_weights=tuple(meta_weights), wd_emb=wd_emb, wd_bias=wd_bias)
+                  meta_weights=tuple(meta_weights), wd_emb=wd_emb, wd_bias=wd_bias, live=live)
     args = (user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, count,
             users, pos, negs, mask, lr_emb, lr_bias, meta_rows)
     if device.type == 'cpu':
@@ -333,7 +385,8 @@ def fused_mf_explicit_epoch_plain(user_emb, item_emb, user_bias, item_bias,
                                   users, items, ratings, mask, lr_emb, lr_bias, *,
                                   loss_kind: str = 'mse',
                                   y_range: Optional[Tuple[float, float]] = None,
-                                  wd_emb: float = 0.0, wd_bias: float = 0.0
+                                  wd_emb: float = 0.0, wd_bias: float = 0.0,
+                                  live: Optional[torch.Tensor] = None
                                   ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch ``fused_mf_explicit_epoch``: a loop over steps, MF's
     score and ``mse_loss``/``mae_loss`` under autograd, the hand-written optax
@@ -344,9 +397,9 @@ def fused_mf_explicit_epoch_plain(user_emb, item_emb, user_bias, item_bias,
                                            mask, loss_kind, y_range)
     loss_fn = L.LOSSES[loss_kind]
     count = torch.as_tensor(count, device=users.device).to(torch.int32).reshape(())
-    ue, ie, ub, ib = user_emb.clone(), item_emb.clone(), user_bias.clone(), item_bias.clone()
-    mu_u, nu_u, mu_i, nu_i = mu_u.clone(), nu_u.clone(), mu_i.clone(), nu_i.clone()
-    lr_emb, lr_bias = float(lr_emb), float(lr_bias)
+    old = (user_emb, item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i)
+    ue, ie, ub, ib, mu_u, nu_u, mu_i, nu_i = (t.clone() for t in old)
+    lr_emb, lr_bias = _lr_value(lr_emb, users.device), _lr_value(lr_bias, users.device)
     losses = torch.empty(S, dtype=torch.float32, device=users.device)
     for s in range(S):
         leaves = [t.detach().requires_grad_() for t in (ue, ie, ub, ib)]
@@ -361,7 +414,9 @@ def fused_mf_explicit_epoch_plain(user_emb, item_emb, user_bias, item_bias,
         losses[s] = loss.detach()
         _optax_step(((ue, mu_u, nu_u, g_u), (ie, mu_i, nu_i, g_i)), ((ub, g_ub), (ib, g_ib)),
                     count + 1 + s, lr_emb, lr_bias, wd_emb, wd_bias)
-    return ue, ie, ub, ib, mu_u, nu_u, mu_i, nu_i, count + S, losses
+    state, count, losses = _skip_unless_live(
+        live, (ue, ie, ub, ib, mu_u, nu_u, mu_i, nu_i), old, count, S, losses)
+    return (*state, count, losses)
 
 
 def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
@@ -370,6 +425,7 @@ def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
                                  loss_kind: str = 'mse',
                                  y_range: Optional[Tuple[float, float]] = None,
                                  wd_emb: float = 0.0, wd_bias: float = 0.0,
+                                 live: Optional[torch.Tensor] = None,
                                  timeline: Optional[torch.Tensor] = None
                                  ) -> Tuple[torch.Tensor, ...]:
     """Launch the explicit CUDA kernel on the current stream; updates the
@@ -397,6 +453,8 @@ def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
                                                 user_bias.shape, item_bias.shape, (S,), (1,))
     y_lo, y_span = ((float(y_range[0]), float(y_range[1] - y_range[0]))
                     if y_range is not None else (0.0, 1.0))
+    lrs = torch.stack([_lr_value(lr_emb, device), _lr_value(lr_bias, device)])
+    live = _live_flag(live, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.collie_fused_mf_explicit_epoch(
@@ -408,12 +466,12 @@ def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
             du.data_ptr(), di.data_ptr(), dbu.data_ptr(), dbi.data_ptr(), losses.data_ptr(),
             barrier.data_ptr(), _timeline_ptr(timeline, S, device),
             U, I, D, S, B, EXPLICIT_LOSS_KINDS[loss_kind], int(y_range is not None), y_lo, y_span,
-            float(lr_emb), float(lr_bias), float(wd_emb), float(wd_bias), stream)
+            lrs.data_ptr(), live.data_ptr(), float(wd_emb), float(wd_bias), stream)
     if err != 0:
         raise RuntimeError(f'collie_fused_mf_explicit_epoch launch failed: cudaError_t {err}')
     fused_mf_explicit_epoch.launches += 1
-    return (user_emb, item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i, count + S,
-            losses)
+    return (user_emb, item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i,
+            count + S * live, losses)
 
 
 def fused_mf_explicit_epoch(user_emb, item_emb, user_bias, item_bias,
@@ -421,7 +479,8 @@ def fused_mf_explicit_epoch(user_emb, item_emb, user_bias, item_bias,
                             users, items, ratings, mask, lr_emb, lr_bias, *,
                             loss_kind: str = 'mse',
                             y_range: Optional[Tuple[float, float]] = None,
-                            wd_emb: float = 0.0, wd_bias: float = 0.0
+                            wd_emb: float = 0.0, wd_bias: float = 0.0,
+                            live: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, ...]:
     """Run one explicit-feedback training epoch; returns ``(user_emb,
     item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i, count,
@@ -431,11 +490,12 @@ def fused_mf_explicit_epoch(user_emb, item_emb, user_bias, item_bias,
     the Adam moments are float32, ``count`` the 0-d Adam step count,
     ``users``/``items [S, B]`` int32, ``ratings``/``mask [S, B]`` float32.
     ``loss_kind`` is ``'mse'`` or ``'mae'``; ``y_range = (min, max)`` applies
-    MF's sigmoid rescale.  CUDA tensors go through the kernel (in place), CPU
+    MF's sigmoid rescale; ``lr_emb`` / ``lr_bias`` and ``live`` as for
+    ``fused_mf_epoch``.  CUDA tensors go through the kernel (in place), CPU
     tensors through ``fused_mf_explicit_epoch_plain``."""
     device = users.device
     kwargs = dict(loss_kind=loss_kind, y_range=tuple(y_range) if y_range is not None else None,
-                  wd_emb=wd_emb, wd_bias=wd_bias)
+                  wd_emb=wd_emb, wd_bias=wd_bias, live=live)
     args = (user_emb, item_emb, user_bias, item_bias, mu_u, nu_u, mu_i, nu_i, count,
             users, items, ratings, mask, lr_emb, lr_bias)
     if device.type == 'cpu':

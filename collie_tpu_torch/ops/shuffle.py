@@ -6,14 +6,30 @@ gives the same permutation.  A 4-round Feistel network over the index bits is
 a keyed bijection on ``[0, 2^bits)``; cycle-walking (re-encrypt every value
 that lands at or above ``n``) restricts it to a bijection on ``[0, n)``.
 
-The JAX version computes in uint32.  PyTorch's uint32 arithmetic is limited,
-so here every value is an int64 holding a uint32, masked to 32 bits after
-each add and multiply; a 32-bit by 32-bit product is split into 16-bit
-halves so no intermediate leaves int64's range.
+The JAX version computes in uint32 and cycle-walks inside one
+``lax.while_loop`` on the device.  On a CUDA tensor
+``feistel_permutation_from_keys`` launches the hand-written kernel
+``collie_tpu_torch/csrc/shuffle.cu`` (one thread per index, each walking in
+registers; no host sync) and raises if it cannot; it runs the plain version
+``feistel_permutation_plain`` only for keys that lie on the CPU.
+``feistel_permutation_from_keys.launches`` counts kernel launches.  Both give
+the permutation as int32.
+
+The plain version is the whole-array loop: re-encrypt every out-of-range
+value until none is left, which asks the host after each pass.  PyTorch's
+uint32 arithmetic is limited, so there every value is an int64 holding a
+uint32, masked to 32 bits after each add and multiply; a 32-bit by 32-bit
+product is split into 16-bit halves so no intermediate leaves int64's range.
 """
+import ctypes
 from typing import Optional
 
 import torch
+
+from collie_tpu_torch.ops.kernels import _build
+
+SOURCE = 'shuffle.cu'
+ABI = 1
 
 _MASK32 = 0xFFFFFFFF
 _KEY_HIGH = 2 ** 31 - 1          # jax.random.randint(..., 0, iinfo(int32).max)
@@ -36,13 +52,17 @@ def _mix(x: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def feistel_permutation_from_keys(keys: torch.Tensor, n: int) -> torch.Tensor:
-    """The permutation of ``arange(n)`` under four keys in ``[0, 2^31 - 1)``
-    (the values the JAX version draws at ``shuffle.py:50-51``), on the keys'
-    device, as int64."""
-    assert n >= 2
+def _check_keys(keys: torch.Tensor, n: int) -> None:
     if keys.shape != (4,):
         raise ValueError(f'feistel_permutation takes 4 keys, got shape {tuple(keys.shape)}')
+    if not 2 <= n < 2 ** 31:
+        raise ValueError(f'feistel_permutation takes 2 <= n < 2^31, got {n}')
+
+
+def feistel_permutation_plain(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """The whole-array cycle-walk in int64 arithmetic, on the keys' device;
+    the kernel's reference.  Int32."""
+    _check_keys(keys, n)
     keys = keys.to(torch.int64) & _MASK32
     bits = max((n - 1).bit_length(), 2)
     lo_bits = bits // 2
@@ -68,8 +88,53 @@ def feistel_permutation_from_keys(keys: torch.Tensor, n: int) -> torch.Tensor:
     while True:
         out = e >= n
         if not bool(out.any()):
-            return e
+            return e.to(torch.int32)
         e = torch.where(out, encrypt(e), e)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(SOURCE, abi=('collie_shuffle_abi', ABI))
+    p = ctypes.c_void_p
+    lib.collie_feistel_cycle_walk.argtypes = [p, ctypes.c_int, p, p]
+    lib.collie_feistel_cycle_walk.restype = ctypes.c_int
+    return lib
+
+
+def _on_card(keys: torch.Tensor) -> bool:
+    return keys.device.type == 'cuda'
+
+
+def feistel_permutation_cuda(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """Launch the cycle-walk kernel on the current stream: int32 ``[n]`` on
+    the keys' device.  Reads nothing back from the card."""
+    _check_keys(keys, n)
+    if not _on_card(keys):
+        raise ValueError('feistel_permutation_cuda takes CUDA keys')
+    lib = _library()
+    keys = keys.to(torch.int64).contiguous()
+    out = torch.empty(n, dtype=torch.int32, device=keys.device)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = lib.collie_feistel_cycle_walk(keys.data_ptr(), n, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f'collie_feistel_cycle_walk launch failed: cudaError_t {err}')
+    feistel_permutation_from_keys.launches += 1
+    return out
+
+
+def feistel_permutation_from_keys(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """The permutation of ``arange(n)`` under four keys in ``[0, 2^31 - 1)``
+    (the values the JAX version draws at ``shuffle.py:50-51``), on the keys'
+    device, as int32: the kernel for CUDA keys, the plain version for CPU
+    keys."""
+    if _on_card(keys):
+        return feistel_permutation_cuda(keys, n)
+    if keys.device.type == 'cpu':
+        return feistel_permutation_plain(keys, n)
+    raise ValueError(f'feistel_permutation runs on cuda or cpu, not {keys.device}')
+
+
+feistel_permutation_from_keys.launches = 0
 
 
 def draw_feistel_keys(generator: torch.Generator) -> torch.Tensor:

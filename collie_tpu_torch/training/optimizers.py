@@ -20,7 +20,9 @@ The math runs in float32 whatever the parameters' storage dtype (bfloat16
 tables keep float32 moments); only the final update is cast to the
 parameter's dtype.  The learning rate lives in the state (``OptState.
 learning_rate``, a float32 value) so host schedulers change it between
-epochs through ``set_lr``.  ``OptState.count`` is ``inject_hyperparams``'
+epochs through ``set_lr``; during a whole fit it is a 0-d float32 tensor on
+the fit's device, which the device schedulers rewrite without a host sync,
+and ``count`` a 0-d int32 tensor there (``whole_fit_states``).  ``OptState.count`` is ``inject_hyperparams``'
 own per-update counter, which the fused epoch advances by its step count.
 
 Custom optimizer factories (``collie_tpu/training/optimizers.py:51-63``):
@@ -34,8 +36,9 @@ update is cast back (``_f32_optimizer_math``).  ``get_lr`` / ``set_lr`` need a
 state with a ``learning_rate`` field; on any other state they raise the JAX
 package's ``ValueError``, so a scheduler that fires on a custom factory's
 state fails there, as in JAX.  JAX's ``match_lr_aval`` / ``adopt_lr_aval``
-have no counterpart: the learning rate here is a host float32 with no
-abstract value to keep stable across a resume.
+have no counterpart: the learning rate here is a host float32 (or, inside
+a whole fit, a device tensor) with no abstract value to keep stable across a
+resume.
 """
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -64,8 +67,8 @@ class OptState:
     ``hyperparams['learning_rate']``; ``adam_count``/``mu``/``nu`` are
     ``ScaleByAdamState`` (adam only), ``sum_of_squares`` is
     ``ScaleByRssState`` (adagrad only)."""
-    count: int
-    learning_rate: float
+    count: Union[int, torch.Tensor]                # a 0-d int32 tensor in a whole fit
+    learning_rate: Union[float, torch.Tensor]      # a 0-d float32 tensor in a whole fit
     adam_count: Optional[torch.Tensor] = None       # 0-d int32
     mu: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     nu: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
@@ -82,8 +85,9 @@ def adam_moments(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor
 def adam_bias_corrections(count: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(1 - b1^t, 1 - b2^t)`` in float32 for step counts ``t`` (any shape)."""
     t = count.to(torch.float32)
-    return (1 - torch.pow(torch.tensor(ADAM_B1, dtype=torch.float32, device=t.device), t),
-            1 - torch.pow(torch.tensor(ADAM_B2, dtype=torch.float32, device=t.device), t))
+    # the bases are filled on the device: no host-to-device copy, no sync
+    return (1 - torch.pow(torch.full((), ADAM_B1, dtype=torch.float32, device=t.device), t),
+            1 - torch.pow(torch.full((), ADAM_B2, dtype=torch.float32, device=t.device), t))
 
 
 def adam_direction(mu: torch.Tensor, nu: torch.Tensor, bc1: torch.Tensor,
@@ -202,17 +206,82 @@ def _check_lr_state(opt_state) -> None:
 
 
 def get_lr(opt_state) -> float:
-    """The learning rate in ``opt_state``."""
+    """The learning rate in ``opt_state``, as a host float (a device
+    learning rate is read back, which waits for the card)."""
     _check_lr_state(opt_state)
     return float(opt_state.learning_rate)
 
 
-def set_lr(opt_state, new_lr: float):
-    """``opt_state`` with the learning rate replaced (stored as float32)."""
+def host_scalars(opt_state):
+    """``opt_state`` with a device learning rate and count (a whole fit's,
+    ``whole_fit_states``) brought back to a host float32 value and int, as a
+    checkpoint stores them; other states as they are."""
+    if torch.is_tensor(getattr(opt_state, 'learning_rate', None)):
+        opt_state = set_lr(opt_state, get_lr(opt_state))
+    if isinstance(opt_state, OptState) and torch.is_tensor(opt_state.count):
+        opt_state = dataclasses.replace(opt_state, count=int(opt_state.count))
+    return opt_state
+
+
+def whole_fit_states(opt_states, scheduled: Sequence[bool], device) -> tuple:
+    """The states a whole fit carries: each whose scheduler acts
+    (``scheduled``) with its learning rate as a 0-d float32 tensor on
+    ``device``, and every ``OptState`` with its ``count`` as a 0-d int32
+    tensor there, so a skipped epoch's select keeps both on the card."""
+    out = []
+    for state, on in zip(opt_states, scheduled):
+        if on and not torch.is_tensor(state.learning_rate):
+            state = with_lr(state, torch.full((), get_lr(state), dtype=torch.float32,
+                                              device=device))
+        if isinstance(state, OptState) and not torch.is_tensor(state.count):
+            state = dataclasses.replace(state, count=torch.full(
+                (), state.count, dtype=torch.int32, device=device))
+        out.append(state)
+    return tuple(out)
+
+
+def state_leaves(tree: Any) -> List[Any]:
+    """The leaves of an optimizer state in a fixed order: dataclass fields
+    in declaration order, dict entries by sorted key, sequence items in
+    order; anything else is a leaf."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [leaf for f in dataclasses.fields(tree)
+                for leaf in state_leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in state_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in state_leaves(item)]
+    return [tree]
+
+
+def state_from_leaves(template: Any, leaves) -> Any:
+    """``template``'s structure with ``state_leaves``' order filled from the
+    iterator ``leaves``."""
+    if dataclasses.is_dataclass(template) and not isinstance(template, type):
+        return dataclasses.replace(template, **{
+            f.name: state_from_leaves(getattr(template, f.name), leaves)
+            for f in dataclasses.fields(template)})
+    if isinstance(template, dict):
+        return {k: state_from_leaves(template[k], leaves) for k in sorted(template)}
+    if isinstance(template, (list, tuple)):
+        items = [state_from_leaves(item, leaves) for item in template]
+        if hasattr(template, '_fields'):
+            return type(template)(*items)
+        return type(template)(items)
+    return next(leaves)
+
+
+def with_lr(opt_state, lr):
+    """``opt_state`` with ``learning_rate`` replaced by ``lr`` as given."""
     _check_lr_state(opt_state)
     if dataclasses.is_dataclass(opt_state):
-        return dataclasses.replace(opt_state, learning_rate=_f32_value(new_lr))
-    return opt_state._replace(learning_rate=_f32_value(new_lr))
+        return dataclasses.replace(opt_state, learning_rate=lr)
+    return opt_state._replace(learning_rate=lr)
+
+
+def set_lr(opt_state, new_lr: float):
+    """``opt_state`` with the learning rate replaced (stored as float32)."""
+    return with_lr(opt_state, _f32_value(new_lr))
 
 
 def split_bias_keys(param_keys: Sequence[str]) -> Tuple[list, list]:

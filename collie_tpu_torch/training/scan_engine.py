@@ -23,6 +23,29 @@ approximate loader), and then trains:
 There is no path on which a CUDA model inside the envelope trains without
 the kernel: if the kernel cannot launch, the epoch raises.
 
+Routing knobs, read when the epoch functions are built, where the JAX engine
+reads them: ``COLLIE_TPU_FUSED_EPOCH`` (``auto``, the default: the kernel on
+``cuda`` inside the envelope; ``1``: the fused function on any device inside
+the envelope, its plain version on the CPU, the generic epoch outside it;
+``0``: the generic epoch) for a trainer's ``fused=None``;
+``COLLIE_TPU_SLOT_EPOCH=0`` sends the bucketed sampler down the reorder path
+(below); ``COLLIE_TPU_SHUFFLE`` (``feistel``, the default, or ``sort``: a
+``torch.randperm`` from a generator seeded by the trainer's seed and the
+epoch, whose stream cannot be JAX's, so its parity is distributional only).
+
+An epoch function takes an optional ``live`` flag (a 0-d bool tensor): a
+false ``live`` is a skipped epoch, the JAX whole fit's ``lax.cond`` skip
+branch, which leaves params and optimizer states as they were (the fused
+kernels return before touching them; the generic epoch runs and then
+selects the old state with one ``torch.where`` per tensor) and reports a
+NaN loss.  ``build_scan_fit_fn`` strings epochs into a block of the whole
+fit (``collie_tpu/training/scan_engine.py:815-946``) with the schedulers,
+early stopping and the NaN trip on the device.  On the card nothing in an
+epoch or a block waits for the host: the shuffle is a kernel, the samplers
+and the batch assembly use no boolean masks or host reads, the learning
+rates and the live flag reach the kernels in device memory, and the epoch's
+time split is kept as CUDA events, read after the caller's next sync.
+
 Exact sampling chooses its sampler as the JAX engine does
 (``scan_engine.py:291-306``): ``COLLIE_TPU_SAMPLER`` (``auto``, ``bucketed``,
 ``padded`` or ``csr``; any other value means ``csr``) and, for ``auto``, the
@@ -51,10 +74,11 @@ epoch draws the keys alone).  It
 cannot reproduce JAX's threefry draws; ``draw_epoch`` is the one place the
 draws are made, so a test can hand it JAX's keys and uniforms instead.
 """
+import collections
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,9 +90,11 @@ from collie_tpu_torch.ops.device_sampling import (
     complement_sample_negatives_bucketed, complement_sample_negatives_bucketed_grouped,
     complement_sample_negatives_impl, complement_sample_negatives_padded_impl, csr_keys,
     padded_table_bytes)
-from collie_tpu_torch.ops.kernels.fused_mf_epoch import (MAX_DIM, fused_mf_epoch,
+from collie_tpu_torch.ops.kernels.fused_mf_epoch import (MAX_DIM, _lr_value, fused_mf_epoch,
                                                          fused_mf_explicit_epoch)
 from collie_tpu_torch.ops.shuffle import draw_feistel_keys, feistel_permutation_from_keys
+from collie_tpu_torch.training.optimizers import state_from_leaves, state_leaves, with_lr
+from collie_tpu_torch.training.schedulers import scheduler_device_step
 
 #: the default sampler table budget (``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB``)
 _PADDED_SAMPLER_BUDGET_MB = 1024
@@ -203,6 +229,16 @@ def dropout_step_seeds(seed: int, epoch_idx: int, num_steps: int) -> List[int]:
     return [int(w) for w in words]
 
 
+def select_state(live: torch.Tensor, new: Any, old: Any) -> Any:
+    """An optimizer state, ``new`` where ``live`` and ``old`` elsewhere:
+    one ``torch.where`` per tensor leaf; a leaf that is not a tensor (a
+    custom state's host value) is ``new``'s."""
+    pairs = zip(state_leaves(new), state_leaves(old))
+    return state_from_leaves(new, iter([
+        torch.where(live, a, b) if torch.is_tensor(a) and torch.is_tensor(b) else a
+        for a, b in pairs]))
+
+
 def train_step(model, specs, active: List[bool], params: Dict[str, torch.Tensor],
                opt_states: tuple, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None):
@@ -229,32 +265,59 @@ def train_step(model, specs, active: List[bool], params: Dict[str, torch.Tensor]
     return params, tuple(states), loss.detach()
 
 
+def device_stamp(device: torch.device):
+    """A point in time on ``device``'s timeline: a recorded CUDA event on the
+    card (no sync), the host clock elsewhere."""
+    if device.type == 'cuda':
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        return mark
+    return time.perf_counter()
+
+
+def stamps_ms(marks: Sequence[Any]) -> List[float]:
+    """Milliseconds between consecutive ``device_stamp`` marks (reading CUDA
+    events waits for the last one)."""
+    if marks and not isinstance(marks[0], float):
+        marks[-1].synchronize()
+        return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+
 class _EpochClock:
     """Where an epoch's time goes: the shuffle, the sampler (with the batch
-    assembly) and training, from CUDA events on the card (read after the
-    caller's synchronisation) or the host clock on the CPU."""
+    assembly) and training, from four ``device_stamp`` marks an epoch (the
+    start, after the shuffle, after the sampler, the end).  The last
+    ``KEEP`` epochs' marks are kept, so a whole fit reads a flight's splits
+    after the flight's one sync."""
+    KEEP = 64
 
     def __init__(self, device: torch.device):
-        self.cuda = device.type == 'cuda'
-        self.marks: List = []
+        self.device = device
+        self.open: Optional[List] = None
+        self.epochs = collections.deque(maxlen=self.KEEP)
+
+    def begin(self) -> None:
+        self.open = [device_stamp(self.device)]
 
     def mark(self) -> None:
-        if self.cuda:
-            mark = torch.cuda.Event(enable_timing=True)
-            mark.record()
-        else:
-            mark = time.perf_counter()
-        self.marks = self.marks[-3:] + [mark]
+        """The next mark of the open epoch (none open: ignored, as for an
+        ``epoch_batches`` call outside an epoch)."""
+        if self.open is None:
+            return
+        self.open.append(device_stamp(self.device))
+        if len(self.open) == 4:
+            self.epochs.append(self.open)
+            self.open = None
 
-    def split_ms(self) -> Dict[str, float]:
-        """``shuffle_ms``, ``sample_ms`` and ``train_ms`` of the last epoch."""
-        marks = self.marks[-4:]
-        if self.cuda:
-            marks[-1].synchronize()
-            spans = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-        else:
-            spans = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
-        return dict(zip(('shuffle_ms', 'sample_ms', 'train_ms'), spans))
+    def split_ms(self, epochs: Optional[int] = None):
+        """``shuffle_ms``, ``sample_ms`` and ``train_ms`` of the last epoch,
+        or a list of them for each of the last ``epochs`` epochs, oldest
+        first."""
+        chosen = list(self.epochs)[-(epochs or 1):]
+        splits = [dict(zip(('shuffle_ms', 'sample_ms', 'train_ms'), stamps_ms(marks)))
+                  for marks in chosen]
+        return splits if epochs is not None else splits[-1]
 
 
 def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool,
@@ -263,19 +326,20 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     """Build an epoch function over ``loader``'s data.
 
     Returns ``(epoch_fn, data, num_steps, num_examples)``.  For
-    ``training=True``: ``epoch_fn(params, opt_states, data, seed, epoch_idx)
-    -> (params, opt_states, mean_loss)``, with ``epoch_fn.epoch_batches(seed,
-    epoch_idx)`` (the epoch's batches), ``epoch_fn.split_ms()`` (shuffle,
-    sampler and train milliseconds of the last epoch), ``epoch_fn.fused``
-    and ``epoch_fn.sampler`` (``select_sampler``'s choice, None without exact
-    sampling); for
-    validation:
+    ``training=True``: ``epoch_fn(params, opt_states, data, seed, epoch_idx,
+    live=None) -> (params, opt_states, mean_loss)``, with
+    ``epoch_fn.epoch_batches(seed, epoch_idx)`` (the epoch's batches),
+    ``epoch_fn.split_ms(epochs=None)`` (shuffle, sampler and train
+    milliseconds of the last epoch, or a list for the last ``epochs``),
+    ``epoch_fn.fused`` and ``epoch_fn.sampler`` (``select_sampler``'s
+    choice, None without exact sampling); for validation:
     ``epoch_fn(params, data, seed, epoch_idx) -> mean_loss``.  ``mean_loss``
-    is a 0-d tensor on the model's device.  ``fused``: ``None`` (the
-    trainer's) takes the kernel on ``cuda`` inside the envelope and the
-    generic epoch elsewhere; ``True`` requires the envelope and runs the
-    fused function on any device (its plain version on the CPU); ``False``
-    runs the generic autograd epoch on any device."""
+    is a 0-d tensor on the model's device; ``live``: see the module
+    docstring.  ``fused``: ``None`` (the trainer's) follows
+    ``COLLIE_TPU_FUSED_EPOCH``, by default the kernel on ``cuda`` inside the
+    envelope and the generic epoch elsewhere; ``True`` requires the envelope
+    and runs the fused function on any device (its plain version on the
+    CPU); ``False`` runs the generic autograd epoch on any device."""
     if mesh is not None:
         raise NotImplementedError('mesh training is not ported yet (ROADMAP Queue 1)')
     inter = loader.interactions
@@ -295,6 +359,8 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     # explicit data has no negatives (``num_negative_samples`` raises there)
     K = 0 if explicit else inter.num_negative_samples
     exact = not explicit and inter.exact_negative_sampling
+    shuffle_kind = os.environ.get('COLLIE_TPU_SHUFFLE', 'feistel')
+    slot_epoch = os.environ.get('COLLIE_TPU_SLOT_EPOCH', '1') != '0'
 
     def put(x):
         return torch.as_tensor(np.ascontiguousarray(x), device=device)
@@ -323,7 +389,8 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         data['users_g'] = put(users_g_np)
         N_g = len(users_g_np)
         drop_last = getattr(loader, 'drop_last', False)
-        if packable and shuffle and not drop_last and N_g >= 2 and (N_g - n) <= 0.02 * n:
+        if packable and shuffle and not drop_last and N_g >= 2 and (N_g - n) <= 0.02 * n \
+                and slot_epoch:
             # slot-domain epoch: ids and a validity bit at grouped-slot
             # positions (bucket-pad slots -> mask 0), one row gather per
             # epoch.  Its steps cover every slot, so a loader that drops
@@ -367,6 +434,17 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             shape = (S * B, K)
         return draw_epoch(seed, epoch_idx, training, device, perm_n, shape, num_items, exact)
 
+    def _permutation(keys, seed, epoch_idx, size):
+        """The epoch's shuffle of ``arange(size)``: the Feistel cycle-walk
+        under the drawn keys, or for ``COLLIE_TPU_SHUFFLE=sort`` a
+        ``torch.randperm`` from its own generator."""
+        if shuffle_kind != 'sort':
+            return feistel_permutation_from_keys(keys, size)
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(np.random.SeedSequence(
+            [int(seed), int(epoch_idx), int(training), 5]).generate_state(1, np.uint64)[0]))
+        return torch.randperm(size, generator=generator, device=device)
+
     def _epoch_batches(seed, epoch_idx) -> Dict[str, torch.Tensor]:
         """The whole epoch on the device: ``users``/``pos_items`` ``[S, B]``
         int32, ``neg_items [S, B, K]`` int32 (in the item range), ``mask
@@ -376,7 +454,7 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         item_mask = (1 << item_bits) - 1
         if 'packed_slots' in data:
             n_slots = S * B - slot_tail
-            sigma = feistel_permutation_from_keys(keys, n_slots)
+            sigma = _permutation(keys, seed, epoch_idx, n_slots)
             sidx = torch.cat([sigma, sigma[:1].repeat(slot_tail)]) if slot_tail else sigma
             clock.mark()
             negs_g = complement_sample_negatives_bucketed_grouped(
@@ -399,7 +477,7 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                 'neg_items': torch.clamp(rows[..., 2:], max=num_items - 1).contiguous(),
             }
         if keys is not None:
-            perm = feistel_permutation_from_keys(keys, n)[:n_used]
+            perm = _permutation(keys, seed, epoch_idx, n)[:n_used]
         else:
             perm = torch.arange(n_used, device=device)
         idx = torch.cat([perm, perm[:1].repeat(pad)]) if pad else perm
@@ -447,27 +525,31 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         val_epoch_fn.sampler = sampler
         return val_epoch_fn, data, S, n_used
 
-    cfg = None if fused is False else _fused_epoch_config(model, specs, active, loader, mesh)
+    gate = os.environ.get('COLLIE_TPU_FUSED_EPOCH', 'auto') if fused is None else None
+    cfg = (None if fused is False or gate == '0'
+           else _fused_epoch_config(model, specs, active, loader, mesh))
     if fused and cfg is None:
         raise ValueError('fused=True but this model is outside the kernel\'s envelope')
-    use_fused = cfg is not None and (fused or device.type == 'cuda')
+    use_fused = cfg is not None and (fused or gate == '1' or device.type == 'cuda')
 
-    def fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i):
+    def fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i, live):
         """The optimizer states after a fused epoch: the Adam moments and
-        count it returns; both ``inject_hyperparams`` counts advance by S."""
+        count it returns; both ``inject_hyperparams`` counts advance by S
+        (by 0 in a skipped epoch)."""
         emb_idx, bias_idx = cfg['emb_idx'], cfg['bias_idx']
         emb_state, bias_state = opt_states[emb_idx], opt_states[bias_idx]
+        steps = S if live is None else S * live.to(torch.int32)
         new_states = list(opt_states)
         new_states[emb_idx] = dataclasses.replace(
-            emb_state, count=emb_state.count + S, adam_count=cnt,
+            emb_state, count=emb_state.count + steps, adam_count=cnt,
             mu={'item_embeddings': mu_i, 'user_embeddings': mu_u},
             nu={'item_embeddings': nu_i, 'user_embeddings': nu_u})
-        new_states[bias_idx] = dataclasses.replace(bias_state, count=bias_state.count + S)
+        new_states[bias_idx] = dataclasses.replace(bias_state, count=bias_state.count + steps)
         return tuple(new_states)
 
     if use_fused and cfg['explicit']:
-        def epoch_fn(params, opt_states, data_, seed, epoch_idx):
-            clock.mark()
+        def epoch_fn(params, opt_states, data_, seed, epoch_idx, live=None):
+            clock.begin()
             batches = _epoch_batches(seed, epoch_idx)
             clock.mark()
             emb_state = opt_states[cfg['emb_idx']]
@@ -482,11 +564,11 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                 batches['users'], batches['items'], batches['ratings'], batches['mask'],
                 emb_state.learning_rate, opt_states[cfg['bias_idx']].learning_rate,
                 loss_kind=cfg['loss_kind'], y_range=cfg['y_range'],
-                wd_emb=cfg['wd_emb'], wd_bias=cfg['wd_bias'])
+                wd_emb=cfg['wd_emb'], wd_bias=cfg['wd_bias'], live=live)
             new_params = {**params, 'user_embeddings': ue, 'item_embeddings': ie,
                           'user_biases': ub, 'item_biases': ib}
             clock.mark()
-            return (new_params, fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i),
+            return (new_params, fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i, live),
                     losses.mean())
     elif use_fused:
         emb_idx, bias_idx = cfg['emb_idx'], cfg['bias_idx']
@@ -497,8 +579,8 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         meta_weights = tuple(float(model.metadata_for_loss_weights[m])
                              for m in cfg['meta_names'])
 
-        def epoch_fn(params, opt_states, data_, seed, epoch_idx):
-            clock.mark()
+        def epoch_fn(params, opt_states, data_, seed, epoch_idx, live=None):
+            clock.begin()
             batches = _epoch_batches(seed, epoch_idx)
             clock.mark()
             emb_state, bias_state = opt_states[emb_idx], opt_states[bias_idx]
@@ -511,23 +593,27 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                 batches['users'], batches['pos_items'], batches['neg_items'],
                 batches['mask'], emb_state.learning_rate, lr_b, meta_rows,
                 K=K, adaptive=cfg['adaptive'], loss_kind=cfg['loss_kind'],
-                meta_weights=meta_weights, wd_emb=cfg['wd_emb'], wd_bias=cfg['wd_bias'])
+                meta_weights=meta_weights, wd_emb=cfg['wd_emb'], wd_bias=cfg['wd_bias'],
+                live=live)
             new_params = {**params, 'user_embeddings': ue, 'item_embeddings': ie,
                           'item_biases': ib}
             if cfg['wd_bias']:
                 # user biases get zero data gradient from pairwise ranking
                 # losses: their sgd + coupled decay is b *= (1 - lr*wd) per step
-                rate = torch.tensor(lr_b, dtype=torch.float32) * cfg['wd_bias']
+                rate = _lr_value(lr_b, device) * cfg['wd_bias']
                 decay = (1.0 - rate) ** S
-                new_params['user_biases'] = params['user_biases'] * decay.to(device)
+                if live is not None:
+                    decay = torch.where(live, decay, torch.ones_like(decay))
+                new_params['user_biases'] = params['user_biases'] * decay
             clock.mark()
-            return (new_params, fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i),
+            return (new_params, fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i, live),
                     losses.mean())
     else:
         with_dropout = not model._score_is_deterministic()
 
-        def epoch_fn(params, opt_states, data_, seed, epoch_idx):
-            clock.mark()
+        def epoch_fn(params, opt_states, data_, seed, epoch_idx, live=None):
+            clock.begin()
+            old_params, old_states = params, opt_states
             batches = _epoch_batches(seed, epoch_idx)
             clock.mark()
             step_seeds = dropout_step_seeds(seed, epoch_idx, S) if with_dropout else None
@@ -541,8 +627,15 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                     model, specs, active, params, opt_states,
                     {k: v[s] for k, v in batches.items()}, generator)
                 losses.append(loss)
+            loss = torch.stack(losses).mean()
+            if live is not None:
+                params = {k: v if v is old_params[k] else torch.where(live, v, old_params[k])
+                          for k, v in params.items()}
+                opt_states = tuple(select_state(live, new, old)
+                                   for new, old in zip(opt_states, old_states))
+                loss = torch.where(live, loss, torch.full_like(loss, float('nan')))
             clock.mark()
-            return params, opt_states, torch.stack(losses).mean()
+            return params, opt_states, loss
 
     epoch_fn.split_ms = clock.split_ms
     epoch_fn.fused = use_fused
@@ -550,3 +643,112 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     epoch_fn.epoch_batches = _epoch_batches
     return epoch_fn, data, S, n_used
 
+
+
+def build_scan_fit_fn(train_epoch_fn, val_epoch_fn, *, monitor_val: bool,
+                      sched_kinds: Sequence[str], sched_statics: Sequence[tuple],
+                      es_patience: Optional[int], terminate_on_nan: bool) -> Callable:
+    """A block of a whole fit: epochs back to back with every per-epoch
+    decision on the device, ported from ``collie_tpu/training/
+    scan_engine.py:815-946``.
+
+    Per epoch: the training epoch under ``live = ~stopped``, the validation
+    loss when ``monitor_val``, then the device schedulers
+    (``scheduler_device_step``, rewriting each scheduled state's 0-d
+    learning-rate tensor), early stopping and the NaN trip.  As in JAX: a
+    NaN epoch (the TRAIN loss only, under ``terminate_on_nan``) leaves the
+    scheduler and early-stopping state alone and sets ``stopped``; patience
+    counts only non-improving epochs, so ``es_patience=0`` never stops an
+    improving run; an epoch after a stop changes nothing and reports NaN
+    losses.  Nothing waits for the host.
+
+    Returns ``fit_fn(params, opt_states, train_data, val_data, seed,
+    epoch_idxs, sched_state, es_state, marks=None) -> (params, opt_states,
+    sched_state, es_state, train_losses [b], val_losses [b], lrs, ran [b])``
+    with ``lrs`` one ``[b]`` tensor per optimizer (NaN where no scheduler
+    acts), ``es_state = (best, n_no_improve, stopped, nan_seen)`` 0-d
+    tensors (``best`` and ``n_no_improve`` advance only under a patience,
+    the one reader of them), and ``marks`` a list that gets one
+    ``device_stamp`` at each epoch's start."""
+    def current_lrs(opt_states, nan):
+        return [nan if kind == 'none' else opt_states[i].learning_rate
+                for i, kind in enumerate(sched_kinds)]
+
+    def fit_fn(params, opt_states, train_data, val_data, seed, epoch_idxs, sched_state,
+               es_state, marks: Optional[list] = None):
+        device = es_state[2].device
+        nan = torch.full((), float('nan'), dtype=torch.float32, device=device)
+        outputs = []
+        for epoch_idx in epoch_idxs:
+            best_es, n_no, stopped, nan_seen = es_state
+            if marks is not None:
+                marks.append(device_stamp(device))
+            live = ~stopped
+            params, opt_states, train_loss = train_epoch_fn(
+                params, opt_states, train_data, seed, int(epoch_idx), live)
+            train_loss = torch.where(live, train_loss, nan)
+            if monitor_val:
+                val_loss = torch.where(live, val_epoch_fn(params, val_data, seed,
+                                                          int(epoch_idx)), nan)
+                monitored = val_loss
+            else:
+                val_loss, monitored = nan, train_loss
+            if terminate_on_nan:
+                # the per-epoch loop's NaN guard checks the TRAIN loss only
+                bad = live & ~torch.isfinite(train_loss)
+                hold = stopped | bad            # a skipped or NaN epoch steps nothing
+                stopped, nan_seen = hold, nan_seen | bad
+            else:
+                bad, hold = None, stopped
+
+            new_states, new_sched = list(opt_states), []
+            for i, kind in enumerate(sched_kinds):
+                if kind == 'none':
+                    new_sched.append(sched_state[i])
+                    continue
+                lr = new_states[i].learning_rate
+                stepped, new_lr = scheduler_device_step(kind, sched_statics[i], sched_state[i],
+                                                        lr, monitored)
+                new_sched.append(tuple(torch.where(hold, old, new)
+                                       for new, old in zip(stepped, sched_state[i])))
+                new_states[i] = with_lr(new_states[i], torch.where(hold, lr, new_lr))
+            opt_states, sched_state = tuple(new_states), tuple(new_sched)
+
+            if es_patience is not None:
+                # only patience reads the early-stopping best and count
+                improved = monitored < best_es
+                best_es = torch.where(hold | ~improved, best_es, monitored)
+                n_no = torch.where(hold, n_no, torch.where(improved, 0, n_no + 1))
+                # the per-epoch loop checks patience only on NON-improving epochs
+                stopped = stopped | (~hold & ~improved & (n_no >= es_patience))
+            es_state = (best_es, n_no, stopped, nan_seen)
+            outputs.append((train_loss, val_loss, current_lrs(opt_states, nan), live))
+        train_losses, val_losses, lrs, ran = zip(*outputs)
+        return (params, opt_states, sched_state, es_state, torch.stack(train_losses),
+                torch.stack(val_losses), [torch.stack(per) for per in zip(*lrs)],
+                torch.stack(ran))
+
+    return fit_fn
+
+
+def fetch_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Small float32 / int32 / bool device tensors as numpy arrays of their
+    dtypes and shapes, through ONE device-to-host copy: the integers travel
+    bitcast as float32 words beside the floats."""
+    words = []
+    for t in tensors:
+        t = t.reshape(-1)
+        if t.dtype == torch.bool:
+            t = t.to(torch.int32)
+        words.append(t.view(torch.float32) if t.dtype == torch.int32 else t.to(torch.float32))
+    host = torch.cat(words).cpu().numpy() if words else np.zeros(0, np.float32)
+    out, offset = [], 0
+    for t in tensors:
+        chunk = host[offset:offset + t.numel()]
+        offset += t.numel()
+        if t.dtype in (torch.int32, torch.bool):
+            chunk = chunk.view(np.int32)
+            if t.dtype == torch.bool:
+                chunk = chunk != 0
+        out.append(chunk.reshape(tuple(t.shape)))
+    return out

@@ -1,9 +1,27 @@
-"""Training engine: one epoch function call per epoch, a host loop around it.
+"""Training engine: the whole fit, or one epoch function call per epoch.
 
 Port of ``collie_tpu/training/trainer.py`` for single-device fits of
-implicit or explicit data.  ``CollieTrainer.fit`` runs the per-epoch host
-loop of the JAX package's ``_run_epochs`` (``:762-869``) over one of two
-epoch paths, chosen as JAX does (``:196-222``):
+implicit or explicit data.  ``CollieTrainer.fit`` has three tiers, chosen as
+JAX chooses them (``:196-222``, ``:465-499``, ``:682-692``):
+
+* the whole fit (``_run_fit_scan``, the default): when the loaders are
+  in-memory, no ``checkpoint_dir`` is set, every scheduler has a device
+  form (``schedulers.scheduler_device_config``) and every optimizer a
+  scheduler acts on keeps a ``learning_rate``, the epochs run in greedy
+  power-of-two blocks of at most 16 (``scan_engine.build_scan_fit_fn``)
+  with the schedulers, early stopping and the NaN trip on the device, and
+  the host waits for the card once per flight of up to 4 blocks: one
+  transfer of the flight's losses, learning rates, ``ran`` mask and the
+  scheduler and early-stopping state.  Then it replays the per-epoch
+  bookkeeping: prints (JAX's format, without per-epoch seconds), logger
+  rows, learning-rate changes, ``best_epoch_loss``, the epoch counters, the
+  ``FloatingPointError`` of the NaN trip and the early-stopping message.
+  The blocks cost nothing to build here; they are kept so that the host
+  sees a stop at the epochs where JAX's does.  ``COLLIE_TPU_WHOLE_FIT=0``
+  takes the per-epoch loop instead, and so does every fit outside those
+  conditions;
+* the per-epoch host loop of the JAX package's ``_run_epochs``
+  (``:762-869``), over one of two epoch paths:
 
 * the whole-epoch path (``scan_engine``) for in-memory loaders, unless
   ``epoch_mode='step'``: the epoch functions are built once per fit, and an
@@ -23,9 +41,10 @@ epoch paths, chosen as JAX does (``:196-222``):
   losses.
 
 Around the epoch: the ``terminate_on_nan`` trip, the validation loss, host
-``ReduceLROnPlateau`` / ``StepLR`` stepping through ``set_lr``, checkpoints,
-early stopping on the monitored loss, ``num_epochs_completed`` and the
-verbose lines.  The base seed is ``seed`` (0 when not given), as the JAX
+``ReduceLROnPlateau`` / ``StepLR`` stepping through ``set_lr`` (the new
+rate in float32, as the device step computes it), checkpoints, early
+stopping on the monitored loss, ``num_epochs_completed`` and the verbose
+lines.  The base seed is ``seed`` (0 when not given), as the JAX
 trainer's ``PRNGKey(seed)``.
 
 Checkpoints (``:104-157``, the host-pickle format): with ``checkpoint_dir``,
@@ -40,10 +59,14 @@ its leaves in a fixed order and a scheduler as its attributes.
 (``weights.read_checkpoint``), and arms the next ``fit`` with the whole
 state.
 
+``flight_guard``: the context the whole fit enters around each flight's
+dispatch (none by default); ``chip_smoke.py`` sets one that turns every
+host sync inside a flight into an error.
+
 Not ported (ROADMAP.md): mesh training and its ``.shards`` checkpoints, the
-HDF5 chunk tier, multi-process fits and the whole-fit single dispatch.
+HDF5 chunk tier and multi-process fits.
 """
-import dataclasses
+import contextlib
 import os
 import pickle
 import time
@@ -53,14 +76,26 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from collie_tpu_torch.training.optimizers import get_lr, set_lr
-from collie_tpu_torch.training.scan_engine import (build_scan_epoch_fns, loader_is_scannable,
-                                                   train_step)
-from collie_tpu_torch.training.schedulers import resolve_scheduler
+from collie_tpu_torch.training.optimizers import (get_lr, host_scalars, set_lr,
+                                                  state_from_leaves, state_leaves,
+                                                  whole_fit_states)
+from collie_tpu_torch.training.scan_engine import (build_scan_epoch_fns, build_scan_fit_fn,
+                                                   device_stamp, fetch_to_host,
+                                                   loader_is_scannable, stamps_ms, train_step)
+from collie_tpu_torch.training.schedulers import (resolve_scheduler,
+                                                  scheduler_absorb_device_state,
+                                                  scheduler_device_config, scaled_lr)
 from collie_tpu_torch.weights import (device_leaf, host_leaf, optimizer_state_from_jax,
                                       read_checkpoint)
 
 _ROADMAP = 'not ported yet (ROADMAP Queue 1)'
+#: blocks of a whole fit dispatched between two host syncs
+_FLIGHT = 4
+#: the longest block of a whole fit
+_MAX_BLOCK = 16
+
+#: entered around each flight's dispatch (module docstring)
+flight_guard = contextlib.nullcontext
 
 
 def step_dropout_seed(seed: int, global_step: int) -> int:
@@ -68,37 +103,6 @@ def step_dropout_seed(seed: int, global_step: int) -> int:
     global_step)``."""
     return int(np.random.SeedSequence([int(seed), int(global_step), 4]).generate_state(
         1, dtype=np.uint64)[0])
-
-
-def state_leaves(tree: Any) -> List[Any]:
-    """The leaves of an optimizer state in a fixed order: dataclass fields
-    in declaration order, dict entries by sorted key, sequence items in
-    order; anything else is a leaf."""
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return [leaf for f in dataclasses.fields(tree)
-                for leaf in state_leaves(getattr(tree, f.name))]
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in state_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for item in tree for leaf in state_leaves(item)]
-    return [tree]
-
-
-def state_from_leaves(template: Any, leaves) -> Any:
-    """``template``'s structure with ``state_leaves``' order filled from the
-    iterator ``leaves``."""
-    if dataclasses.is_dataclass(template) and not isinstance(template, type):
-        return dataclasses.replace(template, **{
-            f.name: state_from_leaves(getattr(template, f.name), leaves)
-            for f in dataclasses.fields(template)})
-    if isinstance(template, dict):
-        return {k: state_from_leaves(template[k], leaves) for k in sorted(template)}
-    if isinstance(template, (list, tuple)):
-        items = [state_from_leaves(item, leaves) for item in template]
-        if hasattr(template, '_fields'):
-            return type(template)(*items)
-        return type(template)(items)
-    return next(leaves)
 
 
 class CollieTrainer:
@@ -147,8 +151,10 @@ class CollieTrainer:
         self._pending_resume: Optional[Dict[str, Any]] = None
         #: training examples per second of the last ``fit``
         self.last_fit_examples_per_sec: Optional[float] = None
-        #: per epoch of the last ``fit``: ``epoch``, ``seconds`` (host clock,
-        #: validation included) and, on the whole-epoch path, ``shuffle_ms``,
+        #: per epoch of the last ``fit``: ``epoch``, ``seconds`` (validation
+        #: included; the host clock, or in a whole fit the span from the
+        #: epoch's start to the next one's on the device's timeline, CUDA
+        #: events on the card) and, on the whole-epoch path, ``shuffle_ms``,
         #: ``sample_ms`` (the sampler and the batch assembly; for explicit
         #: data, which has no sampler, the batch gather alone) and
         #: ``train_ms`` (the kernel, or the generic epoch's steps); on the
@@ -161,7 +167,7 @@ class CollieTrainer:
         Path(self.checkpoint_dir).mkdir(parents=True, exist_ok=True)
         payload = {
             'params': {k: host_leaf(v) for k, v in params.items()},
-            'opt_states': tuple([host_leaf(leaf) for leaf in state_leaves(state)]
+            'opt_states': tuple([host_leaf(leaf) for leaf in state_leaves(host_scalars(state))]
                                 for state in opt_states),
             'schedulers': [None if s is None else dict(vars(s)) for s in schedulers],
             'epoch': epoch,
@@ -254,6 +260,9 @@ class CollieTrainer:
             ckpt, self._pending_resume = self._pending_resume, None
             params, opt_states, schedulers = self._restore(model, ckpt, opt_states, schedulers)
         start_epoch = model.hparams.get('num_epochs_completed', 0) + 1
+        whole_fit = self._whole_fit_eligible(use_scan_train, use_scan_val,
+                                             model.val_loader is not None, schedulers,
+                                             opt_states)
         self.epoch_log = []
         state = {'params': params, 'opt_states': opt_states, 'total_examples': 0}
         fit_start = time.perf_counter()
@@ -261,7 +270,8 @@ class CollieTrainer:
             self._run_epochs(model=model, specs=specs, schedulers=schedulers,
                              start_epoch=start_epoch, train_fn=train_fn,
                              train_data=train_data, train_examples=train_examples,
-                             val_fn=val_fn, val_data=val_data, state=state, steps=steps)
+                             val_fn=val_fn, val_data=val_data, state=state, steps=steps,
+                             whole_fit=whole_fit)
         finally:
             # the model holds the latest tables even when an epoch raises
             model.load_params(state['params'])
@@ -303,8 +313,155 @@ class CollieTrainer:
                 if callable(save):
                     save()
 
+    # ------------------------------------------------------------ whole fit
+
+    def _whole_fit_eligible(self, use_scan_train, use_scan_val, monitor_val, schedulers,
+                            opt_states) -> bool:
+        """Whether the fit runs as a whole fit (module docstring), JAX's
+        rule (``collie_tpu/training/trainer.py:465-499``).  A scheduler on
+        a custom factory's state without a ``learning_rate`` routes the fit
+        to the per-epoch loop, which fails only if that scheduler fires."""
+        if os.environ.get('COLLIE_TPU_WHOLE_FIT', '1') == '0':
+            return False
+        if not use_scan_train or (monitor_val and not use_scan_val):
+            return False
+        if self.checkpoint_dir is not None:
+            return False
+        kinds = [scheduler_device_config(s, 'cpu') for s in schedulers]
+        if any(k is None for k in kinds):
+            return False
+        return all(k[0] == 'none' or hasattr(state, 'learning_rate')
+                   for k, state in zip(kinds, opt_states))
+
+    def _run_fit_scan(self, *, model, specs, schedulers, start_epoch, train_fn, train_data,
+                      train_examples, val_fn, val_data, state) -> None:
+        """The whole fit: blocks of epochs dispatched in flights with one
+        host transfer each, then the host-side replay of the per-epoch
+        bookkeeping from the returned losses, learning rates and ``ran``
+        mask (``collie_tpu/training/trainer.py:500-676``)."""
+        num_epochs = self.max_epochs - start_epoch + 1
+        if num_epochs <= 0:
+            return
+        device = model.device
+        monitor_val = model.val_loader is not None
+        cfgs = [scheduler_device_config(s, device) for s in schedulers]
+        kinds = [c[0] for c in cfgs]
+        sched_state = tuple(c[2] for c in cfgs)
+        fit_fn = build_scan_fit_fn(train_fn, val_fn, monitor_val=monitor_val,
+                                   sched_kinds=kinds, sched_statics=[c[1] for c in cfgs],
+                                   es_patience=self.early_stopping_patience,
+                                   terminate_on_nan=self.terminate_on_nan)
+        # the lr-change replay starts from the pre-fit rates, so a cut on the
+        # first epoch prints as in the per-epoch loop
+        prev_lrs = [get_lr(st) if kind != 'none' else None
+                    for kind, st in zip(kinds, state['opt_states'])]
+        state['opt_states'] = whole_fit_states(state['opt_states'],
+                                               [kind != 'none' for kind in kinds], device)
+        blocks, remaining = [], num_epochs
+        while remaining:
+            b = _MAX_BLOCK
+            while b > remaining:
+                b //= 2
+            blocks.append(b)
+            remaining -= b
+        es_state = (torch.full((), self.best_epoch_loss[1], dtype=torch.float32, device=device),
+                    torch.zeros((), dtype=torch.int32, device=device),
+                    torch.zeros((), dtype=torch.bool, device=device),
+                    torch.zeros((), dtype=torch.bool, device=device))
+        tl, vl, lrs, ran, log = [], [], [[] for _ in specs], [], []
+        epoch = start_epoch
+        for f0 in range(0, len(blocks), _FLIGHT):
+            pending, marks = [], []
+            with flight_guard():
+                for b in blocks[f0:f0 + _FLIGHT]:
+                    (state['params'], state['opt_states'], sched_state, es_state, *out) = fit_fn(
+                        state['params'], state['opt_states'], train_data, val_data, self.seed,
+                        range(epoch, epoch + b), sched_state, es_state, marks=marks)
+                    pending.append(out)
+                    epoch += b
+                marks.append(device_stamp(device))
+            # ONE host transfer for the flight: every block's outputs and the
+            # scheduler and early-stopping state
+            tensors = [t for tl_b, vl_b, lrs_b, ran_b in pending
+                       for t in (tl_b, vl_b, *lrs_b, ran_b)]
+            tensors += list(es_state) + [t for st in sched_state for t in st]
+            host = iter(fetch_to_host(tensors))
+            for _ in pending:
+                tl.append(next(host))
+                vl.append(next(host))
+                for per_spec in lrs:
+                    per_spec.append(next(host))
+                ran.append(next(host))
+            es_h = [next(host) for _ in es_state]
+            sched_h = [tuple(next(host) for _ in st) for st in sched_state]
+            seconds = [ms / 1e3 for ms in stamps_ms(marks)]
+            splits = train_fn.split_ms(epochs=len(seconds))
+            log += [{'seconds': sec, **split} for sec, split in zip(seconds, splits)]
+            if es_h[2]:                               # stopped: early stop or NaN
+                break
+        for scheduler, st in zip(schedulers, sched_h):
+            scheduler_absorb_device_state(scheduler, st)
+        self._replay(model, specs, kinds, start_epoch, train_examples, state, monitor_val,
+                     np.concatenate(tl), np.concatenate(vl),
+                     [np.concatenate(per) for per in lrs], np.concatenate(ran), log,
+                     prev_lrs, es_h)
+
+    def _replay(self, model, specs, kinds, start_epoch, train_examples, state, monitor_val,
+                tl, vl, lrs, ran, log, prev_lrs, es_h) -> None:
+        """The per-epoch loop's bookkeeping for each epoch a whole fit ran."""
+        for j in range(len(tl)):
+            if not ran[j]:
+                break
+            epoch = start_epoch + j
+            train_loss = float(tl[j])
+            val_loss = float(vl[j]) if monitor_val else None
+            monitored = val_loss if monitor_val else train_loss
+            # the per-epoch loop raises before counting the NaN epoch as
+            # completed, after its examples were processed
+            state['total_examples'] += train_examples
+            if self.terminate_on_nan and not np.isfinite(train_loss):
+                raise FloatingPointError(f'NaN/Inf train loss at epoch {epoch}.')
+            model.hparams['num_epochs_completed'] = epoch
+            self.num_epochs_completed = epoch
+            self.epoch_log.append({'epoch': epoch, **log[j]})
+            if self.verbosity > 0:
+                msg = f'Epoch {epoch:>3}: train loss {train_loss:.5f}'
+                if val_loss is not None:
+                    msg += f', val loss {val_loss:.5f}'
+                print(msg)
+            if self.logger is not None:
+                metrics = {'train_loss_epoch': train_loss}
+                if val_loss is not None:
+                    metrics['val_loss_epoch'] = val_loss
+                self.logger.log_metrics(metrics, step=epoch)
+            for i, kind in enumerate(kinds):
+                if kind == 'none':
+                    continue
+                lr_now = float(lrs[i][j])
+                if lr_now != prev_lrs[i] and self.verbosity > 0:
+                    print(f'  lr[{specs[i].name}] -> {lr_now:.2e}')
+                prev_lrs[i] = lr_now
+            if monitored < self.best_epoch_loss[1]:
+                self.best_epoch_loss = (epoch, monitored)
+        if es_h[3]:
+            # the replay above raises first; kept as JAX keeps it
+            raise FloatingPointError('NaN/Inf train loss during fit.')
+        if es_h[2] and self.verbosity > 0:
+            print(f'Early stopping at epoch {self.num_epochs_completed} '
+                  f'(best epoch {self.best_epoch_loss[0]}, '
+                  f'loss {self.best_epoch_loss[1]:.5f}).')
+
+    # -------------------------------------------------------- per-epoch loop
+
     def _run_epochs(self, *, model, specs, schedulers, start_epoch, train_fn, train_data,
-                    train_examples, val_fn, val_data, state, steps=None) -> None:
+                    train_examples, val_fn, val_data, state, steps=None,
+                    whole_fit: bool = False) -> None:
+        if whole_fit:
+            self._run_fit_scan(model=model, specs=specs, schedulers=schedulers,
+                               start_epoch=start_epoch, train_fn=train_fn,
+                               train_data=train_data, train_examples=train_examples,
+                               val_fn=val_fn, val_data=val_data, state=state)
+            return
         monitor_val = model.val_loader is not None
         epochs_no_improvement = 0
         for epoch in range(start_epoch, self.max_epochs + 1):
@@ -359,11 +516,11 @@ class CollieTrainer:
                     continue
                 factor = scheduler.step(monitored)
                 if factor is not None:
-                    current = get_lr(new_states[i])
-                    min_lr = getattr(scheduler, 'min_lr', 0.0)
-                    new_states[i] = set_lr(new_states[i], max(current * factor, min_lr))
+                    new_lr = scaled_lr(get_lr(new_states[i]), factor,
+                                       getattr(scheduler, 'min_lr', 0.0))
+                    new_states[i] = set_lr(new_states[i], new_lr)
                     if self.verbosity > 0:
-                        print(f'  lr[{specs[i].name}] -> {max(current * factor, min_lr):.2e}')
+                        print(f'  lr[{specs[i].name}] -> {new_lr:.2e}')
             state['opt_states'] = tuple(new_states)
 
             if (self.checkpoint_dir is not None

@@ -21,7 +21,8 @@ from collie_tpu.ops.pallas.fused_mf_epoch import \
     fused_mf_explicit_epoch as jax_fused_mf_explicit_epoch
 from collie_tpu_torch import ExplicitInteractions, InteractionsDataLoader, MatrixFactorizationModel
 from collie_tpu_torch.ops.kernels.fused_mf_epoch import (MAX_DIM, fused_mf_explicit_epoch,
-                                                         fused_mf_explicit_epoch_cuda)
+                                                         fused_mf_explicit_epoch_cuda,
+                                                         fused_mf_explicit_epoch_plain)
 from collie_tpu_torch.training import scan_engine
 from collie_tpu_torch.training.scan_engine import _fused_epoch_config, build_scan_epoch_fns
 
@@ -82,6 +83,24 @@ def test_plain_version_matches_the_pallas_kernel(loss_kind, y_range, wd, dup):
     assert not np.allclose(out[2].numpy(), arrays[2])
     assert not np.allclose(out[3].numpy(), arrays[3])
     np.testing.assert_array_equal(tensors[0].numpy(), arrays[0])
+
+
+def test_plain_version_takes_tensor_learning_rates_and_a_live_flag():
+    """As for the implicit epoch: tensor learning rates give the float epoch
+    bit for bit, ``live=True`` the ordinary epoch, ``live=False`` every
+    table, bias and moment as it went in with NaN losses."""
+    args = _to_torch(explicit_inputs(11, dup=True))
+    kw = dict(loss_kind='mse', y_range=(1.0, 5.0), wd_emb=1e-3, wd_bias=1e-3)
+    ref = fused_mf_explicit_epoch_plain(*args, **kw)
+    lrs = [torch.tensor(args[13], dtype=torch.float32), torch.tensor(args[14])]
+    for live in (None, torch.tensor(True)):
+        out = fused_mf_explicit_epoch_plain(*args[:13], *lrs, live=live, **kw)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+    skipped = fused_mf_explicit_epoch_plain(*args[:13], *lrs, live=torch.tensor(False), **kw)
+    for a, b in zip(skipped[:9], args[:9]):
+        assert torch.equal(a, b)
+    assert torch.isnan(skipped[9]).all() and int(ref[8]) == int(args[8]) + 3
 
 
 def test_mae_gradient_of_an_exact_prediction_is_zero():
@@ -174,6 +193,19 @@ def test_explicit_envelope_refuses_what_the_kernel_does_not_take(explicit_train)
     model = _mf(loader)
     specs = model.optimizer_specs()
     assert _fused_epoch_config(model, specs, [True, True], loader, mesh=object()) is None
+
+
+@pytest.mark.parametrize('gate,fused', [('auto', False), ('1', True), ('0', False)])
+def test_fused_epoch_knob_routes_the_explicit_epoch(explicit_train, monkeypatch, gate, fused):
+    """``COLLIE_TPU_FUSED_EPOCH`` for ratings: ``auto`` takes the explicit
+    kernel on ``cuda`` only (unlike JAX's auto gate, which retires it for
+    TPU reasons), ``1`` its plain version here, ``0`` the generic epoch."""
+    monkeypatch.setenv('COLLIE_TPU_FUSED_EPOCH', gate)
+    loader = InteractionsDataLoader(interactions=explicit_train, batch_size=1024, seed=0)
+    model = _mf(loader, y_range=(1, 5))
+    fn, *_ = build_scan_epoch_fns(model, model.optimizer_specs(), [True, True], loader,
+                                  shuffle=True)
+    assert fn.fused is fused
 
 
 def test_explicit_models_take_the_epoch_they_are_asked_for(explicit_train):

@@ -129,6 +129,41 @@ def test_timeline_must_hold_two_stamps_a_step_and_one():
             _timeline_ptr(bad, 3, device)
 
 
+@pytest.mark.parametrize('loss_kind,adaptive,K', VARIANTS[:3])
+def test_plain_version_takes_tensor_learning_rates_and_a_live_flag(loss_kind, adaptive, K):
+    """The learning rates as 0-d tensors give the float epoch bit for bit;
+    ``live=True`` is the ordinary epoch; ``live=False`` is a skipped one:
+    every table and moment as it went in, the count unchanged, NaN losses."""
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch_plain
+
+    arrays, meta = epoch_inputs(7 + K, K=K, F=1, dup=True)
+    args, meta = _to_torch(arrays, meta)
+    kw = dict(K=K, adaptive=adaptive, loss_kind=loss_kind, meta_weights=(0.5,),
+              wd_emb=1e-3, wd_bias=1e-3)
+    ref = fused_mf_epoch_plain(*args, meta, **kw)
+    lrs = [torch.tensor(args[12], dtype=torch.float32), torch.tensor(args[13])]
+    for live in (None, torch.tensor(True), torch.tensor(1, dtype=torch.int32)):
+        out = fused_mf_epoch_plain(*args[:12], *lrs, meta, live=live, **kw)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+    skipped = fused_mf_epoch_plain(*args[:12], *lrs, meta, live=torch.tensor(False), **kw)
+    for a, b in zip(skipped[:8], args[:8]):
+        assert torch.equal(a, b)
+    assert torch.isnan(skipped[8]).all() and int(ref[7]) == int(args[7]) + 3
+    # the wrapper takes the same arguments to the same plain version on the CPU
+    wrapped = fused_mf_epoch(*args[:12], *lrs, meta, live=torch.tensor(False), **kw)
+    for a, b in zip(wrapped, skipped):
+        assert torch.equal(a, b) or (torch.isnan(a).all() and torch.isnan(b).all())
+
+
+def test_wrapper_rejects_a_live_flag_of_several_values():
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch_plain
+
+    args, _ = _to_torch(*epoch_inputs(0))
+    with pytest.raises(ValueError, match='live'):
+        fused_mf_epoch_plain(*args, K=4, adaptive=True, live=torch.ones(2, dtype=torch.bool))
+
+
 # --------------------------------------------------------------- envelope
 
 
@@ -228,6 +263,29 @@ def test_cpu_models_take_the_generic_epoch_unless_asked(train):
     with pytest.raises(ValueError, match='envelope'):
         build_scan_epoch_fns(outside, outside.optimizer_specs(), [True, True], loader,
                              shuffle=True, fused=True)
+
+
+@pytest.mark.parametrize('gate,fused', [('auto', False), ('1', True), ('0', False)])
+def test_fused_epoch_knob_routes_the_trainers_epoch(train, monkeypatch, gate, fused):
+    """``COLLIE_TPU_FUSED_EPOCH`` maps onto ``fused=None``: ``auto`` takes
+    the kernel on ``cuda`` only (the CPU here: the generic epoch), ``1`` the
+    fused function on any device (its plain version), ``0`` the generic
+    epoch; outside the envelope ``1`` falls to the generic epoch, as JAX's
+    gate does.  An explicit ``fused=`` argument overrides the knob."""
+    monkeypatch.setenv('COLLIE_TPU_FUSED_EPOCH', gate)
+    loader = InteractionsDataLoader(interactions=train, batch_size=1024, seed=0)
+    model = _mf(loader, loss='adaptive')
+    specs = model.optimizer_specs()
+    fn, *_ = build_scan_epoch_fns(model, specs, [True, True], loader, shuffle=True)
+    assert fn.fused is fused
+    outside = _mf(loader, loss='adaptive', optimizer='sgd')
+    fn, *_ = build_scan_epoch_fns(outside, outside.optimizer_specs(), [True, True], loader,
+                                  shuffle=True)
+    assert fn.fused is False
+    for explicit_arg in (True, False):
+        fn, *_ = build_scan_epoch_fns(model, specs, [True, True], loader, shuffle=True,
+                                      fused=explicit_arg)
+        assert fn.fused is explicit_arg
 
 
 # ------------------------------------------------------------ engine level

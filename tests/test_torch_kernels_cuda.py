@@ -2,8 +2,10 @@
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  The fused epochs' edge shapes, inputs and tolerance are
-``chip_smoke.py``'s, and so are the top-k kernel's edge shapes and checks
-and the binned gather/scatter's inputs, shapes and tolerance.  The file
+``chip_smoke.py``'s, and so are the top-k kernel's edge shapes and checks,
+the binned gather/scatter's inputs, shapes and tolerance, the cycle-walk's
+key sets and bit-for-bit check, the skipped-launch check and the guard that
+turns a host sync inside a whole fit's flight into an error.  The file
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -13,9 +15,10 @@ import pytest
 import torch
 
 from chip_smoke import (EPOCH_EDGES, EXPLICIT_EDGES, EXPLICIT_STATE, GS_ATOL_SCALE,
-                        GS_OVERSIZE, GS_SHAPE, IMPLICIT_STATE, TOPK_EDGES, compare_epoch,
+                        GS_OVERSIZE, GS_SHAPE, IMPLICIT_STATE, SHUFFLE_KEY_SETS, TOPK_EDGES,
+                        check_cycle_walk, check_skipped_launch, compare_epoch,
                         compare_topk_kernel, epoch_inputs, explicit_epoch_inputs,
-                        gather_scatter_inputs)
+                        gather_scatter_inputs, sync_errors)
 from collie_tpu_torch.ops.kernels.retrieval_kernel import (mf_topk_retrieve,
                                                            mf_topk_retrieve_plain)
 
@@ -357,3 +360,44 @@ def test_gather_scatter_both_modes_match_plain_version(cuda_device, shape, share
     torch.testing.assert_close(out, ref_out, rtol=0, atol=GS_ATOL_SCALE * top)
     torch.testing.assert_close(gathered, ref_gathered, rtol=0,
                                atol=GS_ATOL_SCALE * n_kept * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [2, 3, 1024, 1025, 99_991])
+@pytest.mark.parametrize('keys', SHUFFLE_KEY_SETS)
+def test_cycle_walk_kernel_matches_plain_version(cuda_device, n, keys):
+    from collie_tpu_torch.ops.shuffle import feistel_permutation_from_keys
+
+    before = feistel_permutation_from_keys.launches
+    check_cycle_walk(n, keys)
+    assert feistel_permutation_from_keys.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('explicit', [False, True])
+def test_skipped_launch_leaves_the_state_bit_identical(cuda_device, explicit):
+    check_skipped_launch(explicit)
+
+
+@pytest.mark.cuda
+def test_whole_fit_on_the_card_reads_nothing_back_inside_a_flight(cuda_device, monkeypatch):
+    from collie_tpu_torch import CollieTrainer, MatrixFactorizationModel, stratified_split
+    from collie_tpu_torch.data.synthetic import generate_implicit_interactions
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch
+    from collie_tpu_torch.ops.shuffle import feistel_permutation_from_keys
+    from collie_tpu_torch.training import trainer as trainer_module
+
+    train, _ = stratified_split(generate_implicit_interactions(
+        num_users=250, num_items=500, num_interactions=20_000, seed=1), test_p=0.2, seed=1,
+        force_split=True)
+    monkeypatch.setattr(trainer_module, 'flight_guard', sync_errors)
+    model = MatrixFactorizationModel(train=train, embedding_dim=8, lr=1e-1, loss='adaptive',
+                                     seed=0)
+    before = fused_mf_epoch.launches, feistel_permutation_from_keys.launches
+    trainer = CollieTrainer(model, max_epochs=5, verbosity=0, seed=0, terminate_on_nan=True,
+                            early_stopping_patience=3)
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    assert trainer.num_epochs_completed >= 1
+    assert fused_mf_epoch.launches - before[0] == 5
+    assert feistel_permutation_from_keys.launches - before[1] == 5

@@ -47,3 +47,75 @@ def test_own_keys_give_a_bijection(n):
 def test_keys_must_be_four():
     with pytest.raises(ValueError, match='4 keys'):
         feistel_permutation_from_keys(torch.arange(3), 10)
+
+
+def test_cpu_keys_take_the_plain_version_and_give_int32():
+    """On the CPU the permutation is the plain whole-array walk, as int32
+    (the kernel's output type); the launch count stays."""
+    from collie_tpu_torch.ops.shuffle import feistel_permutation_plain
+
+    keys = torch.tensor([5, 17, 2 ** 31 - 2, 0], dtype=torch.int64)
+    before = feistel_permutation_from_keys.launches
+    perm = feistel_permutation_from_keys(keys, 1025)
+    assert perm.dtype == torch.int32 and torch.equal(perm, feistel_permutation_plain(keys, 1025))
+    assert feistel_permutation_from_keys.launches == before
+    with pytest.raises(ValueError, match='2 <= n'):
+        feistel_permutation_from_keys(keys, 1)
+
+
+def _mf_loader(monkeypatch, slot_epoch=None, shuffle_kind=None):
+    from collie_tpu_torch import Interactions, InteractionsDataLoader, MatrixFactorizationModel
+
+    for name, value in (('COLLIE_TPU_SLOT_EPOCH', slot_epoch),
+                        ('COLLIE_TPU_SHUFFLE', shuffle_kind)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    # 64 users of degree 64: full buckets, so the slot-domain epoch is eligible
+    inter = Interactions(users=np.repeat(np.arange(64), 64), items=np.tile(np.arange(64), 64),
+                         num_users=64, num_items=256, num_negative_samples=3,
+                         allow_missing_ids=True, seed=0,
+                         check_num_negative_samples_is_valid=False)
+    loader = InteractionsDataLoader(inter, batch_size=500, shuffle=True, seed=0)
+    model = MatrixFactorizationModel(train=loader, embedding_dim=4, seed=0, map_location='cpu')
+    return model, loader
+
+
+@pytest.mark.parametrize('setting,slots', [(None, True), ('1', True), ('0', False)])
+def test_slot_epoch_knob(monkeypatch, setting, slots):
+    """``COLLIE_TPU_SLOT_EPOCH=0`` sends the bucketed sampler down the
+    reorder path; the epoch covers the same examples either way."""
+    from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns
+
+    model, loader = _mf_loader(monkeypatch, slot_epoch=setting)
+    fn, data, S, n = build_scan_epoch_fns(model, model.optimizer_specs(), [True, True], loader,
+                                          shuffle=True)
+    assert fn.sampler == 'bucketed' and ('packed_slots' in data) == slots
+    assert ('pos_of' in data) == (not slots)
+    batches = fn.epoch_batches(0, 1)
+    real = batches['mask'].reshape(-1) > 0
+    pairs = (batches['users'].reshape(-1)[real] * 256 + batches['pos_items'].reshape(-1)[real])
+    expected = torch.from_numpy(np.repeat(np.arange(64), 64) * 256 + np.tile(np.arange(64), 64))
+    assert torch.equal(torch.sort(pairs).values, torch.sort(expected.to(pairs.dtype)).values)
+
+
+@pytest.mark.parametrize('kind', ['feistel', 'sort'])
+def test_shuffle_knob(monkeypatch, kind):
+    """``COLLIE_TPU_SHUFFLE=sort`` shuffles with a ``torch.randperm`` from
+    the epoch's own generator: another order than the Feistel walk's, the
+    same from run to run, a new one each epoch, every example once."""
+    from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns
+
+    orders = {}
+    for shuffle_kind in ('feistel', kind):
+        model, loader = _mf_loader(monkeypatch, slot_epoch='0', shuffle_kind=shuffle_kind)
+        fn, *_ = build_scan_epoch_fns(model, model.optimizer_specs(), [True, True], loader,
+                                      shuffle=True)
+        epochs = [fn.epoch_batches(0, e) for e in (1, 1, 2)]
+        orders[shuffle_kind] = [b['users'].reshape(-1)[b['mask'].reshape(-1) > 0]
+                                for b in epochs]
+    first, again, later = orders[kind]
+    assert torch.equal(first, again) and not torch.equal(first, later)
+    assert torch.equal(torch.sort(first).values, torch.sort(later).values)
+    assert torch.equal(first, orders['feistel'][0]) == (kind == 'feistel')
