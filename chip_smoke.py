@@ -135,7 +135,26 @@ non-zero before the result line:
    whole fit's test MSE against ``benchmarks/gates.json`` (phase 5(a) holds
    the implicit gate whole fit, at lr 0.1, to its gates).  ``fused_mf_epoch`` and
    ``fused_mf_explicit_epoch`` must launch in the whole fits;
-10. the kernels line (one JSON object, five kernels), the card's name and
+10. generic_epoch (``phase_generic_epoch``): ``calculate_loss``'s sparse
+   forms, the bfloat16 selection and the fused table layout on the generic
+   epoch (``fused=False``): (a) at the ML-10M-scale configuration one epoch
+   from one state on the same batches in four states (``GENERIC_STATES``:
+   dense + named, the reference; sparse-f32 + named; sparse-f32 + fused;
+   sparse-bf16 + fused, the default); the sparse form held to the dense
+   one and the fused layout to the named one at every step, from the
+   reference trajectory's state, as the constants' comment says; each
+   epoch's mean loss; the first step's bfloat16 selections held to the
+   float32 scores' rounding bound; (b) at
+   ``benchmarks/bench_zoo_scale.py``'s configuration MLP-MF, Nonlinear-MF,
+   NeuMF, DeepFM (adaptive loss, no dropout), ColdStart in both stages and
+   MF with WARP, sparse-f32 (+ fused where the model has the layout) held
+   to dense + named in the same way; (c) a NeuMF whole fit with
+   ``set_sync_debug_mode('error')``
+   around every flight; (d) no epoch kernel launched, the cycle-walk at
+   least once an epoch; (e) examples/s an epoch, device launches a step
+   and the card's busy share (``torch.profiler``) of each state, beside the
+   card's name and power limit;
+11. the kernels line (one JSON object, five kernels), the card's name and
    power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
@@ -2637,6 +2656,357 @@ def phase_whole_fit(ml10m: dict, smi: str) -> dict:
     }
 
 
+# the generic_epoch phase: the generic epoch in each route of calculate_loss
+# and the table layout.  At lr 0.1 an epoch from one state cannot be held
+# step for step against another form of it: a rounding-level difference
+# flips a hardest negative, and the flips cascade (on the H100, sparse and
+# dense per-step losses are equal for the first steps and 3.4e-3 apart
+# later in one ML-10M-scale epoch; two launches of one kernel epoch drift
+# the same way, tools/epoch_repeatability.py).  So each form is held STEP BY STEP
+# from the states the reference trajectory visits: at every step of the
+# reference epoch, the step's loss within the rtol and the gradients of
+# the tables (what the sparse form changes: the rows the backward
+# scatters into) within the scale * their largest element, at most
+# MAX_FLIPPED_FRACTION of a table's elements beyond (a rounding-level
+# score difference may still flip one example's hardest negative or its
+# hinge's kink); the dense weights' gradients within
+# GENERIC_DENSE_GRAD_SCALE * the largest element: a weight's gradient is a
+# sum over the batch in both forms, in another order, and may cancel to
+# nothing (NeuMF's predict bias is shared by the positive and the
+# negative, so its gradient is zero in exact arithmetic; at a toy step on
+# the CPU the dense form leaves 1.2e-5 of the largest element there, the
+# sparse form 0).  Sparse against dense: GENERIC_SPARSE_RTOL and
+# GENERIC_GRAD_SCALE from the dense trajectory's states; fused against
+# named: GENERIC_FUSED_RTOL for both from the named trajectory's states.
+# The bfloat16 selection against the float32 one: at the first step (the
+# same params) a row may select another negative only where the float32
+# scores of the two lie within the bfloat16 rounding bound (2^-7 *
+# sum|u_d v_d| + 2^-8 * |item bias| for each), and the step's loss stays
+# within GENERIC_BF16_LOSS_RTOL.  Each state's epoch as a whole (its own
+# trajectory): finite step losses and a mean within GENERIC_EPOCH_MEAN_RTOL
+# of the reference's.
+# Knobs of each state: (label, COLLIE_TPU_SPARSE_ADAPTIVE, _BF16_SELECT,
+# _FUSED_TABLES)
+GENERIC_SPARSE_RTOL = 1e-5
+GENERIC_GRAD_SCALE = 1e-5
+GENERIC_FUSED_RTOL = 1e-6
+GENERIC_DENSE_GRAD_SCALE = 1e-3
+GENERIC_BF16_LOSS_RTOL = 1e-3
+GENERIC_EPOCH_MEAN_RTOL = 1e-2
+GENERIC_STATES = [('dense+named', '0', '0', '0'), ('sparse-f32+named', '1', '0', '0'),
+                  ('sparse-f32+fused', '1', '0', '1'), ('sparse-bf16+fused', '1', '1', '1')]
+GENERIC_ZOO = [name for name, _ in ZOO_MODELS
+               if name in ('MLPMatrixFactorizationModel', 'NonlinearMatrixFactorizationModel',
+                           'NeuralCollaborativeFiltering', 'DeepFM')]
+GENERIC_WHOLE_FIT_EPOCHS = 2
+# steps of each state run under torch.profiler (a whole zoo epoch is ~18,000
+# device launches, which the profiler takes seconds to collect)
+GENERIC_PROFILED_STEPS = 5
+
+
+@contextlib.contextmanager
+def knobs(sparse: str, bf16: str, fused_tables: str):
+    """``COLLIE_TPU_SPARSE_ADAPTIVE``, ``_BF16_SELECT`` and ``_FUSED_TABLES``
+    set for the block, the old values back after it."""
+    names = ('COLLIE_TPU_SPARSE_ADAPTIVE', 'COLLIE_TPU_BF16_SELECT', 'COLLIE_TPU_FUSED_TABLES')
+    saved = {n: os.environ.get(n) for n in names}
+    os.environ.update(zip(names, (sparse, bf16, fused_tables)))
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+
+
+def device_activity(call):
+    """``call()`` once under ``torch.profiler``: ``(device launches, busy us,
+    span us)``; ``(0, 0.0, 0.0)`` when the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return 0, 0.0, 0.0
+    busy = sum(e.time_range.elapsed_us() for e in device)
+    span = max(e.time_range.end for e in device) - min(e.time_range.start for e in device)
+    return len(device), busy, span
+
+
+def generic_epoch_state(model, state, seed: int, epoch: int, keep_steps: bool = False) -> dict:
+    """One generic epoch (``fused=False``) of ``model`` from its params and
+    fresh optimizer states under ``state``'s knobs, on the batches of
+    ``(seed, epoch)``: the params it returns and its per-step losses (a
+    recording ``scan_engine.train_step``), with ``keep_steps`` each step's
+    params before it and its batch.  Then the epoch runs once more from the
+    same state, timed (examples/s), and its first ``GENERIC_PROFILED_STEPS``
+    steps run again under ``torch.profiler`` (device launches a step, the
+    card's busy share of their span)."""
+    from collie_tpu_torch.training import scan_engine
+
+    label, sparse, bf16, fused_tables = state
+    with knobs(sparse, bf16, fused_tables):
+        specs = model.optimizer_specs()
+        active = [spec.stage in (None, model.current_stage) for spec in specs]
+        epoch_fn, data, S, n = scan_engine.build_scan_epoch_fns(
+            model, specs, active, model.train_loader, shuffle=True, fused=False)
+        if epoch_fn.fused or epoch_fn.fused_tables != (fused_tables == '1'
+                                                       and model.supports_fused_tables()):
+            raise AssertionError(f'{label}: epoch route fused={epoch_fn.fused}, '
+                                 f'fused_tables={epoch_fn.fused_tables}')
+        params = dict(model.params)
+
+        def fresh_states():
+            return tuple(spec.transform.init({k: params[k] for k in spec.keys})
+                         for spec in specs)
+
+        losses, steps, train_step = [], [], scan_engine.train_step
+
+        def recording_step(model_, specs_, active_, params_, states_, batch, *rest):
+            out = train_step(model_, specs_, active_, params_, states_, batch, *rest)
+            losses.append(out[2])
+            if keep_steps or len(steps) < GENERIC_PROFILED_STEPS:
+                steps.append((params_, batch))
+            return out
+        scan_engine.train_step = recording_step
+        try:
+            new_params, _, mean = epoch_fn(params, fresh_states(), data, seed, epoch)
+        finally:
+            scan_engine.train_step = train_step
+        losses = torch.stack(losses)
+        if not torch.allclose(losses.mean(), mean, rtol=1e-6, atol=0):
+            raise AssertionError(f'{label}: epoch loss {float(mean)} is not the mean of its '
+                                 f'steps {float(losses.mean())}')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch_fn(params, fresh_states(), data, seed, epoch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+
+        def window():
+            carried, states = steps[0][0], fresh_states()
+            for _, batch in steps[:GENERIC_PROFILED_STEPS]:
+                carried, states, _ = train_step(model, specs, active, carried, states, batch,
+                                                None, epoch_fn.fused_tables)
+        launches, busy, span = device_activity(window)
+    profiled = min(GENERIC_PROFILED_STEPS, S)
+    return {'params': new_params, 'losses': losses, 'steps': steps if keep_steps else [],
+            'S': S, 'epochs': 2, 'examples_per_s': n / seconds,
+            'launches_per_step': launches / profiled,
+            'busy_share': busy / span if span else 0.0}
+
+
+def step_grads(model, state, params, batch):
+    """One step's loss and every param's gradient (named keys) from the
+    named ``params`` on ``batch`` under ``state``'s knobs."""
+    label, sparse, bf16, fused_tables = state
+    with knobs(sparse, bf16, fused_tables):
+        fused = fused_tables == '1' and model.supports_fused_tables()
+        params = model.fuse_params(dict(params)) if fused else dict(params)
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss = model.calculate_loss(leaves, batch, training=True)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(leaves.items(), grads)}
+    return loss.detach(), model.unfuse_params(grads) if fused else grads
+
+
+def hold_steps(label, model, state, ref_state, steps, loss_rtol: float,
+               grad_scale: float) -> dict:
+    """``state``'s step against ``ref_state``'s from each (params, batch) of
+    ``steps``, as the constants' comment says; returns the largest loss
+    gap, table share beyond and weight gap over the steps."""
+    worst = {'loss': 0.0, 'table_share': 0.0, 'table_max': 0.0, 'weights': 0.0}
+    for s, (params, batch) in enumerate(steps):
+        loss, grads = step_grads(model, state, params, batch)
+        ref_loss, ref_grads = step_grads(model, ref_state, params, batch)
+        scale = max(float(g.abs().max()) for g in ref_grads.values())
+        gap = {'loss': float((loss - ref_loss).abs() / ref_loss.abs())}
+        for key, ref in ref_grads.items():
+            diff = (grads[key] - ref).abs()
+            if 'embeddings' in key or key.endswith('_biases'):
+                gap['table_share'] = max(gap.get('table_share', 0.0),
+                                         float((diff > grad_scale * scale).float().mean()))
+                gap['table_max'] = max(gap.get('table_max', 0.0), float(diff.max()) / scale)
+            else:
+                gap['weights'] = max(gap.get('weights', 0.0), float(diff.max()) / scale)
+        if (gap['loss'] > loss_rtol or gap.get('table_share', 0.0) > MAX_FLIPPED_FRACTION
+                or gap.get('weights', 0.0) > GENERIC_DENSE_GRAD_SCALE):
+            raise AssertionError(f'{label}: step {s} apart from the reference step: {gap}')
+        worst = {k: max(v, gap.get(k, 0.0)) for k, v in worst.items()}
+    return worst
+
+
+def epoch_report(label, got: dict, ref: dict) -> dict:
+    """The epoch as a whole: finite step losses and a mean within
+    GENERIC_EPOCH_MEAN_RTOL of ``ref``'s; with the largest per-step loss gap
+    and each param's largest difference over max|ref| for the log."""
+    a, b = got['losses'], ref['losses']
+    mean_gap = float((a.mean() - b.mean()).abs() / b.mean().abs())
+    if not torch.isfinite(a).all() or mean_gap > GENERIC_EPOCH_MEAN_RTOL:
+        raise AssertionError(f'{label}: epoch loss apart by {mean_gap:.3g} (rtol '
+                             f'{GENERIC_EPOCH_MEAN_RTOL})')
+    params = max(float((got['params'][k].float() - v.float()).abs().max())
+                 / max(float(v.float().abs().max()), 1e-30) for k, v in ref['params'].items())
+    return {'mean_gap': mean_gap, 'step_loss_gap': float(((a - b).abs() / b.abs()).max()),
+            'param_gap': params}
+
+
+def check_bf16_selection(model, batch) -> dict:
+    """The bfloat16 selection pass against the float32 scores at one step's
+    batch: a row may select another negative only where the float32 scores
+    of the two lie within their bfloat16 rounding bounds; the step's loss
+    within GENERIC_BF16_LOSS_RTOL of the float32 selection's."""
+    params = model.params
+    users, negs = batch['users'].long(), batch['neg_items'].long().T
+    with torch.no_grad():
+        f32 = model.pairwise_scores(params, users, negs)
+        with knobs('1', '1', '1'):
+            bf16 = model.pairwise_scores_select(params, users, negs)
+            bf16_loss = model.calculate_loss(params, batch, training=True)
+        with knobs('1', '0', '1'):
+            f32_loss = model.calculate_loss(params, batch, training=True)
+        ue, ie = params['user_embeddings'], params['item_embeddings']
+        bound = (2.0 ** -7 * (ue[users].abs()[None] * ie[negs].abs()).sum(-1)
+                 + 2.0 ** -8 * params['item_biases'][negs].abs())
+    cols = torch.arange(negs.shape[1], device=negs.device)
+    pick_f32, pick_bf16 = f32.argmax(0), bf16.argmax(0)
+    flipped = pick_f32 != pick_bf16
+    gap = f32[pick_f32, cols] - f32[pick_bf16, cols]
+    allowed = bound[pick_f32, cols] + bound[pick_bf16, cols]
+    bad = int((flipped & (gap > allowed)).sum())
+    loss_gap = float((bf16_loss - f32_loss).abs() / f32_loss.abs())
+    if bad or loss_gap > GENERIC_BF16_LOSS_RTOL:
+        raise AssertionError(f'bf16 selection: {bad} rows select a negative the rounding '
+                             f'bound does not allow; loss apart by {loss_gap:.3g}')
+    return {'flipped_share': float(flipped.float().mean()), 'loss_gap': loss_gap,
+            'max_abs_err': float((bf16 - f32).abs().max())}
+
+
+def _state_line(run: dict) -> str:
+    return (f'{run["examples_per_s"]:,.0f} examples/s an epoch, {run["launches_per_step"]:.1f} '
+            f'device launches a step, card busy {run["busy_share"]:.1%} of the span')
+
+
+def phase_generic_epoch(ml10m: dict, zoo: dict, smi: str) -> int:
+    """Phase 10 (module docstring): the generic epoch in each route of
+    ``calculate_loss`` and the table layout at the ML-10M-scale and zoo-scale
+    configurations; a NeuMF whole fit with every host sync an error; no
+    epoch kernel launched, the cycle-walk once an epoch.  Returns the
+    cycle-walk's launches."""
+    import collie_tpu_torch
+
+    start = time.perf_counter()
+    reset_launch_counts()
+    epochs = 0
+    dense, sparse_named, sparse_fused, default = GENERIC_STATES
+    # (a) ML-10M scale, the four states
+    model = ml10m_model(ml10m[0])
+    runs = {}
+    for state in GENERIC_STATES:
+        runs[state[0]] = generic_epoch_state(model, state, seed=7, epoch=1,
+                                             keep_steps=state in (dense, sparse_named))
+        epochs += runs[state[0]]['epochs']
+    held = {
+        'sparse-f32 vs dense, each step': hold_steps(
+            'ML-10M sparse-f32+named', model, sparse_named, dense, runs['dense+named']['steps'],
+            GENERIC_SPARSE_RTOL, GENERIC_GRAD_SCALE),
+        'fused vs named, each step': hold_steps(
+            'ML-10M sparse-f32+fused', model, sparse_fused, sparse_named,
+            runs['sparse-f32+named']['steps'], GENERIC_FUSED_RTOL, GENERIC_FUSED_RTOL)}
+    epochs_held = {label: epoch_report(f'ML-10M {label}', run, runs['dense+named'])
+                   for label, run in runs.items() if label != 'dense+named'}
+    selection = check_bf16_selection(model, runs['dense+named']['steps'][0][1])
+    for label, run in runs.items():
+        log(f'generic_epoch (a) ML-10M-scale {label}: {_state_line(run)}; step losses '
+            f'{[round(x, 6) for x in run["losses"][:3].tolist()]} ... ({smi})')
+    log(f'generic_epoch (a) ML-10M-scale, each step from the reference\'s state: {held}; '
+        f'each epoch against dense+named: {epochs_held}; first step: the bf16 selection picks '
+        f'another negative in {selection["flipped_share"]:.3%} of rows, each within the '
+        f'rounding bound, loss within {selection["loss_gap"]:.3g} of the f32 selection\'s '
+        f'(max |bf16 - f32| score {selection["max_abs_err"]:.3g}); '
+        f'{time.perf_counter() - start:.1f}s')
+    del model, runs
+    torch.cuda.empty_cache()
+
+    # (b) zoo scale: the zoo models (adaptive, no dropout), ColdStart in both
+    # stages and MF with WARP, sparse (+ fused where the model has the
+    # layout) against dense + named
+    train = zoo['train']
+    kwargs_of = dict(ZOO_MODELS)
+    cold_kwargs = dict(MULTI_STAGE_MODELS[2][1])
+    builds = [(name, lambda name=name: getattr(collie_tpu_torch, name)(
+        train=zoo_loader(train), seed=42, **kwargs_of[name]), None) for name in GENERIC_ZOO]
+
+    def cold():
+        return collie_tpu_torch.ColdStartModel(
+            train=zoo_loader(train), seed=42,
+            item_buckets=np.arange(train.num_items) % MULTI_STAGE_BUCKETS, **cold_kwargs)
+
+    def mf_warp():
+        return collie_tpu_torch.MatrixFactorizationModel(
+            train=zoo_loader(train), seed=42, embedding_dim=ZOO_DIM, lr=1e-1, loss='warp')
+
+    builds += [('ColdStartModel', cold, 'item_buckets'), ('ColdStartModel', cold, 'no_buckets'),
+               ('MatrixFactorizationModel warp', mf_warp, None)]
+    for label, build, stage in builds:
+        t0 = time.perf_counter()
+        model = build()
+        while stage is not None and model.current_stage != stage:
+            model.advance_stage()
+        if model.selection_route(ZOO_DATA['num_negative_samples']) != 'sparse':
+            raise AssertionError(f'{label}: the sparse form does not apply')
+        # MF selects in bfloat16 by default; the held comparison is float32
+        ref = generic_epoch_state(model, dense, seed=42, epoch=1, keep_steps=True)
+        got = generic_epoch_state(model, sparse_fused, seed=42, epoch=1)
+        epochs += ref['epochs'] + got['epochs']
+        check = {'each step': hold_steps(f'zoo {label}', model, sparse_fused, dense,
+                                         ref['steps'], GENERIC_SPARSE_RTOL, GENERIC_GRAD_SCALE),
+                 'epoch': epoch_report(f'zoo {label}', got, ref)}
+        extra = ''
+        if model.selection_precision() == 'bf16':
+            run = generic_epoch_state(model, default, seed=42, epoch=1)
+            epochs += run['epochs']
+            check['bf16 epoch'] = epoch_report(f'zoo {label} bf16', run, ref)
+            extra = f'; default (bf16 selection): {_state_line(run)}'
+        layout = 'fused' if model.supports_fused_tables() else 'named'
+        log(f'generic_epoch (b) zoo {label}{" stage " + stage if stage else ""}: dense+named '
+            f'{_state_line(ref)}; sparse-f32+{layout} {_state_line(got)}{extra}; {check} '
+            f'({smi}); {time.perf_counter() - t0:.1f}s')
+        del model, ref, got
+        torch.cuda.empty_cache()
+
+    # (c) a NeuMF whole fit on the sparse form and fused tables, every host
+    # sync inside a flight an error
+    fit = record_fit(lambda: collie_tpu_torch.NeuralCollaborativeFiltering(
+        train=zoo_loader(train), seed=42, **kwargs_of['NeuralCollaborativeFiltering']),
+        True, 'NeuMF generic whole fit', smi, guard=sync_errors,
+        epochs=GENERIC_WHOLE_FIT_EPOCHS, seed=42)
+    epochs += fit['epochs']
+    if fit['epochs'] != GENERIC_WHOLE_FIT_EPOCHS or not np.all(np.isfinite(fit['losses'])):
+        raise AssertionError(f'NeuMF whole fit: {fit["epochs"]} epochs, losses {fit["losses"]}')
+    log(f'generic_epoch (c) NeuMF whole fit, {GENERIC_WHOLE_FIT_EPOCHS} epochs, sparse + fused '
+        f'tables, set_sync_debug_mode("error") around every flight: no host sync; losses '
+        f'{[round(x, 5) for x in fit["losses"]]}; {fit["examples_per_s"]:,.0f} examples/s '
+        f'({smi})')
+    del fit
+    torch.cuda.empty_cache()
+
+    # (d) no epoch kernel on these paths; the cycle-walk once an epoch
+    launches = _kernel_counts()
+    log(f'generic_epoch (d) kernel launches {launches} over {epochs} epochs; '
+        f'{time.perf_counter() - start:.1f}s')
+    if launches.pop(SHUFFLE_WRAPPER) < epochs or any(launches.values()):
+        raise AssertionError(f'generic_epoch kernel launches {_kernel_counts()}, '
+                             f'{epochs} epochs')
+    return _kernel_counts()[SHUFFLE_WRAPPER]
+
+
 def serving_data(seed: int):
     """Seeded implicit interactions at the serving scale, split per user."""
     from collie_tpu_torch.data import Interactions, stratified_split
@@ -2818,6 +3188,7 @@ def main(argv=None):
     fused['max_abs_err'] = max(fused['max_abs_err'], multi_stage['donor']['max_abs_err'])
     shuffle = phase_whole_fit(ml10m['implicit'], smi)
     shuffle['launches'] += fused['shuffle_launches'] + explicit['shuffle_launches']
+    shuffle['launches'] += phase_generic_epoch(ml10m['implicit'], zoo, smi)
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
     print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter, shuffle]}))

@@ -9,10 +9,12 @@ so parity tests compare like with like.
 
 Ported here: construction and hyperparameter capture, loss resolution (the
 ``_is_implicit`` hparam; ``loss_function`` is the resolved loss's name in
-``ops/losses.LOSSES``), the training half (``calculate_loss``'s dense
-branch with dropout streams, and ``optimizer_specs``' dual adam-embeddings /
-sgd-biases layout), ``embeddings_dtype`` storage, full-catalog and tile
-scoring (the default hooks bounded for MLP towers), the prediction and
+``ops/losses.LOSSES``), the training half (``calculate_loss`` with the
+JAX package's sparse-hardest, sparse-WARP and dense forms and dropout
+streams, the fused ``[*, D+1]`` table layout's hooks, and
+``optimizer_specs``' dual adam-embeddings / sgd-biases layout),
+``embeddings_dtype`` storage, full-catalog and tile scoring (the default
+hooks bounded for MLP towers), the prediction and
 similarity APIs, and ``save_model`` / ``load_model_path`` in the JAX
 package's npz format (``param:<name>`` arrays plus ``hparams_json``), so a
 model saved by either package loads in the other.  The constructor's
@@ -28,6 +30,7 @@ device (``'cpu'`` in the tests); with no GPU and no explicit device,
 construction raises.
 """
 import json
+import os
 import warnings
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, List, Optional, Union
@@ -354,11 +357,25 @@ class BasePipeline(nn.Module):
         """Batch-shape-dispatched loss (reference ``base_pipeline.py:582-654``).
 
         Implicit batches carry ``neg_items [B, K]``, explicit ones
-        ``ratings``.  The implicit branch is the JAX package's dense form:
-        every negative scored with the params it is differentiated against.
-        ``generator`` feeds dropout; it splits into one stream for the
-        positives and one for the negatives, as JAX's ``_split_or_none``
-        (``collie_tpu/models/base.py:893``).
+        ``ratings``.  The implicit branch takes one of the JAX package's
+        three forms (``collie_tpu/models/base.py:429-540``), in its order and
+        under its preconditions: with ``K > 1``, ``training`` and a
+        deterministic ``score`` (no active dropout),
+
+        * the sparse-hardest backward for the adaptive hinge and BPR losses:
+          the K negatives are scored without gradient
+          (``pairwise_scores_select``), the argmax (first maximum on ties)
+          picks each row's hardest negative, and the positive and that
+          negative are scored with gradient in one ``pairwise_scores`` call,
+          under the non-adaptive loss (``_adaptive_base_loss``);
+        * the WARP first violation: the positive and the negatives scored
+          without gradient in one selection call, then ``warp_loss_sparse``;
+
+        and otherwise the dense form, every negative scored with the params
+        it is differentiated against.  ``COLLIE_TPU_SPARSE_ADAPTIVE=0``
+        keeps the dense form.  ``generator`` feeds dropout; it splits into
+        one stream for the positives and one for the negatives, as JAX's
+        ``_split_or_none`` (``collie_tpu/models/base.py:893``).
         """
         mask = batch.get('mask')
         if 'neg_items' in batch:
@@ -368,15 +385,47 @@ class BasePipeline(nn.Module):
             pos_items = batch['pos_items'].long()
             neg_items = batch['neg_items'].long().T  # [K, B], the reference's convention
             gen_pos, gen_neg = split_generator(generator)
-            K = neg_items.shape[0]
-            pos_preds = self.score(params, users, pos_items,
-                                   training=training, generator=gen_pos)
-            neg_preds = self.pairwise_scores(params, users, neg_items,
-                                             training=training, generator=gen_neg)
-            if K == 1:
-                neg_preds = neg_preds[0]
-                neg_items = neg_items[0]
-            return self._loss_fn()(
+            K, B = neg_items.shape
+            loss_fn = self._loss_fn()
+            sparse = training and self.selection_route(K) == 'sparse'
+            base_loss = self._adaptive_base_loss() if sparse else None
+            if base_loss is not None:
+                neg_preds_ng = self.pairwise_scores_select(params, users, neg_items,
+                                                           training=training,
+                                                           generator=gen_neg)
+                hardest_items = neg_items[torch.argmax(neg_preds_ng, dim=0),
+                                          torch.arange(B, device=neg_items.device)]
+                # positive and hardest negative in ONE call: each table is
+                # gathered, and scattered into, once
+                pos_preds, neg_preds = self.pairwise_scores(
+                    params, users, torch.stack([pos_items, hardest_items]),
+                    training=training, generator=gen_pos)
+                neg_items, loss_fn = hardest_items, loss_lib.LOSSES[base_loss]
+            elif sparse:  # WARP
+                all_ng = self.pairwise_scores_select(
+                    params, users, torch.cat([pos_items[None], neg_items]),
+                    training=training, generator=gen_neg)
+                return loss_lib.warp_loss_sparse(
+                    all_ng[0], all_ng[1:],
+                    rescore_pair=lambda items: self.pairwise_scores(
+                        params, users, torch.stack([pos_items, items]),
+                        training=training, generator=gen_neg),
+                    num_items=self.hparams['num_items'],
+                    positive_items=pos_items,
+                    negative_items=neg_items,
+                    metadata=self.loss_metadata(),
+                    metadata_weights=self.metadata_for_loss_weights,
+                    sample_weights=mask,
+                )
+            else:
+                pos_preds = self.score(params, users, pos_items,
+                                       training=training, generator=gen_pos)
+                neg_preds = self.pairwise_scores(params, users, neg_items,
+                                                 training=training, generator=gen_neg)
+                if K == 1:
+                    neg_preds = neg_preds[0]
+                    neg_items = neg_items[0]
+            return loss_fn(
                 pos_preds, neg_preds,
                 num_items=self.hparams['num_items'],
                 positive_items=pos_items,
@@ -393,6 +442,47 @@ class BasePipeline(nn.Module):
             return self._loss_fn()(preds, batch['ratings'].float(), sample_weights=mask)
         raise ValueError(f'Unexpected format for batch with keys: {sorted(batch)}.')
 
+    @staticmethod
+    def _sparse_selection_enabled() -> bool:
+        """``COLLIE_TPU_SPARSE_ADAPTIVE=0`` keeps ``calculate_loss`` on the
+        dense form (default ``'1'``)."""
+        return os.environ.get('COLLIE_TPU_SPARSE_ADAPTIVE', '1') != '0'
+
+    @staticmethod
+    def _bf16_select_enabled() -> bool:
+        """``COLLIE_TPU_BF16_SELECT=0`` makes every selection pass float32
+        (default ``'auto'``: the models that have a bfloat16 pass use it)."""
+        return os.environ.get('COLLIE_TPU_BF16_SELECT', 'auto') != '0'
+
+    def _adaptive_base_loss(self) -> Optional[str]:
+        """The loss an adaptive loss applies to the hardest negative after
+        the selection (``'hinge'`` or ``'bpr'``), or None where the
+        sparse-hardest backward does not apply (another loss, or the knob
+        off)."""
+        if not self._sparse_selection_enabled():
+            return None
+        return {'adaptive_hinge': 'hinge', 'adaptive_bpr': 'bpr'}.get(self._loss_name())
+
+    def _loss_name(self) -> Optional[str]:
+        """The resolved loss's name in ``ops/losses.LOSSES`` (a loss passed
+        as one of those functions included), else None."""
+        if isinstance(self.loss_function, str):
+            return self.loss_function
+        return next((name for name, fn in loss_lib.LOSSES.items()
+                     if fn is self.loss_function), None)
+
+    def selection_route(self, num_negatives: int) -> str:
+        """The implicit ``calculate_loss`` form a training step takes at
+        ``num_negatives`` per example: ``'sparse'`` or ``'dense'``."""
+        sparse = (num_negatives > 1 and self._score_is_deterministic()
+                  and (self._adaptive_base_loss() is not None
+                       or (self._sparse_selection_enabled() and self._loss_name() == 'warp')))
+        return 'sparse' if sparse else 'dense'
+
+    def selection_precision(self) -> str:
+        """The precision of the selection pass: ``'bf16'`` or ``'f32'``."""
+        return 'f32'
+
     def pairwise_scores(self,
                         params: Dict[str, torch.Tensor],
                         users: torch.Tensor,
@@ -407,21 +497,84 @@ class BasePipeline(nn.Module):
                           training=training, generator=generator)
         return flat.reshape(R, B)
 
+    def pairwise_scores_select(self,
+                               params: Dict[str, torch.Tensor],
+                               users: torch.Tensor,
+                               items: torch.Tensor,
+                               training: bool = False,
+                               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Gradient-free scores ``[R, B]`` used only to SELECT the hardest
+        (adaptive losses) or first-violating (WARP) negative in
+        ``calculate_loss``'s sparse forms; the selected pair is scored again
+        with gradient by ``pairwise_scores``.  Default: ``pairwise_scores``
+        detached.  MF overrides it with a bfloat16 pass."""
+        with torch.no_grad():
+            return self.pairwise_scores(params, users, items, training=training,
+                                        generator=generator)
+
     _DROPOUT_HPARAMS = ('dropout_p', 'dense_dropout_p', 'embedding_dropout_p')
 
     def _score_is_deterministic(self) -> bool:
         """True when ``score()`` has no active dropout."""
         return all(not self.hparams.get(name) for name in self._DROPOUT_HPARAMS)
 
+    # ----------------------------------------- the fused [*, D+1] table layout
+    #
+    # The JAX engine's generic epoch carries each (embeddings, biases) pair
+    # of a model that declares ``_FUSED_TABLE_SPEC`` as one ``[*, D+1]``
+    # table, the bias its last column (``collie_tpu/models/base.py:
+    # 302-368``): the score hooks gather a fused row once and slice it, so
+    # the backward scatters once per table instead of twice.  The optimizer
+    # still updates the named slices; the values are the named layout's.
+
+    #: ``((emb_key, bias_key, fused_key), ...)``; empty: no fused layout
+    _FUSED_TABLE_SPEC: tuple = ()
+
     def supports_fused_tables(self) -> bool:
-        """The JAX package's fused ``[*, D+1]`` table layout gives the same
-        values faster; the port trains on the named layout only."""
+        """Whether the generic epoch may carry this model's tables fused
+        (``COLLIE_TPU_FUSED_TABLES``): each supporting model overrides it
+        with an exact-type check, since a subclass may hold params outside
+        the fused contract; False here."""
         return False
 
+    def _fused_tables_ok(self, exact_type) -> bool:
+        """The shared gate: the exact type, a declared spec, and float32
+        tables (bfloat16 tables cannot take a float32 bias column without
+        changing how the bias is stored)."""
+        return (type(self) is exact_type
+                and bool(self._FUSED_TABLE_SPEC)
+                and (self.hparams.get('embeddings_dtype') or 'float32') == 'float32')
+
+    def fuse_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Named layout -> fused layout; other keys, and a pair that is not
+        in ``params``, pass through."""
+        fused = dict(params)
+        for emb_key, bias_key, fused_key in self._FUSED_TABLE_SPEC:
+            if emb_key in fused:
+                fused[fused_key] = torch.cat([fused.pop(emb_key),
+                                              fused.pop(bias_key)[:, None]], dim=1)
+        return fused
+
+    def unfuse_params(self, fused: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Fused layout -> named layout (views of the fused tables); other
+        keys, and a fused key that is not in ``fused``, pass through."""
+        params = dict(fused)
+        for emb_key, bias_key, fused_key in self._FUSED_TABLE_SPEC:
+            if fused_key in params:
+                table = params.pop(fused_key)
+                params[emb_key], params[bias_key] = table[:, :-1], table[:, -1]
+        return params
+
     @staticmethod
-    def _emb_bias_lookup(params, emb_key: str, bias_key: str, ids: torch.Tensor):
-        """``(embedding rows, bias values)`` for ``ids`` of any shape: rows
-        come back as ``ids.shape + (d,)``, biases as ``ids.shape``."""
+    def _emb_bias_lookup(params, emb_key: str, bias_key: str, fused_key: str,
+                         ids: torch.Tensor):
+        """``(embedding rows, bias values)`` for ``ids`` of any shape under
+        either layout: rows come back as ``ids.shape + (d,)``, biases as
+        ``ids.shape``.  A fused row is gathered once and sliced after the
+        gather, so the backward scatters into the table once."""
+        if fused_key in params:
+            rows = embedding_lookup(params[fused_key], ids)
+            return rows[..., :-1], rows[..., -1]
         return embedding_lookup(params[emb_key], ids), params[bias_key][ids]
 
     # ----------------------------------------------------------- optimizers

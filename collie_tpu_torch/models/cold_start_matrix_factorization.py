@@ -161,19 +161,33 @@ class ColdStartModel(MultiStagePipeline):
             })
         super().set_stage(stage)
 
+    # the fused [*, D+1] layout of the generic epoch: all three
+    # (embeddings, biases) pairs; the stage-gated specs update the named
+    # slices of the active stage, and the other tables ride through
+    _FUSED_TABLE_SPEC = (
+        ('user_embeddings', 'user_biases', 'user_fused'),
+        ('item_embeddings', 'item_biases', 'item_fused'),
+        ('item_bucket_embeddings', 'item_bucket_biases', 'item_bucket_fused'),
+    )
+
+    def supports_fused_tables(self) -> bool:
+        return self._fused_tables_ok(ColdStartModel)
+
     def _item_lookup(self, params, items):
-        """Stage-conditional item rows and biases: ``item_buckets`` maps ids
-        through the bucket assignment (clamped into the item range) first."""
+        """Stage-conditional item rows and biases under either layout:
+        ``item_buckets`` maps ids through the bucket assignment (clamped
+        into the item range) first."""
         if self.hparams['stage'] == 'item_buckets':
             buckets = self._item_buckets_device
             mapped = buckets[items.clamp(0, buckets.shape[0] - 1)]
             return self._emb_bias_lookup(params, 'item_bucket_embeddings',
-                                         'item_bucket_biases', mapped)
-        return self._emb_bias_lookup(params, 'item_embeddings', 'item_biases', items)
+                                         'item_bucket_biases', 'item_bucket_fused', mapped)
+        return self._emb_bias_lookup(params, 'item_embeddings', 'item_biases', 'item_fused',
+                                     items)
 
     def score(self, params, users, items, training=False, generator=None):
         user_embeddings, user_biases = self._emb_bias_lookup(
-            params, 'user_embeddings', 'user_biases', users)
+            params, 'user_embeddings', 'user_biases', 'user_fused', users)
         item_embeddings, item_biases = self._item_lookup(params, items)
         p = self.hparams.get('dropout_p', 0.0)
         user_embeddings = dropout(generator, user_embeddings, p, training)
@@ -186,7 +200,7 @@ class ColdStartModel(MultiStagePipeline):
         dropout masks at ``[R, B, d]`` (``tiled_dropout_dots``)."""
         R, B = items.shape
         user_embeddings, user_b = self._emb_bias_lookup(
-            params, 'user_embeddings', 'user_biases', users)
+            params, 'user_embeddings', 'user_biases', 'user_fused', users)
         item_embeddings, item_biases = self._item_lookup(params, items)
         dots = tiled_dropout_dots(user_embeddings, item_embeddings, R, B,
                                   self.hparams.get('dropout_p', 0.0), training, generator)

@@ -8,8 +8,10 @@ in training (``:120-159``).  The constructor keeps collie's separate,
 slower SGD optimizer settings for the bias terms (``bias_lr=1e-2``,
 ``bias_optimizer='sgd'``) and the default ``ReduceLROnPlateau(patience=1)``
 schedule as hyperparameters.  ``pairwise_scores`` scores the K negatives of
-a training batch.  Full-catalog and tile scoring are one matmul each, in
-full float32 (TF32 stays off).
+a training batch, and ``pairwise_scores_select`` selects among them in
+bfloat16; the score hooks read the fused ``[*, D+1]`` tables
+(``_FUSED_TABLE_SPEC``) as well as the named ones.  Full-catalog and tile
+scoring are one matmul each, in full float32 (TF32 stays off).
 """
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -80,11 +82,19 @@ class MatrixFactorizationModel(BasePipeline):
             'item_biases': zero_embedding_init(num_items, device=generator.device),
         }
 
+    _FUSED_TABLE_SPEC = (
+        ('user_embeddings', 'user_biases', 'user_fused'),
+        ('item_embeddings', 'item_biases', 'item_fused'),
+    )
+
+    def supports_fused_tables(self) -> bool:
+        return self._fused_tables_ok(MatrixFactorizationModel)
+
     def score(self, params, users, items, training=False, generator=None):
         user_embeddings, user_b = self._emb_bias_lookup(
-            params, 'user_embeddings', 'user_biases', users)
+            params, 'user_embeddings', 'user_biases', 'user_fused', users)
         item_embeddings, item_b = self._emb_bias_lookup(
-            params, 'item_embeddings', 'item_biases', items)
+            params, 'item_embeddings', 'item_biases', 'item_fused', items)
         p = self.hparams.get('dropout_p', 0.0)
         user_embeddings = dropout(generator, user_embeddings, p, training)
         item_embeddings = dropout(generator, item_embeddings, p, training)
@@ -98,12 +108,48 @@ class MatrixFactorizationModel(BasePipeline):
         the tiled ``score`` path's element for element."""
         R, B = items.shape
         user_emb, user_b = self._emb_bias_lookup(params, 'user_embeddings', 'user_biases',
-                                                 users)
+                                                 'user_fused', users)
         item_emb, item_b = self._emb_bias_lookup(params, 'item_embeddings', 'item_biases',
-                                                 items)
+                                                 'item_fused', items)
         dots = tiled_dropout_dots(user_emb, item_emb, R, B, self.hparams.get('dropout_p', 0.0),
                                   training, generator)
         return self._apply_y_range(dots + user_b[None, :] + item_b)
+
+    def _bf16_select_active(self) -> bool:
+        """The bfloat16 selection pass applies to this exact type with
+        float32 tables (a subclass scores through tables of its own)."""
+        return (self._bf16_select_enabled() and type(self) is MatrixFactorizationModel
+                and (self.hparams.get('embeddings_dtype') or 'float32') == 'float32')
+
+    def selection_precision(self) -> str:
+        return 'bf16' if self._bf16_select_active() else 'f32'
+
+    def pairwise_scores_select(self, params, users, items, training=False, generator=None):
+        """The selection pass in bfloat16 (``collie_tpu/models/
+        matrix_factorization.py:140-179``): item rows gathered from a
+        bfloat16 copy of the table, user rows rounded to bfloat16, their
+        products (exact in float32) summed in float32; the user bias in
+        float32 and the item bias rounded through bfloat16 in both layouts,
+        so the fused and named layouts select alike.  Only which negative
+        is selected sees the rounding.  ``COLLIE_TPU_BF16_SELECT=0``, a
+        subclass or bfloat16 tables take the float32 base pass."""
+        if not self._bf16_select_active():
+            return super().pairwise_scores_select(params, users, items, training=training,
+                                                  generator=generator)
+        with torch.no_grad():
+            if 'user_fused' in params:
+                user_rows = embedding_lookup(params['user_fused'], users)
+                item_rows = params['item_fused'].to(torch.bfloat16)[items]
+                user_emb, user_b = user_rows[:, :-1], user_rows[:, -1]
+                item_emb, item_b = item_rows[..., :-1], item_rows[..., -1]
+            else:
+                user_emb = embedding_lookup(params['user_embeddings'], users)
+                user_b = params['user_biases'][users]
+                item_emb = params['item_embeddings'].to(torch.bfloat16)[items]
+                item_b = params['item_biases'][items].to(torch.bfloat16)
+            user_bf = user_emb.to(torch.bfloat16).float()
+            dots = (user_bf[None] * item_emb.float()).sum(dim=-1)
+            return self._apply_y_range(dots + user_b[None, :] + item_b.float())
 
     def _apply_y_range(self, preds):
         y_range = self.hparams.get('y_range')

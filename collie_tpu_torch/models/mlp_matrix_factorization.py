@@ -97,11 +97,22 @@ class MLPMatrixFactorizationModel(BasePipeline):
             preds = torch.sigmoid(preds) * (y_range[1] - y_range[0]) + y_range[0]
         return preds
 
+    # the fused [*, D+1] layout of the generic epoch (``BasePipeline``); the
+    # bias tables are used in the forward, so the named layout scatters
+    # twice a table.  The dense weights pass through unfused
+    _FUSED_TABLE_SPEC = (
+        ('user_embeddings', 'user_biases', 'user_fused'),
+        ('item_embeddings', 'item_biases', 'item_fused'),
+    )
+
+    def supports_fused_tables(self) -> bool:
+        return self._fused_tables_ok(MLPMatrixFactorizationModel)
+
     def score(self, params, users, items, training=False, generator=None):
         user_embeddings, user_b = self._emb_bias_lookup(
-            params, 'user_embeddings', 'user_biases', users)
+            params, 'user_embeddings', 'user_biases', 'user_fused', users)
         item_embeddings, item_b = self._emb_bias_lookup(
-            params, 'item_embeddings', 'item_biases', items)
+            params, 'item_embeddings', 'item_biases', 'item_fused', items)
         x = torch.cat([user_embeddings, item_embeddings], dim=-1)
         return self._head(params, x, user_b, item_b, training, generator)
 
@@ -113,9 +124,9 @@ class MLPMatrixFactorizationModel(BasePipeline):
         included."""
         R, B = items.shape
         user_embeddings, user_b = self._emb_bias_lookup(
-            params, 'user_embeddings', 'user_biases', users)
+            params, 'user_embeddings', 'user_biases', 'user_fused', users)
         item_embeddings, item_b = self._emb_bias_lookup(
-            params, 'item_embeddings', 'item_biases', items)
+            params, 'item_embeddings', 'item_biases', 'item_fused', items)
         dim = user_embeddings.shape[-1]
         x = torch.cat([user_embeddings[None].expand(R, B, dim), item_embeddings], dim=-1)
         return self._head(params, x, user_b[None, :], item_b, training, generator)

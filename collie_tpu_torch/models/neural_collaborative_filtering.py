@@ -96,8 +96,43 @@ class NeuralCollaborativeFiltering(BasePipeline):
         prediction = linear(params, 'predict', torch.cat([output_cf, x], dim=-1))[..., 0]
         return apply_final_layer(prediction, self._resolved_final_layer())
 
-    @staticmethod
-    def _cf_mlp_lookup(params, kind: str, ids):
+    # the fused layout of the generic epoch: each side's cf and mlp tables
+    # share their ids, so they ride as one [*, D + mlp_dim] table, gathered
+    # once and scattered into once (JAX ``neural_collaborative_filtering.py:
+    # 95-135``).  The halves are both tables, so fuse and unfuse are this
+    # model's own
+    _FUSED_TABLE_SPEC = (
+        ('user_embeddings_cf', 'user_embeddings_mlp', 'user_fused'),
+        ('item_embeddings_cf', 'item_embeddings_mlp', 'item_fused'),
+    )
+
+    def supports_fused_tables(self) -> bool:
+        return self._fused_tables_ok(NeuralCollaborativeFiltering)
+
+    def fuse_params(self, params):
+        fused = dict(params)
+        for cf_key, mlp_key, fused_key in self._FUSED_TABLE_SPEC:
+            if cf_key in fused:
+                fused[fused_key] = torch.cat([fused.pop(cf_key), fused.pop(mlp_key)], dim=1)
+        return fused
+
+    def unfuse_params(self, fused):
+        dim = self.hparams['embedding_dim']
+        params = dict(fused)
+        for cf_key, mlp_key, fused_key in self._FUSED_TABLE_SPEC:
+            if fused_key in params:
+                table = params.pop(fused_key)
+                params[cf_key], params[mlp_key] = table[:, :dim], table[:, dim:]
+        return params
+
+    def _cf_mlp_lookup(self, params, kind: str, ids):
+        """``(cf rows, mlp rows)`` for ``ids`` under either layout; a fused
+        row is gathered once and sliced after the gather."""
+        fused_key = f'{kind}_fused'
+        if fused_key in params:
+            dim = self.hparams['embedding_dim']
+            rows = embedding_lookup(params[fused_key], ids)
+            return rows[..., :dim], rows[..., dim:]
         return (embedding_lookup(params[f'{kind}_embeddings_cf'], ids),
                 embedding_lookup(params[f'{kind}_embeddings_mlp'], ids))
 

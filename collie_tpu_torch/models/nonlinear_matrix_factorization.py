@@ -110,11 +110,24 @@ class NonlinearMatrixFactorizationModel(BasePipeline):
             preds = torch.sigmoid(preds) * (y_range[1] - y_range[0]) + y_range[0]
         return preds
 
+    # the fused [*, D+1] layout of the generic epoch (``BasePipeline``); the
+    # bias tables are used in the forward, so the named layout scatters
+    # twice a table.  The dense weights pass through unfused
+    _FUSED_TABLE_SPEC = (
+        ('user_embeddings', 'user_biases', 'user_fused'),
+        ('item_embeddings', 'item_biases', 'item_fused'),
+    )
+
+    def supports_fused_tables(self) -> bool:
+        return self._fused_tables_ok(NonlinearMatrixFactorizationModel)
+
     def score(self, params, users, items, training=False, generator=None):
         """Draws in the JAX package's order: the user tower's, the item
         tower's, then the embedding dropout of the user and item outputs."""
-        user_x, user_b = self._emb_bias_lookup(params, 'user_embeddings', 'user_biases', users)
-        item_x, item_b = self._emb_bias_lookup(params, 'item_embeddings', 'item_biases', items)
+        user_x, user_b = self._emb_bias_lookup(params, 'user_embeddings', 'user_biases',
+                                               'user_fused', users)
+        item_x, item_b = self._emb_bias_lookup(params, 'item_embeddings', 'item_biases',
+                                               'item_fused', items)
         user_x = self._tower(params, 'user', user_x, training, generator)
         item_x = self._tower(params, 'item', item_x, training, generator)
         emb_p = self.hparams.get('embedding_dropout_p', 0.0)
@@ -131,9 +144,9 @@ class NonlinearMatrixFactorizationModel(BasePipeline):
             return super().pairwise_scores(params, users, items,
                                            training=training, generator=generator)
         user_rows, user_b = self._emb_bias_lookup(params, 'user_embeddings', 'user_biases',
-                                                  users)
+                                                  'user_fused', users)
         item_rows, item_b = self._emb_bias_lookup(params, 'item_embeddings', 'item_biases',
-                                                  items)
+                                                  'item_fused', items)
         user_x = self._tower(params, 'user', user_rows, False, None)
         item_x = self._tower(params, 'item', item_rows, False, None)
         preds = (user_x[None] * item_x).sum(dim=-1) + user_b[None, :] + item_b

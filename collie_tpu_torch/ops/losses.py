@@ -1,16 +1,16 @@
 """Implicit ranking losses (and the explicit mse / mae) as torch functions.
 
-Port of ``collie_tpu/ops/losses.py``, the dense forms: the composite
-``(Σl + Σl²) / Σw`` reduction, the "partial credit" ideal score difference
-from categorical item metadata, collie's modified BPR
-(``ideal - sigmoid(pos - neg)``), hinge, the adaptive variants over the
-hardest sampled negative (first maximum on ties, as ``jnp.argmax``), and the
-modified WARP weight ``log(num_items / tries)`` on the first violation in
-sample order.  ``many_negative_scores`` keeps the reference's
-``[num_negative_samples, batch]`` axis convention.  Gradients come from
-autograd.
+Port of ``collie_tpu/ops/losses.py``: the composite ``(Σl + Σl²) / Σw``
+reduction, the "partial credit" ideal score difference from categorical
+item metadata, collie's modified BPR (``ideal - sigmoid(pos - neg)``),
+hinge, the adaptive variants over the hardest sampled negative (first
+maximum on ties, as ``jnp.argmax``), and the modified WARP weight
+``log(num_items / tries)`` on the first violation in sample order, dense
+(``warp_loss``) and with a sparse backward (``warp_loss_sparse``).
+``many_negative_scores`` keeps the reference's ``[num_negative_samples,
+batch]`` axis convention.  Gradients come from autograd.
 """
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -196,6 +196,45 @@ def _warp_first_violation(hinge: torch.Tensor, num_items: int):
     should_count_loss = (number_of_tries <= max_trials).to(hinge.dtype)
     return (first_violation_idx, first_violation_value, loss_weights,
             should_count_loss)
+
+
+def warp_loss_sparse(positive_scores: torch.Tensor,
+                     many_negative_scores_ng: torch.Tensor,
+                     rescore_pair: Callable[[torch.Tensor], torch.Tensor],
+                     num_items: int,
+                     positive_items: Optional[torch.Tensor] = None,
+                     negative_items: Optional[torch.Tensor] = None,
+                     metadata: Optional[Dict[str, torch.Tensor]] = None,
+                     metadata_weights: Optional[Dict[str, float]] = None,
+                     sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`warp_loss` with a sparse backward (``collie_tpu/ops/losses.py:
+    235-282``): the first-violation scan runs on gradient-free scores
+    (``positive_scores [B]``, ``many_negative_scores_ng [K, B]``), and only
+    the positive and the selected negative are scored again with gradient,
+    through ``rescore_pair(items) -> [2, B]`` (row 0 the positive, row 1 the
+    selected negative), so the backward touches ``2B`` rows instead of
+    ``K*B``.  The value equals :func:`warp_loss` wherever ``rescore_pair``
+    reproduces the selection scores.  Rows with no violation select the
+    clamped index ``K - 1`` and are masked by ``should_count``, which zeroes
+    their value and gradient."""
+    K, B = many_negative_scores_ng.shape
+    pos_ng = positive_scores.detach()
+    ideal = _ideal_difference_or_one(positive_items, negative_items, metadata,
+                                     metadata_weights)
+    if torch.is_tensor(ideal):
+        ideal_bk = ideal.T if ideal.dim() == 2 else ideal.expand(B, K)
+    else:
+        ideal_bk = torch.full((B, K), ideal, dtype=pos_ng.dtype, device=pos_ng.device)
+
+    hinge_ng = ideal_bk - pos_ng[:, None] + many_negative_scores_ng.detach().T
+    idx, _, loss_weights, should_count = _warp_first_violation(hinge_ng, num_items)
+
+    batch_range = torch.arange(B, device=pos_ng.device)
+    safe_idx = torch.clamp(idx, max=K - 1)
+    selected_items = torch.as_tensor(negative_items)[safe_idx, batch_range]
+    pair = rescore_pair(selected_items)
+    value = ideal_bk[batch_range, safe_idx] - pair[0] + pair[1]
+    return _composite_reduction(loss_weights * value * should_count, B, sample_weights)
 
 
 def mse_loss(predictions: torch.Tensor,

@@ -14,7 +14,10 @@ approximate loader), and then trains:
 * otherwise through the generic epoch: per step, ``calculate_loss`` under
   autograd and each optimizer's update (the JAX package's ``lax.scan`` body
   as a Python loop); a model with dropout gets one generator per step,
-  seeded from the epoch and the step index (``dropout_step_seeds``).  On
+  seeded from the epoch and the step index (``dropout_step_seeds``).  A
+  model with the fused table layout (``supports_fused_tables``) is carried
+  through the epoch on its fused tables (``train_step``'s
+  ``fused_tables``), and the epoch returns the named layout.  On
   the CPU the generic epoch runs, as the JAX package does off the TPU;
   ``fused=True`` makes a CPU model take the fused function's plain
   version, and ``fused=False`` makes any model take the generic epoch (the
@@ -28,10 +31,15 @@ reads them: ``COLLIE_TPU_FUSED_EPOCH`` (``auto``, the default: the kernel on
 ``cuda`` inside the envelope; ``1``: the fused function on any device inside
 the envelope, its plain version on the CPU, the generic epoch outside it;
 ``0``: the generic epoch) for a trainer's ``fused=None``;
-``COLLIE_TPU_SLOT_EPOCH=0`` sends the bucketed sampler down the reorder path
-(below); ``COLLIE_TPU_SHUFFLE`` (``feistel``, the default, or ``sort``: a
-``torch.randperm`` from a generator seeded by the trainer's seed and the
-epoch, whose stream cannot be JAX's, so its parity is distributional only).
+``COLLIE_TPU_FUSED_TABLES=0`` keeps the generic epoch on the named table
+layout; ``COLLIE_TPU_SLOT_EPOCH=0`` sends the bucketed sampler down the
+reorder path (below); ``COLLIE_TPU_SHUFFLE`` (``feistel``, the default, or
+``sort``: a ``torch.randperm`` from a generator seeded by the trainer's seed
+and the epoch, whose stream cannot be JAX's, so its parity is
+distributional only).  ``calculate_loss`` reads two more at each call, as
+the JAX package reads them when it traces a step:
+``COLLIE_TPU_SPARSE_ADAPTIVE=0`` keeps its dense form and
+``COLLIE_TPU_BF16_SELECT=0`` makes MF's selection pass float32.
 
 An epoch function takes an optional ``live`` flag (a 0-d bool tensor): a
 false ``live`` is a skipped epoch, the JAX whole fit's ``lax.cond`` skip
@@ -241,27 +249,44 @@ def select_state(live: torch.Tensor, new: Any, old: Any) -> Any:
 
 def train_step(model, specs, active: List[bool], params: Dict[str, torch.Tensor],
                opt_states: tuple, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None, fused_tables: bool = False):
     """One optimizer step on one batch: ``calculate_loss`` under autograd,
     then each active optimizer's update of its params (the JAX package's
     ``train_step``, ``collie_tpu/training/trainer.py:960-972``).  Returns
-    ``(params, opt_states, loss)``; ``generator`` feeds dropout."""
+    ``(params, opt_states, loss)``; ``generator`` feeds dropout.
+
+    ``fused_tables``: ``params`` hold the model's fused tables
+    (``model.fuse_params``), as the generic epoch carries them
+    (``collie_tpu/training/scan_engine.py:613-670``).  Autograd runs against
+    the fused tables of which a part is trained; their gradients are split
+    into the named keys, each active optimizer updates its named slices
+    with the same transforms and states as on the named layout, and the
+    tables are fused again."""
     trained = [k for spec, on in zip(specs, active) if on for k in spec.keys]
-    leaves = {k: (v.detach().requires_grad_() if k in trained else v.detach())
+    differentiated = trained
+    if fused_tables:
+        parts = {fused_key: {a, b} for a, b, fused_key in model._FUSED_TABLE_SPEC}
+        differentiated = [k for k in params if k in trained or parts.get(k, set()) & set(trained)]
+    leaves = {k: (v.detach().requires_grad_() if k in differentiated else v.detach())
               for k, v in params.items()}
     loss = model.calculate_loss(leaves, batch, generator=generator, training=True)
-    grads = dict(zip(trained, torch.autograd.grad(
-        loss, [leaves[k] for k in trained], allow_unused=True)))
+    grads = dict(zip(differentiated, torch.autograd.grad(
+        loss, [leaves[k] for k in differentiated], allow_unused=True)))
+    if fused_tables:
+        params = model.unfuse_params(params)
+        grads = model.unfuse_params({k: g for k, g in grads.items() if g is not None})
     states = list(opt_states)
     with torch.no_grad():
         for i, spec in enumerate(specs):
             if not active[i]:
                 continue
             sub_params = {k: params[k] for k in spec.keys}
-            sub_grads = {k: (grads[k] if grads[k] is not None else torch.zeros_like(params[k]))
+            sub_grads = {k: (grads[k] if grads.get(k) is not None else torch.zeros_like(params[k]))
                          for k in spec.keys}
             updates, states[i] = spec.transform.update(sub_grads, states[i], sub_params)
             params = {**params, **{k: sub_params[k] + updates[k] for k in spec.keys}}
+        if fused_tables:
+            params = model.fuse_params(params)
     return params, tuple(states), loss.detach()
 
 
@@ -531,6 +556,8 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     if fused and cfg is None:
         raise ValueError('fused=True but this model is outside the kernel\'s envelope')
     use_fused = cfg is not None and (fused or gate == '1' or device.type == 'cuda')
+    fused_tables = (not use_fused and os.environ.get('COLLIE_TPU_FUSED_TABLES', 'auto') != '0'
+                    and model.supports_fused_tables())
 
     def fused_states(opt_states, cnt, mu_u, nu_u, mu_i, nu_i, live):
         """The optimizer states after a fused epoch: the Adam moments and
@@ -610,6 +637,7 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                     losses.mean())
     else:
         with_dropout = not model._score_is_deterministic()
+        trained = {k for spec, on in zip(specs, active) if on for k in spec.keys}
 
         def epoch_fn(params, opt_states, data_, seed, epoch_idx, live=None):
             clock.begin()
@@ -618,6 +646,8 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             clock.mark()
             step_seeds = dropout_step_seeds(seed, epoch_idx, S) if with_dropout else None
             losses = []
+            if fused_tables:
+                params = model.fuse_params(params)
             for s in range(S):
                 generator = None
                 if with_dropout:
@@ -625,8 +655,14 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                     generator.manual_seed(step_seeds[s])
                 params, opt_states, loss = train_step(
                     model, specs, active, params, opt_states,
-                    {k: v[s] for k, v in batches.items()}, generator)
+                    {k: v[s] for k, v in batches.items()}, generator, fused_tables)
                 losses.append(loss)
+            if fused_tables:
+                # named and contiguous again; an untrained table keeps its
+                # tensor, so checkpoints, saves and the live select see the
+                # named layout only
+                params = {k: (v.contiguous() if k in trained else old_params[k])
+                          for k, v in model.unfuse_params(params).items()}
             loss = torch.stack(losses).mean()
             if live is not None:
                 params = {k: v if v is old_params[k] else torch.where(live, v, old_params[k])
@@ -639,6 +675,7 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
 
     epoch_fn.split_ms = clock.split_ms
     epoch_fn.fused = use_fused
+    epoch_fn.fused_tables = fused_tables
     epoch_fn.sampler = sampler
     epoch_fn.epoch_batches = _epoch_batches
     return epoch_fn, data, S, n_used

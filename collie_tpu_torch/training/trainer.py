@@ -225,7 +225,6 @@ class CollieTrainer:
         stage = model.current_stage
         active = [spec.stage is None or spec.stage == stage for spec in specs]
         params = dict(model.params)
-        self._pre_fit_report(model, params, specs, active)
 
         use_scan_train = (self.epoch_mode != 'step'
                           and loader_is_scannable(model.train_loader))
@@ -251,6 +250,7 @@ class CollieTrainer:
         steps = None
         if not use_scan_train or (model.val_loader is not None and not use_scan_val):
             steps = self._build_steps(model, specs, active)
+        self._pre_fit_report(model, params, specs, active, train_fn)
 
         # optimizer state resets each fit (reference semantics)
         opt_states = tuple(spec.transform.init({k: params[k] for k in spec.keys})
@@ -279,9 +279,12 @@ class CollieTrainer:
         self.last_fit_examples_per_sec = (state['total_examples'] / fit_secs
                                           if fit_secs > 0 else None)
 
-    def _pre_fit_report(self, model, params, specs, active) -> None:
-        """Model summary (name, shape, dtype, count, train/frozen) and
-        hyperparameter logging at fit start."""
+    def _pre_fit_report(self, model, params, specs, active, train_fn=None) -> None:
+        """Model summary (name, shape, dtype, count, train/frozen), the
+        training route (the epoch path; for implicit data the form of
+        ``calculate_loss``, ``sparse`` or ``dense``, and its selection
+        pass's precision, ``bf16`` or ``f32``; the table layout, ``fused``
+        or ``named``) and hyperparameter logging at fit start."""
         if self.verbosity > 0 and self.enable_model_summary:
             trainable = set()
             for spec, is_active in zip(specs, active):
@@ -305,6 +308,7 @@ class CollieTrainer:
             print(f'  {n_train:,} trainable params | '
                   f'{total - n_train:,} frozen params | {total:,} total | '
                   f'stage: {model.current_stage or "-"}')
+            print(f'  route: {self._route(model, train_fn)}')
         if self.logger is not None:
             log_hp = getattr(self.logger, 'log_hyperparams', None)
             if callable(log_hp):
@@ -312,6 +316,22 @@ class CollieTrainer:
                 save = getattr(self.logger, 'save', None)
                 if callable(save):
                     save()
+
+    @staticmethod
+    def _route(model, train_fn) -> str:
+        """``epoch: <path> | loss: <form>, <precision> | tables: <layout>``."""
+        if train_fn is None:
+            epoch = 'per-step'
+        else:
+            epoch = 'fused kernel' if train_fn.fused else 'generic'
+        parts = [f'epoch: {epoch}']
+        if model.hparams.get('_is_implicit') and not (train_fn and train_fn.fused):
+            num_negatives = getattr(model.train_loader, 'num_negative_samples', 1)
+            parts.append(f'loss: {model.selection_route(num_negatives)}, '
+                         f'{model.selection_precision()} selection')
+        tables = 'fused' if train_fn is not None and getattr(train_fn, 'fused_tables', False) \
+            else 'named'
+        return ' | '.join(parts + [f'tables: {tables}'])
 
     # ------------------------------------------------------------ whole fit
 

@@ -412,8 +412,14 @@ def test_cold_start_needs_a_card_or_map_location(data, monkeypatch):
 
 
 def test_cold_start_keeps_the_named_table_layout(data):
+    """The generic epoch carries ColdStart's three pairs fused, as JAX's
+    does; the model's params, what it saves and what an epoch returns, keep
+    the named layout."""
     _, model = build_pair('ColdStartModel', data)
-    assert model.supports_fused_tables() is False
+    assert model.supports_fused_tables() is True
+    fused = model.fuse_params(model.params)
+    assert set(fused) == {'user_fused', 'item_fused', 'item_bucket_fused'}
+    assert set(model.params) == set(model.unfuse_params(fused))
 
 
 def test_base_save_hooks_carry_extra_arrays(data, tmp_path):
