@@ -23,7 +23,10 @@ non-zero before the result line:
    epoch of the engine's real batches; ``fused_mf_explicit_epoch`` against
    its plain version at edge shapes (MSE and MAE, ``y_range``, weight decay,
    duplicate ids, a masked pad tail, B = 1, D up to 256) and at the explicit
-   ML-10M shape after 3 steps and after one whole epoch as one call; times
+   ML-10M shape after 3 steps and after one whole epoch as one call; at
+   the ML-10M shapes, two launches of one whole epoch from one state at lr
+   0.1, implicit and explicit, bit for bit (the kernels' fixed-point
+   sums, ``check_repeatable``); times
    for each kernel, its plain version and (where one exists) one library
    call of the same function, and for the explicit kernel the generic
    autograd epoch (``fused=False``) beside it.  For one ML-10M and one
@@ -154,16 +157,34 @@ non-zero before the result line:
    least once an epoch; (e) examples/s an epoch, device launches a step
    and the card's busy share (``torch.profiler``) of each state, beside the
    card's name and power limit;
-11. the kernels line (one JSON object, five kernels), the card's name and
+11. out_of_core (``phase_out_of_core``): the out-of-core HDF5 tier at
+   ``benchmarks/bench_outofcore.py``'s configuration (2,000,000
+   interactions of ``make_data(default_rng(0))``, 40,000 users x 8,000
+   items, ``HDF5InteractionsDataLoader(batch_size=8192, shuffle=True,
+   num_negative_samples=10, seed=0)``, MF with ``embedding_dim`` 32, lr
+   1e-3, adaptive hinge, ``COLLIE_TPU_HDF5_CHUNK_STEPS=64``).  The store
+   is a real HDF5 file when ``h5py`` imports, else an in-memory stand-in
+   serving the same ``read_chunk`` (the line says which).  (a) the chunk
+   tier runs, in chunks of 64, 64, 64, 32, 16, 4, 1 steps, with one
+   cycle-walk launch a chunk and no ``fused_mf_epoch`` launch; (b) epoch
+   1's first chunk on the card equals the same chunk on the CPU from the
+   same params on the same draws; (c) every chunk loop of the timed epochs
+   runs with every host sync an error (``trainer.flight_guard``); (d)
+   examples/s an epoch (median of 3 after a warm-up) of the benchmark's
+   four labels, ``hdf5_chunk``, ``hdf5_step``, ``hdf5_prefetch`` and
+   ``in_memory``, beside the card's name and power limit; (e) the chunk
+   tier's train loss falls;
+12. the kernels line (one JSON object, five kernels), the card's name and
    power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
 kernel at the gate and ML-10M-scale configurations; ``--kernel-times`` runs
 phases 1-2 and times the top-k kernel at the serving shape (k = 1, 10, 128;
 the launch alone and the whole ``mf_topk_retrieve``) and the binned
-gather/scatter's 50 rounds, each with one ``torch.profiler`` look.  Both are
-for comparing two checkouts on one card: a copy of this script in the other
-checkout times that checkout.
+gather/scatter's 50 rounds, each with one ``torch.profiler`` look;
+``--generic-times`` runs phases 1-2 and phase 10 (the generic epoch).  All
+three are for comparing two checkouts on one card: a copy of this script in
+the other checkout times that checkout.
 """
 import argparse
 import contextlib
@@ -268,10 +289,9 @@ SAMPLER_HOST_CHECKS = 4096
 # checkpoint/resume of the ML-10M-scale fit: RESUME_EPOCHS uninterrupted, and
 # a fresh model and trainer resumed from the RESUME_FROM checkpoint.  The
 # epoch held is the first after the plateau's lr cut (lr 0.1 -> 0.01 at the
-# end of epoch 3: the train loss rises over epochs 2-3).  At lr 0.1 two
-# launches of epoch 3 from one state diverge (hardest-negative choices turn
-# the atomics' rounding differences into other updates: per-step losses
-# from 1e-7 to 2e-3 apart over the epoch), so no tolerance holds there
+# end of epoch 3: the train loss rises over epochs 2-3).  Both launches of
+# that epoch start from one state, and the epoch kernels' fixed-point sums
+# make them repeat bit for bit
 RESUME_EPOCHS = 5
 RESUME_FROM = 3
 STEP_RTOL = 1e-3
@@ -279,9 +299,10 @@ STEP_ATOL_SCALE = 1e-5
 CUSTOM_SGD_LR = 1.0
 
 # fused_mf_epoch against its plain version: tables and moments within
-# EPOCH_RTOL * |ref| + EPOCH_ATOL_SCALE * max|ref| per tensor (atomics sum
-# duplicate ids in a run-dependent order), per-step losses within
-# EPOCH_RTOL.  At the ML-10M shape a rounding-level score difference can
+# EPOCH_RTOL * |ref| + EPOCH_ATOL_SCALE * max|ref| per tensor (the kernel
+# sums duplicate ids exactly in 64-bit fixed point and rounds once, the
+# plain version sums them in float32 in its own order), per-step losses
+# within EPOCH_RTOL.  At the ML-10M shape a rounding-level score difference can
 # flip an example's hardest-negative choice, which moves that example's
 # rows by an Adam step; there at most MAX_FLIPPED_FRACTION of each tensor's
 # elements may fall outside the tolerance.
@@ -289,14 +310,14 @@ EPOCH_RTOL = 1e-4
 EPOCH_ATOL_SCALE = 1e-5
 MAX_FLIPPED_FRACTION = 1e-3
 # fused_mf_explicit_epoch at the explicit ML-10M shape: a popular item's row
-# sums ~7 examples a step with atomics in run-dependent order, and its
-# near-zero elements carry that (in-tolerance) absolute difference as a large
-# relative one into the gradients of the users who rated it; where such a
-# gradient is near Adam's eps (1e-8) the step direction amplifies it.  Two
-# runs of the kernel differ by as much as kernel and plain version do, so
-# over several steps at most EXPLICIT_DRIFT_FRACTION of each tensor's
-# elements may fall outside the tolerance; one step from the same state
-# must hold exactly.
+# sums ~7 examples a step, in fixed point in the kernel and in float32 in
+# the plain version, and its near-zero elements carry that (in-tolerance)
+# absolute difference as a large relative one into the gradients of the
+# users who rated it; where such a gradient is near Adam's eps (1e-8) the
+# step direction amplifies it.  So over several steps at most
+# EXPLICIT_DRIFT_FRACTION of each tensor's elements may fall outside the
+# tolerance; one step from the same state must hold exactly.  Two launches
+# of the kernel from one state give the same bits (check_repeatable).
 EXPLICIT_DRIFT_FRACTION = 1e-4
 # binned_gather_scatter at the shapes of benchmarks/microbench_gather.py:35-39
 # and :149 (PITERS): out within GS_ATOL_SCALE * max|plain| (atomics sum a
@@ -321,9 +342,9 @@ TOPK_EDGES += [(37, 12, 10, 100), (5, 64, 100, 100), (300, 65, 128, 128)]
 # and 1,025: a power of two and one past it; the ML-10M implicit and explicit
 # train sets) under each key set (the smallest and largest keys drawn, and
 # a mixed set); whole fits against the per-epoch loop: per-epoch train
-# losses within WHOLE_FIT_LOSS_RTOL (the epoch kernels' atomics sum in a
-# run-dependent order, so two fits from one state part at rounding level;
-# stated before the first run on the card), everything else equal.  The
+# losses within WHOLE_FIT_LOSS_RTOL (stated before the first run on the
+# card, when the epoch kernels' sums depended on the order of their
+# atomics), everything else equal.  The
 # implicit gate fits compared run at WHOLE_FIT_PAIR_LR: at the gate's lr 0.1
 # two fits whose updates differ at rounding level part by up to 8% within 10
 # epochs (hardest-negative choices flip; seen on the CPU, where the order of
@@ -897,6 +918,27 @@ def compare_epoch(label, out, ref, max_flipped=0.0, quiet=False, names=IMPLICIT_
     return max_err
 
 
+def check_repeatable(label, launch, names) -> None:
+    """Two launches of one epoch from one state give the same bits: the
+    state, the count and every step's loss (``launch()`` builds its state
+    afresh).  The epoch kernels sum in fixed point, so nothing is left to
+    the order in which the adds land."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    start = time.perf_counter()
+    first = launch()
+    second = launch()
+    torch.cuda.synchronize()
+    differ = [name for name, a, b in zip([*names, 'count', 'losses'], first, second)
+              if not torch.equal(bits(a), bits(b))]
+    if differ:
+        raise AssertionError(f'{label}: two launches from one state differ in {differ}')
+    log(f'  {label}: two launches from one state are bit-identical in every state tensor, '
+        f'the count and all {first[-1].numel()} per-step losses '
+        f'({time.perf_counter() - start:.1f}s)')
+
+
 def ml10m_data():
     """The ML-10M-scale configuration's data, as bench_ml10m_scale.py builds
     it: generated ratings, converted to implicit interactions as
@@ -1163,16 +1205,19 @@ def phase_kernel_fused_epoch(ml10m):
         f'{plain_losses[0]:.6f}, last {kernel_losses[-1]:.6f} vs {plain_losses[-1]:.6f}); '
         f'user_emb max abs difference {float((out[0] - current[0]).abs().max()):.3g}')
     del out, current, ref
+    check_repeatable(f'ML-10M shape, one epoch ({S} steps) at lr 0.1',
+                     lambda: fused_mf_epoch(*state(), *epoch_args(0, S), **kw), IMPLICIT_STATE)
 
     tables = state()
     kernel_ms = cuda_median_ms(lambda: fused_mf_epoch(*tables, *epoch_args(0, S), **kw),
                                warmup=1, runs=5)
     plain_ms = cuda_median_ms(lambda: fused_mf_epoch_plain(*state(), *epoch_args(0, S), **kw),
                               warmup=0, runs=1)
-    # least traffic per step: the dense update streams the tables, both
-    # moments and the accumulator (read + write: 32 (U + I) D bytes), the
-    # item bias and its gradient (16 I), and the step's ids and mask
-    nbytes = S * (32.0 * (U + I) * D + 16.0 * I + 4.0 * B * (K + 3))
+    # least traffic per step (the kernel header's count): the dense update
+    # reads and writes the tables and both moments (24 (U + I) D bytes) and
+    # the item bias (8 I), and reads the step's ids and mask; the
+    # fixed-point gradient accumulators are the kernel's scratch, not counted
+    nbytes = S * (24.0 * (U + I) * D + 8.0 * I + 4.0 * B * (K + 3))
     ops = S * 6.0 * B * (K + 1) * D
     ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
@@ -1345,6 +1390,10 @@ def phase_kernel_explicit_epoch(ml10m_explicit):
     if not all(np.isfinite(kernel_losses)) or parted > EPOCH_RTOL:
         raise AssertionError(f'explicit ML-10M one-call epoch: losses part by {parted:.3%}')
     del out, ref, current
+    check_repeatable(f'explicit ML-10M shape, one epoch ({S} steps) at lr 0.1',
+                     lambda: fused_mf_explicit_epoch(*state(), *epoch_args(0, S)[:-2], 0.1,
+                                                     1e-2, **kw), EXPLICIT_STATE)
+    calls += 2
 
     tables = state()
     kernel_runs = dict(warmup=1, runs=5)
@@ -1381,11 +1430,11 @@ def phase_kernel_explicit_epoch(ml10m_explicit):
     if fused_mf_explicit_epoch.launches != calls or generic_fn.fused:
         raise AssertionError(f'{fused_mf_explicit_epoch.launches} explicit kernel launches for '
                              f'{calls} calls; the fused=False epoch launched the kernel')
-    # least traffic per step: the dense update streams both tables, both
-    # moments and the accumulators (read + write: 32 (U + I) D bytes), both
-    # bias vectors and their gradients (16 (U + I)), and the step's ids,
-    # ratings and mask (16 B)
-    nbytes = S * (32.0 * (U + I) * D + 16.0 * (U + I) + 16.0 * B)
+    # least traffic per step (the kernel header's count): the dense update
+    # reads and writes both tables and both moments (24 (U + I) D bytes) and
+    # both bias vectors (8 (U + I)), and reads the step's ids, ratings and
+    # mask (16 B); the fixed-point gradient accumulators are not counted
+    nbytes = S * (24.0 * (U + I) * D + 8.0 * (U + I) + 16.0 * B)
     ops = S * 8.0 * B * D
     ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
@@ -2702,6 +2751,32 @@ GENERIC_WHOLE_FIT_EPOCHS = 2
 # steps of each state run under torch.profiler (a whole zoo epoch is ~18,000
 # device launches, which the profiler takes seconds to collect)
 GENERIC_PROFILED_STEPS = 5
+# the out_of_core phase: benchmarks/bench_outofcore.py's configuration
+# (:39-45, :111-118): make_data(default_rng(0)) over 40,000 users x 8,000
+# items, the loader (batch 8,192, K = 10, shuffled, seed 0), MF with
+# embedding_dim 32, lr 1e-3, adaptive hinge; chunks of OOC_CHUNK_STEPS steps,
+# so the 245 steps an epoch run as OOC_PLAN.  Each label's examples/s is the
+# median of OOC_EPOCHS - 1 epochs after one warm-up, as the benchmark times
+# it.  The first chunk on the card is held to the same chunk on the CPU
+# from the same params on the same draws: shuffled batches bit for bit,
+# per-step losses within STEP_RTOL.  Over a whole 64-step chunk the two
+# runs' tables part beyond STEP_RTOL * |cpu| + STEP_ATOL_SCALE * max|cpu|
+# in 0.150% of item_embeddings' elements on an H100 (a hardest negative
+# the two devices' summation orders pick differently moves that example's
+# rows by an Adam step, and later steps score against the moved rows), so
+# each step is also taken on the card from the CPU's state before it and
+# its tables held within that tolerance in all but MAX_FLIPPED_FRACTION of
+# the elements
+OOC_NUM_INTERACTIONS = 2_000_000
+OOC_NUM_USERS = 40_000
+OOC_NUM_ITEMS = 8_000
+OOC_BATCH = 8192
+OOC_DIM = 32
+OOC_K = 10
+OOC_LR = 1e-3
+OOC_CHUNK_STEPS = 64
+OOC_PLAN = [64, 64, 64, 32, 16, 4, 1]
+OOC_EPOCHS = 4
 
 
 @contextlib.contextmanager
@@ -3007,6 +3082,331 @@ def phase_generic_epoch(ml10m: dict, zoo: dict, smi: str) -> int:
     return _kernel_counts()[SHUFFLE_WRAPPER]
 
 
+def ooc_data():
+    """``benchmarks/bench_outofcore.py``'s ``make_data(default_rng(0))``:
+    ``(users, items)`` int32, the first occurrence of each distinct pair
+    among 4,000,000 uniform draws, cut to 2,000,000."""
+    rng = np.random.default_rng(0)
+    users = rng.integers(0, OOC_NUM_USERS, OOC_NUM_INTERACTIONS * 2)
+    items = rng.integers(0, OOC_NUM_ITEMS, OOC_NUM_INTERACTIONS * 2)
+    _, first = np.unique(users.astype(np.int64) * OOC_NUM_ITEMS + items, return_index=True)
+    first = first[:OOC_NUM_INTERACTIONS]
+    return users[first].astype(np.int32), items[first].astype(np.int32)
+
+
+def memory_store_class():
+    """``HDF5Interactions`` over two arrays in host memory: the same
+    ``read_chunk`` (the one read of the store) and size attributes, for a
+    machine without ``h5py``.  Everything above the read is the port's own
+    code."""
+    from collie_tpu_torch import HDF5Interactions
+
+    class MemoryStore(HDF5Interactions):
+        def __init__(self, users, items, num_users, num_items, num_negative_samples, shuffle,
+                     seed):
+            self.hdf5_path = None
+            self.users, self.items = users, items
+            self.num_interactions = len(users)
+            self.num_users, self.num_items = num_users, num_items
+            self.num_negative_samples = num_negative_samples
+            self.shuffle, self.seed = shuffle, seed
+            self._rng = np.random.default_rng(seed)
+
+        def read_chunk(self, start, stop):
+            return self.users[start:stop], self.items[start:stop]
+
+    return MemoryStore
+
+
+def ooc_store(users, items, directory):
+    """``(make_loader, kind)``: ``make_loader()`` builds the benchmark's
+    loader over a real HDF5 store in ``directory`` when ``h5py`` imports,
+    else over ``memory_store_class()``."""
+    from collie_tpu_torch import HDF5InteractionsDataLoader, write_hdf5_meta
+
+    kw = dict(batch_size=OOC_BATCH, shuffle=True, seed=0)
+    try:
+        import h5py
+    except ImportError:
+        store = memory_store_class()
+
+        def make_loader():
+            return HDF5InteractionsDataLoader(
+                interactions=store(users, items, OOC_NUM_USERS, OOC_NUM_ITEMS, OOC_K,
+                                   shuffle=True, seed=0), **kw)
+        return make_loader, 'an in-memory stand-in serving read_chunk (no h5py here)'
+    path = os.path.join(directory, 'interactions.h5')
+    with h5py.File(path, 'w') as f:
+        group = f.require_group('interactions')
+        group.create_dataset('user_id', data=users)
+        group.create_dataset('item_id', data=items)
+    write_hdf5_meta(path, OOC_NUM_USERS, OOC_NUM_ITEMS)
+
+    def make_loader():
+        return HDF5InteractionsDataLoader(hdf5_path=path, num_negative_samples=OOC_K, **kw)
+    return make_loader, f'h5py {h5py.__version__}, {os.path.getsize(path) / 1e6:.1f} MB'
+
+
+def ooc_model(loader, device=None):
+    from collie_tpu_torch import MatrixFactorizationModel
+
+    return MatrixFactorizationModel(train=loader, embedding_dim=OOC_DIM, lr=OOC_LR,
+                                    loss='adaptive_hinge', seed=0, map_location=device)
+
+
+def chunk_tensors(loader, start: int, steps: int, device):
+    """A chunk's ``(users, items, mask)`` on ``device``, read and copied by
+    the trainer's own helpers (pinned host buffers and non-blocking copies
+    on the card)."""
+    from collie_tpu_torch.training import trainer
+
+    _, n_used = trainer.hdf5_epoch_extent(loader)
+    return trainer.hdf5_chunk_to_device(
+        trainer.read_hdf5_chunk(loader, start, steps, n_used, device), device)
+
+
+def profile_chunk(make_loader, steps: int = 16) -> dict:
+    """11(d): one chunk of ``steps`` steps of the chunk tier, after a warm
+    run, under ``torch.profiler``: device launches a step and the card's
+    busy share of the span (the rest is the host issuing launches)."""
+    from collie_tpu_torch.training import scan_engine
+
+    loader = make_loader()
+    model = ooc_model(loader)
+    plan = scan_engine.hdf5_chunk_plan(-(-loader.num_interactions // OOC_BATCH),
+                                       OOC_CHUNK_STEPS)
+    start = next(s for s, n in plan if n == steps)
+    specs = model.optimizer_specs()
+    params = dict(model.params)
+    states = tuple(spec.transform.init({k: params[k] for k in spec.keys}) for spec in specs)
+    chunk_fn = scan_engine.build_hdf5_chunk_make(model, specs, [True] * len(specs), loader,
+                                                 shuffle=True)(steps)
+    tensors = chunk_tensors(loader, start, steps, model.device)
+
+    def call():
+        chunk_fn(params, states, *tensors, 0, 1, 0)
+    call()
+    launches, busy, span = device_activity(call)
+    out = {'launches_per_step': launches / steps, 'busy_share': busy / span if span else 0.0}
+    log(f'out_of_core (d) one {steps}-step chunk under torch.profiler: '
+        f'{out["launches_per_step"]:.1f} device launches a step, the card busy '
+        f'{out["busy_share"]:.1%} of the span ({span / 1e3:.1f} ms)')
+    return out
+
+
+def hold_first_chunk(make_loader) -> float:
+    """11(b): epoch 1's first chunk, read and copied by the trainer's own
+    helpers, through the chunk function on the card and on the CPU, from
+    the same params on the same draws (the port's
+    ``draw_chunk`` on the CPU, handed to both).  The card's shuffled
+    batches (ids, negatives, mask) equal the CPU's bit for bit and the two
+    runs' per-step losses agree within STEP_RTOL; every step of the CPU's
+    run is also taken on the card from the CPU's state before it, and its
+    tables held as the constants' comment says.  Returns the max abs table
+    difference of a held step."""
+    from collie_tpu_torch.training import scan_engine
+    from collie_tpu_torch.training.optimizers import state_from_leaves, state_leaves
+
+    def to(device, tree):
+        if isinstance(tree, dict):
+            return {k: v.to(device) for k, v in tree.items()}
+        return tuple(state_from_leaves(st, iter([leaf.to(device) if torch.is_tensor(leaf)
+                                                 else leaf for leaf in state_leaves(st)]))
+                     for st in tree)
+
+    loader = make_loader()
+    card_model, cpu_model = ooc_model(loader), ooc_model(loader, 'cpu')
+    cpu_model.load_params({k: v.cpu() for k, v in card_model.params.items()})
+    plan = scan_engine.hdf5_chunk_plan(-(-loader.num_interactions // OOC_BATCH),
+                                       OOC_CHUNK_STEPS)
+    start, steps = plan[np.random.default_rng((loader.seed, 1)).permutation(len(plan))[0]]
+    C = steps * OOC_BATCH
+    keys, negs, _ = scan_engine.draw_chunk(0, 1, 0, 'cpu', C, (C, OOC_K), OOC_NUM_ITEMS,
+                                           steps, False)
+    card_specs = card_model.optimizer_specs()
+    draw_chunk, train_step = scan_engine.draw_chunk, scan_engine.train_step
+    runs, held = {}, {'worst': 0.0, 'beyond': 0.0, 'loss': 0.0}
+
+    def hold(params_, states_, batch, rest, cpu_out):
+        """The CPU step's inputs through one card step, against its outputs."""
+        card_out = train_step(card_model, card_specs, [True] * len(card_specs),
+                              to('cuda', params_), to('cuda', states_),
+                              {k: v.cuda() for k, v in batch.items()}, *rest)
+        held['loss'] = max(held['loss'], abs(float(card_out[2]) / float(cpu_out[2]) - 1))
+        for k, b in cpu_out[0].items():
+            diff = (card_out[0][k].cpu() - b).abs()
+            beyond = float((diff > STEP_RTOL * b.abs() + STEP_ATOL_SCALE * b.abs().max())
+                           .float().mean())
+            held['worst'] = max(held['worst'], float(diff.max()))
+            held['beyond'] = max(held['beyond'], beyond)
+
+    for name, model in (('card', card_model), ('cpu', cpu_model)):
+        device = model.device
+        losses, batches = [], []
+
+        def recording_step(model_, specs_, active_, params_, states_, batch, *rest):
+            out = train_step(model_, specs_, active_, params_, states_, batch, *rest)
+            losses.append(out[2])
+            batches.append({k: v.cpu() for k, v in batch.items()})
+            if model_ is cpu_model:
+                hold(params_, states_, batch, rest, out)
+            return out
+        scan_engine.draw_chunk = lambda *a, **k: (keys.to(device), negs.to(device), None)
+        scan_engine.train_step = recording_step
+        try:
+            specs = model.optimizer_specs()
+            params = dict(model.params)
+            states = tuple(spec.transform.init({k: params[k] for k in spec.keys})
+                           for spec in specs)
+            chunk_fn = scan_engine.build_hdf5_chunk_make(model, specs, [True] * len(specs),
+                                                         loader, shuffle=True)(steps)
+            _, _, loss_sum = chunk_fn(params, states,
+                                      *chunk_tensors(loader, start, steps, device), 0, 1, 0)
+        finally:
+            scan_engine.draw_chunk, scan_engine.train_step = draw_chunk, train_step
+        runs[name] = {'losses': torch.stack(losses).cpu(), 'batches': batches,
+                      'sum': float(loss_sum)}
+    card, cpu = runs['card'], runs['cpu']
+    if not all(all(torch.equal(a[k], b[k]) for k in a)
+               for a, b in zip(card['batches'], cpu['batches'])):
+        raise AssertionError('out_of_core (b): the card\'s shuffled batches differ from the '
+                             'CPU\'s')
+    if not torch.allclose(card['losses'], cpu['losses'], rtol=STEP_RTOL, atol=0):
+        raise AssertionError(f'out_of_core (b): per-step losses differ: '
+                             f'{card["losses"][:4].tolist()} vs {cpu["losses"][:4].tolist()}')
+    if held['beyond'] > MAX_FLIPPED_FRACTION or held['loss'] > STEP_RTOL:
+        raise AssertionError(f'out_of_core (b): a held step differs from the CPU\'s: loss by '
+                             f'{held["loss"]:.3g}, tables beyond tolerance in '
+                             f'{held["beyond"]:.3%} of elements')
+    log(f'out_of_core (b) epoch 1, chunk 0 ({steps} steps from step {start}), card vs CPU on '
+        f'the same draws: shuffled batches bit-identical, per-step losses within rtol '
+        f'{STEP_RTOL} (sum {card["sum"]:.6f} vs {cpu["sum"]:.6f}); each step from the CPU\'s '
+        f'state: loss within {held["loss"]:.3g}, max abs table difference {held["worst"]:.3g}, '
+        f'at most {held["beyond"]:.2e} of a table\'s elements beyond tolerance')
+    return held['worst']
+
+
+def ooc_timed_fit(label, build, smi, epoch_mode='auto', guard=None) -> dict:
+    """One label of the benchmark: a warm-up epoch, then OOC_EPOCHS - 1
+    one-epoch fits (the trainer's ``max_epochs`` raised by one each), each
+    timed to the card's idle; with ``guard`` as ``trainer.flight_guard``."""
+    from collie_tpu_torch import CollieTrainer
+    from collie_tpu_torch.training import trainer as trainer_module
+
+    model = build()
+    metrics = _MetricLog()
+    trainer = CollieTrainer(model, max_epochs=1, verbosity=0, epoch_mode=epoch_mode, seed=0,
+                            logger=metrics)
+    start = time.perf_counter()
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - start
+    seconds, guard_before = [], trainer_module.flight_guard
+    trainer_module.flight_guard = guard or guard_before
+    try:
+        for _ in range(OOC_EPOCHS - 1):
+            trainer.max_epochs += 1
+            start = time.perf_counter()
+            trainer.fit(model)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+    finally:
+        trainer_module.flight_guard = guard_before
+    n = model.train_loader.num_interactions
+    rate = n / statistics.median(seconds)
+    log(f'out_of_core (d) {label}: warm-up {warm:.2f}s, epochs '
+        f'{[round(x, 4) for x in seconds]} s, {rate:,.0f} examples/s an epoch (median of '
+        f'{len(seconds)}); train loss by epoch {[round(x, 6) for x in metrics.epochs]} ({smi})')
+    return {'examples_per_s': rate, 'losses': metrics.epochs, 'trainer': trainer}
+
+
+def phase_out_of_core(smi: str) -> dict:
+    """Phase 11 (module docstring): the out-of-core chunk tier at
+    ``benchmarks/bench_outofcore.py``'s configuration.  Returns the
+    launches of the cycle-walk and of ``fused_mf_epoch`` (the in-memory
+    label's) over the phase."""
+    from collie_tpu_torch import Interactions, MatrixFactorizationModel, PrefetchLoader
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch
+    from collie_tpu_torch.ops.shuffle import feistel_permutation_from_keys
+    from collie_tpu_torch.training import scan_engine, trainer as trainer_module
+
+    started = time.perf_counter()
+    users, items = ooc_data()
+    with tempfile.TemporaryDirectory() as directory:
+        make_loader, kind = ooc_store(users, items, directory)
+        log(f'out_of_core: {len(users):,} interactions, {OOC_NUM_USERS:,} users x '
+            f'{OOC_NUM_ITEMS:,} items; the store: {kind}')
+        os.environ['COLLIE_TPU_HDF5_CHUNK_STEPS'] = str(OOC_CHUNK_STEPS)
+        try:
+            worst = hold_first_chunk(make_loader)
+            activity = profile_chunk(make_loader)
+            # (a) + (c) + (d): the chunk tier, every chunk loop under sync errors
+            made, build_make = [], trainer_module.build_hdf5_chunk_make
+
+            def recording_make(*args, **kwargs):
+                make = build_make(*args, **kwargs)
+
+                def make_recorded(num_steps):
+                    made.append(num_steps)
+                    return make(num_steps)
+                return make_recorded
+            trainer_module.build_hdf5_chunk_make = recording_make
+            reset_launch_counts()
+            try:
+                chunk = ooc_timed_fit('hdf5_chunk', lambda: ooc_model(make_loader()), smi,
+                                      guard=sync_errors)
+            finally:
+                trainer_module.build_hdf5_chunk_make = build_make
+            walks, fused = feistel_permutation_from_keys.launches, fused_mf_epoch.launches
+            steps = -(-OOC_NUM_INTERACTIONS // OOC_BATCH)
+            plan = [n for _, n in scan_engine.hdf5_chunk_plan(steps, OOC_CHUNK_STEPS)]
+            log_ = chunk['trainer'].epoch_log
+            if plan != OOC_PLAN or sorted(set(made)) != sorted(set(OOC_PLAN)) \
+                    or any(row['steps'] != steps for row in log_):
+                raise AssertionError(f'out_of_core (a): plan {plan}, chunk functions built for '
+                                     f'{made}, steps an epoch {[r["steps"] for r in log_]}')
+            if walks != len(OOC_PLAN) * OOC_EPOCHS or fused:
+                raise AssertionError(f'out_of_core (a): {walks} cycle-walk launches for '
+                                     f'{OOC_EPOCHS} epochs of {len(OOC_PLAN)} chunks, '
+                                     f'{fused} fused_mf_epoch launches')
+            log(f'out_of_core (a) the chunk tier ran: {steps} steps an epoch in chunks of '
+                f'{plan}; {walks} cycle-walk launches over {OOC_EPOCHS} epochs, fused_mf_epoch '
+                f'0; (c) every chunk loop of the {OOC_EPOCHS - 1} timed epochs ran under '
+                f'set_sync_debug_mode("error"): no host sync but the epoch loss\'s read')
+            losses = chunk['losses']
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f'out_of_core (e): train loss {losses} does not fall')
+            log(f'out_of_core (e) the chunk tier\'s train loss falls: {losses[0]:.6f} -> '
+                f'{losses[-1]:.6f} over {len(losses)} epochs')
+            rates = {'hdf5_chunk': chunk['examples_per_s']}
+            reset_launch_counts()
+            for label, wrap in (('hdf5_step', None), ('hdf5_prefetch', PrefetchLoader)):
+                rates[label] = ooc_timed_fit(
+                    label, lambda: ooc_model(wrap(make_loader()) if wrap else make_loader()),
+                    smi, epoch_mode='step')['examples_per_s']
+            if any(w.launches for w in kernel_wrappers()):
+                raise AssertionError('out_of_core: the per-step path launched a kernel')
+        finally:
+            os.environ.pop('COLLIE_TPU_HDF5_CHUNK_STEPS', None)
+    reset_launch_counts()
+    rates['in_memory'] = ooc_timed_fit(
+        'in_memory', lambda: MatrixFactorizationModel(
+            train=Interactions(users=users, items=items, num_negative_samples=OOC_K,
+                               allow_missing_ids=True),
+            embedding_dim=OOC_DIM, lr=OOC_LR, loss='adaptive_hinge', seed=0), smi)['examples_per_s']
+    in_memory = {'walks': feistel_permutation_from_keys.launches,
+                 'fused': fused_mf_epoch.launches}
+    log(f'out_of_core (d) examples/s an epoch: '
+        + ', '.join(f'{k} {v:,.0f}' for k, v in rates.items())
+        + f'; chunk tier / in-memory {rates["hdf5_chunk"] / rates["in_memory"]:.3f}, '
+        f'/ per-step {rates["hdf5_chunk"] / rates["hdf5_step"]:.3f} ({smi}); '
+        f'phase {time.perf_counter() - started:.1f}s')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {'shuffle': walks + in_memory['walks'], 'fused': in_memory['fused'],
+            'max_abs_err': worst, 'rates': rates, 'activity': activity}
+
+
 def serving_data(seed: int):
     """Seeded implicit interactions at the serving scale, split per user."""
     from collie_tpu_torch.data import Interactions, stratified_split
@@ -3154,6 +3554,10 @@ def main(argv=None):
                              '128; launch alone and the whole call) and the binned '
                              'gather/scatter at their main shapes (a copy of the script in '
                              'another checkout times that checkout)')
+    parser.add_argument('--generic-times', action='store_true',
+                        help='only build the kernels and run phase 10, the generic epoch at '
+                             'the ML-10M and zoo scales (a copy of the script in another '
+                             'checkout times that checkout)')
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
 
@@ -3169,6 +3573,11 @@ def main(argv=None):
         times = epoch_times(ml10m_data())
         log(f'total_seconds={time.perf_counter() - t0:.1f}')
         print(json.dumps({'epoch_times': times}))
+        print(smi)
+        return
+    if args.generic_times:
+        phase_generic_epoch(ml10m_data()['implicit'], zoo_data(), smi)
+        log(f'total_seconds={time.perf_counter() - t0:.1f}')
         print(smi)
         return
     topk = phase_kernels()
@@ -3189,6 +3598,9 @@ def main(argv=None):
     shuffle = phase_whole_fit(ml10m['implicit'], smi)
     shuffle['launches'] += fused['shuffle_launches'] + explicit['shuffle_launches']
     shuffle['launches'] += phase_generic_epoch(ml10m['implicit'], zoo, smi)
+    out_of_core = phase_out_of_core(smi)
+    shuffle['launches'] += out_of_core['shuffle']
+    fused['launches'] += out_of_core['fused']
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
     print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter, shuffle]}))

@@ -20,7 +20,11 @@ model zoo (``MLPMatrixFactorizationModel``,
 ``DeepFM``, ``CollaborativeMetricLearningModel``) and the multi-stage
 models (``MultiStagePipeline``, ``ColdStartModel``, ``HybridModel``,
 ``HybridPretrainedModel``, trained stage by stage), all trained through the
-generic autograd epoch and served through the blockwise retrieval path.
+generic autograd epoch and served through the blockwise retrieval path, and
+the out-of-core HDF5 tier (``HDF5Interactions``,
+``HDF5InteractionsDataLoader``, ``write_hdf5_meta``, ``pandas_df_to_hdf5``
+and ``CollieTrainer``'s chunk tier; ``h5py`` is imported only where a store
+is read or written).
 
 Everything is re-exported flat from this module.
 """
@@ -38,7 +42,8 @@ from collie_tpu_torch.data import (ApproximateNegativeSamplingInteractionsDataLo
                                    NegativeSampler,
                                    PrefetchLoader,
                                    random_split,
-                                   stratified_split)
+                                   stratified_split,
+                                   write_hdf5_meta)
 from collie_tpu_torch.evaluate import (evaluate_in_batches, explicit_evaluate_in_batches,
                                       get_preds)
 from collie_tpu_torch.models import (BasePipeline, ColdStartModel,
@@ -61,6 +66,7 @@ from collie_tpu_torch.utils import (Timer,
                                     get_init_arguments,
                                     get_random_seed,
                                     merge_docstrings,
+                                    pandas_df_to_hdf5,
                                     remove_users_with_fewer_than_n_interactions,
                                     trunc_normal)
 from collie_tpu_torch.weights import optimizer_state_from_jax, params_from_jax, read_checkpoint
@@ -79,7 +85,8 @@ __all__ = [
     'create_ratings_matrix', 'df_to_html', 'df_to_interactions', 'evaluate_in_batches',
     'explicit_evaluate_in_batches', 'get_init_arguments', 'get_preds', 'get_random_seed',
     'hinge_loss', 'ideal_difference_from_metadata', 'mae_loss', 'mapk', 'merge_docstrings',
-    'mrr', 'mse_loss', 'optimizer_state_from_jax', 'params_from_jax', 'random_split',
-    'read_checkpoint', 'recommend', 'remove_users_with_fewer_than_n_interactions',
-    'stratified_split', 'trunc_normal', 'warp_loss',
+    'mrr', 'mse_loss', 'optimizer_state_from_jax', 'pandas_df_to_hdf5', 'params_from_jax',
+    'random_split', 'read_checkpoint', 'recommend',
+    'remove_users_with_fewer_than_n_interactions', 'stratified_split', 'trunc_normal',
+    'warp_loss', 'write_hdf5_meta',
 ]

@@ -51,36 +51,55 @@
 //     so discrete choices are group-uniform).  Hardest negative: the first
 //     maximum, strict > from -1e30; WARP: the first violation in sample
 //     order.  Gradient rows go to [U,D], [I,D], [I] (and [U]) accumulators
-//     with 16-byte ``red.global.add.v4.f32`` when D % 4 == 0, else 4-byte
-//     atomicAdd (duplicate ids sum; the order of the sum changes from run to
-//     run); the loss to one atomicAdd per block.
+//     in 64-bit fixed point (below), so duplicate ids sum to the same bits
+//     whatever order the adds land in; each block writes its loss partial
+//     to its own slot, and block 0 sums the slots in block order.
+//   * Fixed point.  A float v is added as the integer c = v 2^56 (a
+//     quantum of 1.4e-17), split as hi = trunc(c / 2^P) and
+//     lo = c - hi 2^P, each added to its own int64 word with an integer
+//     atomic (associative: the sum is a function of the adds alone).  The
+//     launch bounds the adds one word can take in a step, n (B (K + 1)
+//     implicit, B explicit), and with L = ceil(log2 n) takes P = 62 - L:
+//     n lo words of at most 2^P in magnitude sum below 2^62, and every add
+//     with |v| < 2^(68 - 2L) (2^28 at the ML-10M shape) keeps the hi sum
+//     below 2^62 too, so no word can wrap.  An add out of that range (or
+//     NaN, or inf) is not made: it sets the launch's overflow word, and
+//     from the next update phase on every gradient reads as NaN and every
+//     step's loss is NaN, which the host sees at its next sync as the NaN
+//     trip.  The update phase reads a word pair back as
+//     float((hi 2^P + lo) 2^-56): one rounding in double, one to float.
 //   * Update phase: Adam and SGD for step s with optax's rounding
 //     (__fmul_rn/__fadd_rn, no FMA contraction), each table's four arrays
 //     streamed as float4 where they are 16-byte aligned, two units a thread
-//     with all eight loads in flight before either is stored, zeroing each
-//     accumulator as it reads it; block 0 divides the step's loss by its
-//     denominator after the barrier that follows all of the step's atomics.
+//     with all their loads in flight before either is stored, zeroing each
+//     accumulator as it reads it; block 0 sums the step's loss partials and
+//     divides by the denominator after the barrier that follows the step
+//     phase.
 //   * Optionally, block 0 stamps the device clock after every phase into a
 //     caller's timeline, which shows where the one launch spends its time.
 // Full FP32 arithmetic, no tensor cores and no TF32.
 //
-// Bound: the dense update is the least a step must move: 32 (U + I) D bytes
-// for the tables, both moments and the accumulator (read and written) plus
-// 16 I (implicit) or 16 (U + I) (explicit) for the biases and their
-// gradients, plus the step's ids, mask and ratings; the gathered rows mostly
-// hit the 50 MB L2 at these table sizes.  At the ML-10M shape (U = 72,000,
-// I = 10,000, D = 32, B = 65,536, K = 10) that is about 85 MB a step: 25 us
-// at 3.35 TB/s, bytes-bound (operations: 6 B (K + 1) D implicit, 8 B D
-// explicit).  The atomics on popular item rows and the barriers are what the
-// bound does not count.  At the small gate shapes the whole epoch is a few
-// tens of microseconds of work and one launch.
+// Bound: the dense update is the least a step must move: 24 (U + I) D bytes
+// for the tables and both moments (read and written) plus 8 I (implicit)
+// or 8 (U + I) (explicit) for the biases (read and written), plus the
+// step's ids, mask and ratings; the gathered rows mostly hit the 50 MB L2
+// at these table sizes.  At the ML-10M shape (U = 72,000, I = 10,000,
+// D = 32, B = 65,536, K = 10) that is about 66 MB a step (63 MB of it the
+// tables and moments): 20 us at 3.35 TB/s, bytes-bound (operations:
+// 6 B (K + 1) D implicit, 8 B D explicit).  The fixed-point accumulators
+// (16 bytes an element, read and zeroed every step), their atomics and the
+// barriers are what the bound does not count.  At the small gate shapes
+// the whole epoch is a few tens of microseconds of work and one launch.
 //
 // C interface (loaded with ctypes): collie_fused_mf_epoch(...) and
 // collie_fused_mf_explicit_epoch(...) return the cudaError_t of their launch
 // (a cooperative launch that does not fit is refused, not run), 0 on
 // success.  They update the tables, biases and moments in place, launch on
 // the given stream, do not synchronise and allocate nothing: the
-// accumulators, the losses and the barrier word come zeroed from the caller.
+// accumulators (2 n int64 words for an n-element gradient, the lo words
+// then the hi words, 16-byte aligned), the losses, the loss partials
+// (collie_fused_mf_epoch_max_grid() floats), the overflow word and the
+// barrier word come zeroed from the caller.
 // Two words come from device memory, so that a whole fit decides them on the
 // card without a host sync: lr[2] (the embeddings' and the biases' learning
 // rates, read once per launch) and *live.  When *live is 0 the launch is a
@@ -91,6 +110,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 #include "grid_barrier.cuh"
@@ -100,8 +120,13 @@ namespace {
 constexpr int kWarpsPerBlock = 16;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kMaxDim = 256;
-// the C interface's version (2: lr and live in device memory)
-constexpr int kAbi = 2;
+// the C interface's version (2: lr and live in device memory; 3: fixed-point
+// accumulators, loss partials and the overflow word)
+constexpr int kAbi = 3;
+// the largest grid a launch takes: the loss partials hold one float a block
+constexpr int kMaxGrid = 1024;
+// fractional bits of the fixed-point accumulators
+constexpr int kFracBits = 56;
 
 // loss_kind: 0 hinge, 1 bpr (collie's modified BPR), 2 warp
 constexpr int kHinge = 0;
@@ -183,35 +208,66 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void red_add_v4(float* p, float a, float b, float c, float d) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p), "f"(a), "f"(b),
-               "f"(c), "f"(d)
-               : "memory");
+// A fixed-point accumulator: n lo words, then n hi words (header).
+struct Acc {
+  long long* w;
+  long long n;
+};
+
+// The launch's fixed-point scale: P (lo_unit = 2^P), the bound on one add
+// and the overflow word.
+struct Fixed {
+  double lo_unit, inv_lo_unit;
+  float limit;
+  int* overflow;
+};
+
+__device__ __forceinline__ void add_word(long long* p, long long v) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(p), static_cast<unsigned long long>(v));
+}
+
+// acc[i] += v in fixed point; an add out of range sets the overflow word
+// instead (NaN fails the compare too)
+__device__ __forceinline__ void fixed_add(const Fixed& fx, const Acc& acc, size_t i, float v) {
+  if (v == 0.0f) return;
+  if (!(fabsf(v) < fx.limit)) {
+    atomicExch(fx.overflow, 1);
+    return;
+  }
+  const double c = static_cast<double>(v) * 0x1p56;   // exact
+  const double hi = trunc(c * fx.inv_lo_unit);       // exact: a power of two
+  const long long lo = __double2ll_rn(c - hi * fx.lo_unit);  // the difference is exact
+  if (lo != 0) add_word(acc.w + i, lo);
+  if (hi != 0.0) add_word(acc.w + acc.n + i, static_cast<long long>(hi));
+}
+
+// one word pair's sum as a float (header); NaN once the launch overflowed
+__device__ __forceinline__ float fixed_value(long long lo, long long hi, double lo_unit,
+                                             bool poisoned) {
+  if (poisoned) return __int_as_float(0x7fc00000);
+  return static_cast<float>(fma(static_cast<double>(hi), lo_unit, static_cast<double>(lo)) *
+                            0x1p-56);
 }
 
 // acc[row] += scale * v
 template <class L>
-__device__ __forceinline__ void scatter_row(float* __restrict__ acc, int row, int D, int sub,
-                                            float scale, const float (&v)[L::E]) {
-  float* base = acc + static_cast<size_t>(row) * D;
+__device__ __forceinline__ void scatter_row(const Fixed& fx, const Acc& acc, int row, int D,
+                                            int sub, float scale, const float (&v)[L::E]) {
+  const size_t base = static_cast<size_t>(row) * D;
 #pragma unroll
   for (int j = 0; j < L::NV; ++j) {
     const int d = L::dim(sub, j);
     if (d >= D) continue;
-    if constexpr (L::VEC) {
-      red_add_v4(base + d, scale * v[4 * j], scale * v[4 * j + 1], scale * v[4 * j + 2],
-                 scale * v[4 * j + 3]);
-    } else {
-      atomicAdd(base + d, scale * v[j]);
-    }
+#pragma unroll
+    for (int w = 0; w < L::W; ++w) fixed_add(fx, acc, base + d + w, scale * v[L::W * j + w]);
   }
 }
 
-// the block's loss into *loss_out: lane `sub == 0` of each group holds its
-// group's sum
+// the block's loss into its slot of the partials: lane `sub == 0` of each
+// group holds its group's sum, summed in a fixed order
 __device__ __forceinline__ void add_block_loss(float (&block_loss)[kWarpsPerBlock],
                                                float loss_acc, int sub,
-                                               float* __restrict__ loss_out) {
+                                               float* __restrict__ partials) {
   float v = sub == 0 ? loss_acc : 0.0f;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
@@ -222,7 +278,7 @@ __device__ __forceinline__ void add_block_loss(float (&block_loss)[kWarpsPerBloc
   if (threadIdx.x == 0) {
     float total = 0.0f;
     for (int i = 0; i < kWarpsPerBlock; ++i) total += block_loss[i];
-    if (total != 0.0f) atomicAdd(loss_out, total);
+    partials[blockIdx.x] = total;
   }
 }
 
@@ -256,13 +312,18 @@ __device__ __forceinline__ void pair_loss(int loss_kind, float d, float ideal, f
 // ------------------------------------------------------------------ update
 
 struct Update {
-  float *user_emb, *mu_u, *nu_u, *du;
-  float *item_emb, *mu_i, *nu_i, *di;
-  float *user_bias, *dbu;  // explicit only; n_ubias = 0 for the implicit epoch
-  float *item_bias, *dbi;
+  float *user_emb, *mu_u, *nu_u;
+  Acc du;
+  float *item_emb, *mu_i, *nu_i;
+  Acc di;
+  float* user_bias;  // explicit only; n_ubias = 0 for the implicit epoch
+  Acc dbu;
+  float* item_bias;
+  Acc dbi;
   long long n_user, n_item, n_ubias, n_ibias;  // elements
-  int vec_user, vec_item;                // the table's four arrays are float4-aligned
+  int vec_user, vec_item;                // the table's arrays are 16-byte aligned
   float wd_emb, wd_bias;
+  Fixed fx;
 };
 
 // optax adam on one element, with torch-coupled decay
@@ -275,11 +336,20 @@ __device__ __forceinline__ void adam_math(float g, float& p, float& m, float& v,
   p = __fsub_rn(p, __fmul_rn(lr, step));
 }
 
+// element i's gradient, its two words zeroed
+__device__ __forceinline__ float take_grad(const Acc& acc, size_t i, double lo_unit,
+                                           bool poisoned) {
+  const long long lo = __ldcg(acc.w + i), hi = __ldcg(acc.w + acc.n + i);
+  acc.w[i] = 0;
+  acc.w[acc.n + i] = 0;
+  return fixed_value(lo, hi, lo_unit, poisoned);
+}
+
 __device__ __forceinline__ void adam_elem(float* __restrict__ emb, float* __restrict__ mu,
-                                          float* __restrict__ nu, float* __restrict__ grad,
-                                          size_t i, float bc1, float bc2, float lr, float wd) {
-  const float g = __ldcg(grad + i);
-  grad[i] = 0.0f;
+                                          float* __restrict__ nu, const Acc& grad, size_t i,
+                                          double lo_unit, bool poisoned, float bc1, float bc2,
+                                          float lr, float wd) {
+  const float g = take_grad(grad, i, lo_unit, poisoned);
   float p = __ldcg(emb + i), m = __ldcg(mu + i), v = __ldcg(nu + i);
   adam_math(g, p, m, v, bc1, bc2, lr, wd);
   mu[i] = m;
@@ -288,60 +358,90 @@ __device__ __forceinline__ void adam_elem(float* __restrict__ emb, float* __rest
 }
 
 // sgd with torch-coupled decay on one bias element
-__device__ __forceinline__ void sgd_elem(float* __restrict__ bias, float* __restrict__ grad,
-                                         size_t i, float lr, float wd) {
-  float g = __ldcg(grad + i);
-  grad[i] = 0.0f;
+__device__ __forceinline__ void sgd_elem(float* __restrict__ bias, const Acc& grad, size_t i,
+                                         double lo_unit, bool poisoned, float lr, float wd) {
+  float g = take_grad(grad, i, lo_unit, poisoned);
   const float b = __ldcg(bias + i);
   if (wd != 0.0f) g = __fadd_rn(g, __fmul_rn(wd, b));
   bias[i] = __fsub_rn(b, __fmul_rn(lr, g));
 }
 
+// the words of four elements (a float4 unit): lo and hi, two 16-byte loads each
+struct Words4 {
+  longlong2 lo_a, lo_b, hi_a, hi_b;
+};
+
+__device__ __forceinline__ Words4 load_words4(const Acc& acc, size_t i4) {
+  const longlong2* lo = reinterpret_cast<const longlong2*>(acc.w) + 2 * i4;
+  const longlong2* hi = reinterpret_cast<const longlong2*>(acc.w + acc.n) + 2 * i4;
+  return Words4{__ldcg(lo), __ldcg(lo + 1), __ldcg(hi), __ldcg(hi + 1)};
+}
+
+__device__ __forceinline__ void zero_words4(const Acc& acc, size_t i4) {
+  longlong2* lo = reinterpret_cast<longlong2*>(acc.w) + 2 * i4;
+  longlong2* hi = reinterpret_cast<longlong2*>(acc.w + acc.n) + 2 * i4;
+  const longlong2 z = make_longlong2(0, 0);
+  lo[0] = z;
+  lo[1] = z;
+  hi[0] = z;
+  hi[1] = z;
+}
+
+__device__ __forceinline__ float4 words4_value(const Words4& q, double lo_unit, bool poisoned) {
+  return make_float4(fixed_value(q.lo_a.x, q.hi_a.x, lo_unit, poisoned),
+                     fixed_value(q.lo_a.y, q.hi_a.y, lo_unit, poisoned),
+                     fixed_value(q.lo_b.x, q.hi_b.x, lo_unit, poisoned),
+                     fixed_value(q.lo_b.y, q.hi_b.y, lo_unit, poisoned));
+}
+
 // Adam over one table's n elements, grid-stride; two float4 units a thread
-// an iteration, all eight loads issued before either unit is stored
+// an iteration, all their loads issued before either unit is stored
 __device__ __forceinline__ void adam_range(float* __restrict__ emb, float* __restrict__ mu,
-                                           float* __restrict__ nu, float* __restrict__ grad,
-                                           long long n, int vec, float bc1, float bc2, float lr,
-                                           float wd) {
+                                           float* __restrict__ nu, const Acc& grad, long long n,
+                                           int vec, double lo_unit, bool poisoned, float bc1,
+                                           float bc2, float lr, float wd) {
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   const size_t tid = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (!vec) {
     for (size_t i = tid; i < static_cast<size_t>(n); i += stride)
-      adam_elem(emb, mu, nu, grad, i, bc1, bc2, lr, wd);
+      adam_elem(emb, mu, nu, grad, i, lo_unit, poisoned, bc1, bc2, lr, wd);
     return;
   }
   const size_t n4 = static_cast<size_t>(n) / 4;
-  float4* g4 = reinterpret_cast<float4*>(grad);
   float4* p4 = reinterpret_cast<float4*>(emb);
   float4* m4 = reinterpret_cast<float4*>(mu);
   float4* v4 = reinterpret_cast<float4*>(nu);
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const longlong2 zw = make_longlong2(0, 0);
   for (size_t i = tid; i < n4; i += 2 * stride) {
     const size_t j = i + stride;
     const bool two = j < n4;
-    const float4 ga = __ldcg(g4 + i);
+    const Words4 wa = load_words4(grad, i);
     float4 pa = __ldcg(p4 + i), ma = __ldcg(m4 + i), va = __ldcg(v4 + i);
-    float4 gb = zero, pb = zero, mb = zero, vb = zero;
+    Words4 wb{zw, zw, zw, zw};
+    float4 pb = zero, mb = zero, vb = zero;
     if (two) {
-      gb = __ldcg(g4 + j);
+      wb = load_words4(grad, j);
       pb = __ldcg(p4 + j);
       mb = __ldcg(m4 + j);
       vb = __ldcg(v4 + j);
     }
+    const float4 ga = words4_value(wa, lo_unit, poisoned);
     adam_math(ga.x, pa.x, ma.x, va.x, bc1, bc2, lr, wd);
     adam_math(ga.y, pa.y, ma.y, va.y, bc1, bc2, lr, wd);
     adam_math(ga.z, pa.z, ma.z, va.z, bc1, bc2, lr, wd);
     adam_math(ga.w, pa.w, ma.w, va.w, bc1, bc2, lr, wd);
-    g4[i] = zero;
+    zero_words4(grad, i);
     m4[i] = ma;
     v4[i] = va;
     p4[i] = pa;
     if (two) {
+      const float4 gb = words4_value(wb, lo_unit, poisoned);
       adam_math(gb.x, pb.x, mb.x, vb.x, bc1, bc2, lr, wd);
       adam_math(gb.y, pb.y, mb.y, vb.y, bc1, bc2, lr, wd);
       adam_math(gb.z, pb.z, mb.z, vb.z, bc1, bc2, lr, wd);
       adam_math(gb.w, pb.w, mb.w, vb.w, bc1, bc2, lr, wd);
-      g4[j] = zero;
+      zero_words4(grad, j);
       m4[j] = mb;
       v4[j] = vb;
       p4[j] = pb;
@@ -350,21 +450,24 @@ __device__ __forceinline__ void adam_range(float* __restrict__ emb, float* __res
 }
 
 // Step s's update: Adam on both tables, sgd on the biases (the implicit
-// epoch passes n_ubias = 0: its user biases get no data gradient).
+// epoch passes n_ubias = 0: its user biases get no data gradient).  After
+// the barrier that follows the step phase, so the overflow word is final.
 __device__ void update_phase(const Update& u, float bc1, float bc2, float lr_emb,
                              float lr_bias) {
-  adam_range(u.user_emb, u.mu_u, u.nu_u, u.du, u.n_user, u.vec_user, bc1, bc2, lr_emb,
-             u.wd_emb);
-  adam_range(u.item_emb, u.mu_i, u.nu_i, u.di, u.n_item, u.vec_item, bc1, bc2, lr_emb,
-             u.wd_emb);
+  const bool poisoned = *reinterpret_cast<volatile int*>(u.fx.overflow) != 0;
+  const double lo_unit = u.fx.lo_unit;
+  adam_range(u.user_emb, u.mu_u, u.nu_u, u.du, u.n_user, u.vec_user, lo_unit, poisoned, bc1,
+             bc2, lr_emb, u.wd_emb);
+  adam_range(u.item_emb, u.mu_i, u.nu_i, u.di, u.n_item, u.vec_item, lo_unit, poisoned, bc1,
+             bc2, lr_emb, u.wd_emb);
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   const size_t n_biases = static_cast<size_t>(u.n_ubias + u.n_ibias);
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n_biases;
        i += stride) {
     if (i < static_cast<size_t>(u.n_ubias))
-      sgd_elem(u.user_bias, u.dbu, i, lr_bias, u.wd_bias);
+      sgd_elem(u.user_bias, u.dbu, i, lo_unit, poisoned, lr_bias, u.wd_bias);
     else
-      sgd_elem(u.item_bias, u.dbi, i - u.n_ubias, lr_bias, u.wd_bias);
+      sgd_elem(u.item_bias, u.dbi, i - u.n_ubias, lo_unit, poisoned, lr_bias, u.wd_bias);
   }
 }
 
@@ -387,9 +490,17 @@ __device__ __forceinline__ bool skipped(const int* live, float* losses, int S) {
   return true;
 }
 
-// after the barrier that follows all of step s's loss atomics
-__device__ __forceinline__ void finish_loss(float* losses, const float* denoms, int s) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) losses[s] = __ldcg(losses + s) / __ldg(denoms + s);
+// after the barrier that follows step s's step phase: the blocks' loss
+// partials summed in block order, NaN once the launch overflowed
+__device__ __forceinline__ void finish_loss(float* losses, const float* partials,
+                                            const int* overflow, const float* denoms, int s) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    float total = 0.0f;
+    for (int b = 0; b < static_cast<int>(gridDim.x); ++b) total += __ldcg(partials + b);
+    losses[s] = *reinterpret_cast<const volatile int*>(overflow) != 0
+                    ? __int_as_float(0x7fc00000)
+                    : total / __ldg(denoms + s);
+  }
 }
 
 // ---------------------------------------------------------------- implicit
@@ -402,6 +513,7 @@ struct ImplicitEpoch {
   const float* meta_w;            // [F]
   const float *denoms, *bc1s, *bc2s;  // [S]
   float* losses;                      // [S]
+  float* partials;                    // [kMaxGrid]: one loss partial a block
   unsigned int* barrier;
   unsigned long long* timeline;       // [2 S + 1] or null
   const float* lr;                    // [2]: embeddings, biases
@@ -416,9 +528,10 @@ __device__ void implicit_step(const ImplicitEpoch& e, int s,
   const float* user_emb = e.up.user_emb;
   const float* item_emb = e.up.item_emb;
   const float* item_bias = e.up.item_bias;
-  float* du = e.up.du;
-  float* di = e.up.di;
-  float* db = e.up.dbi;
+  const Acc du = e.up.du;
+  const Acc di = e.up.di;
+  const Acc db = e.up.dbi;
+  const Fixed fx = e.up.fx;
   const int D = e.D, K = e.K, I = e.I, B = e.B;
   const int lane = threadIdx.x & 31;
   const int sub = lane % G;
@@ -497,8 +610,8 @@ __device__ void implicit_step(const ImplicitEpoch& e, int s,
 #pragma unroll
             for (int j = 0; j < E; ++j) du_acc[j] = g * nr[c][j];
             if (valid) {
-              scatter_row<L>(di, n, D, sub, g, ur);
-              if (sub == 0) atomicAdd(db + n, g);
+              scatter_row<L>(fx, di, n, D, sub, g, ur);
+              if (sub == 0) fixed_add(fx, db, n, g);
             }
           }
         } else if (e.adaptive) {
@@ -519,8 +632,8 @@ __device__ void implicit_step(const ImplicitEpoch& e, int s,
 #pragma unroll
             for (int j = 0; j < E; ++j) du_acc[j] = fmaf(g, nr[c][j], du_acc[j]);
             if (valid) {
-              scatter_row<L>(di, n, D, sub, g, ur);
-              if (sub == 0) atomicAdd(db + n, g);
+              scatter_row<L>(fx, di, n, D, sub, g, ur);
+              if (sub == 0) fixed_add(fx, db, n, g);
             }
           }
         }
@@ -540,8 +653,8 @@ __device__ void implicit_step(const ImplicitEpoch& e, int s,
 #pragma unroll
         for (int j = 0; j < E; ++j) du_acc[j] = g * sel[j];
         if (valid) {
-          scatter_row<L>(di, best_item, D, sub, g, ur);
-          if (sub == 0) atomicAdd(db + best_item, g);
+          scatter_row<L>(fx, di, best_item, D, sub, g, ur);
+          if (sub == 0) fixed_add(fx, db, best_item, g);
         }
       }
     }
@@ -549,12 +662,12 @@ __device__ void implicit_step(const ImplicitEpoch& e, int s,
     if (gsum != 0.0f && valid) {
 #pragma unroll
       for (int j = 0; j < E; ++j) du_acc[j] = fmaf(-gsum, pr[j], du_acc[j]);
-      scatter_row<L>(du, u, D, sub, 1.0f, du_acc);
-      scatter_row<L>(di, p, D, sub, -gsum, ur);
-      if (sub == 0) atomicAdd(db + p, -gsum);
+      scatter_row<L>(fx, du, u, D, sub, 1.0f, du_acc);
+      scatter_row<L>(fx, di, p, D, sub, -gsum, ur);
+      if (sub == 0) fixed_add(fx, db, p, -gsum);
     }
   }
-  add_block_loss(block_loss, loss_acc, sub, e.losses + s);
+  add_block_loss(block_loss, loss_acc, sub, e.partials);
 }
 
 template <class L>
@@ -567,7 +680,7 @@ __global__ void __launch_bounds__(kThreads) mf_epoch_kernel(const ImplicitEpoch 
     implicit_step<L>(e, s, block_loss);
     collie::grid_sync(e.barrier);
     stamp(e.timeline, 2 * s + 1);
-    finish_loss(e.losses, e.denoms, s);
+    finish_loss(e.losses, e.partials, e.up.fx.overflow, e.denoms, s);
     update_phase(e.up, __ldg(e.bc1s + s), __ldg(e.bc2s + s), lr_emb, lr_bias);
     collie::grid_sync(e.barrier);
     stamp(e.timeline, 2 * s + 2);
@@ -582,6 +695,7 @@ struct ExplicitEpoch {
   const float *ratings, *mask;    // [S, B]
   const float *denoms, *bc1s, *bc2s;  // [S]
   float* losses;                      // [S]
+  float* partials;                    // [kMaxGrid]: one loss partial a block
   unsigned int* barrier;
   unsigned long long* timeline;       // [2 S + 1] or null
   const float* lr;                    // [2]: embeddings, biases
@@ -636,15 +750,15 @@ __device__ void explicit_step(const ExplicitEpoch& e, int s,
     loss_acc += l * w;
     const float g = w * dl * chain / denom;
     if (g != 0.0f && valid) {
-      scatter_row<L>(e.up.du, u, D, sub, g, ir);
-      scatter_row<L>(e.up.di, it, D, sub, g, ur);
+      scatter_row<L>(e.up.fx, e.up.du, u, D, sub, g, ir);
+      scatter_row<L>(e.up.fx, e.up.di, it, D, sub, g, ur);
       if (sub == 0) {
-        atomicAdd(e.up.dbu + u, g);
-        atomicAdd(e.up.dbi + it, g);
+        fixed_add(e.up.fx, e.up.dbu, u, g);
+        fixed_add(e.up.fx, e.up.dbi, it, g);
       }
     }
   }
-  add_block_loss(block_loss, loss_acc, sub, e.losses + s);
+  add_block_loss(block_loss, loss_acc, sub, e.partials);
 }
 
 template <class L>
@@ -657,7 +771,7 @@ __global__ void __launch_bounds__(kThreads) mf_explicit_epoch_kernel(const Expli
     explicit_step<L>(e, s, block_loss);
     collie::grid_sync(e.barrier);
     stamp(e.timeline, 2 * s + 1);
-    finish_loss(e.losses, e.denoms, s);
+    finish_loss(e.losses, e.partials, e.up.fx.overflow, e.denoms, s);
     update_phase(e.up, __ldg(e.bc1s + s), __ldg(e.bc2s + s), lr_emb, lr_bias);
     collie::grid_sync(e.barrier);
     stamp(e.timeline, 2 * s + 2);
@@ -669,9 +783,20 @@ __global__ void __launch_bounds__(kThreads) mf_explicit_epoch_kernel(const Expli
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // a [rows, D] table, its moments and its accumulator can be updated as float4
-int vec_ok(int rows, int D, const float* a, const float* b, const float* c, const float* d) {
+int vec_ok(int rows, int D, const float* a, const float* b, const float* c, const void* acc) {
   return static_cast<long long>(rows) * D % 4 == 0 && aligned16(a) && aligned16(b) &&
-         aligned16(c) && aligned16(d);
+         aligned16(c) && aligned16(acc);
+}
+
+// The fixed-point scale for at most `n_adds` adds to one word in a step
+// (header): P = 62 - L, |v| < 2^(68 - 2 L), L = ceil(log2 n_adds).  false
+// when the bound leaves no useful range.
+bool fixed_scale(long long n_adds, int* overflow, Fixed* fx) {
+  int L = 0;
+  while ((1LL << L) < n_adds) ++L;
+  if (L > 40) return false;
+  *fx = Fixed{ldexp(1.0, 62 - L), ldexp(1.0, L - 62), ldexpf(1.0f, 68 - 2 * L), overflow};
+  return true;
 }
 
 // Calls ``launch`` with the Layout type for D (1 <= D <= kMaxDim) and
@@ -701,9 +826,10 @@ cudaError_t launch_epoch(void (*kernel)(Params), Params& params, int B, const Up
   const long long units = (up.vec_user ? up.n_user / 8 : up.n_user) +
                           (up.vec_item ? up.n_item / 8 : up.n_item) + up.n_ubias + up.n_ibias;
   const long long update_blocks = (units + kThreads - 1) / kThreads;
+  long long want = step_blocks > update_blocks ? step_blocks : update_blocks;
+  if (want > kMaxGrid) want = kMaxGrid;
   int grid = 0;
-  const cudaError_t err = collie::cooperative_grid(
-      kernel, kThreads, step_blocks > update_blocks ? step_blocks : update_blocks, &grid);
+  const cudaError_t err = collie::cooperative_grid(kernel, kThreads, want, &grid);
   if (err != cudaSuccess) return err;
   void* args[] = {&params};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
@@ -716,6 +842,8 @@ extern "C" int collie_fused_mf_epoch_max_dim() { return kMaxDim; }
 
 extern "C" int collie_fused_mf_epoch_abi() { return kAbi; }
 
+extern "C" int collie_fused_mf_epoch_max_grid() { return kMaxGrid; }
+
 extern "C" int collie_fused_mf_epoch(
     float* user_emb, float* item_emb, float* item_bias,      // state, updated in place
     float* mu_u, float* nu_u, float* mu_i, float* nu_i,
@@ -723,20 +851,27 @@ extern "C" int collie_fused_mf_epoch(
     const float* mask,                                       // [S, B]
     const int* meta, const float* meta_w, int F,             // [F, I], [F]
     const float* denoms, const float* bc1s, const float* bc2s,  // [S] each, on the device
-    float* du, float* di, float* db,                         // zeroed accumulators
-    float* losses, unsigned int* barrier,                    // [S] and one word, zeroed
+    long long* du, long long* di, long long* db,             // zeroed, 2 n words each
+    float* losses, float* partials,                          // [S], [kMaxGrid]
+    int* overflow, unsigned int* barrier,                    // one word each, zeroed
     unsigned long long* timeline,                            // [2 S + 1] or null
     int U, int I, int D, int S, int B, int K, int loss_kind, int adaptive,
     const float* lr, const int* live,                        // [2] and one word, on the device
     float wd_emb, float wd_bias, void* stream_ptr) {
   if (D < 1 || D > kMaxDim || K < 1 || B < 1 || U < 1 || I < 1 || S < 0 || F < 0 ||
-      loss_kind < kHinge || loss_kind > kWarp || lr == nullptr || live == nullptr)
+      loss_kind < kHinge || loss_kind > kWarp || lr == nullptr || live == nullptr ||
+      partials == nullptr || overflow == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  // an item word takes at most K + 1 adds an example, a user word one
+  Fixed fx;
+  if (!fixed_scale(static_cast<long long>(B) * (K + 1), overflow, &fx))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nu = static_cast<long long>(U) * D, ni = static_cast<long long>(I) * D;
   ImplicitEpoch e{};
-  e.up = Update{user_emb, mu_u, nu_u, du, item_emb, mu_i, nu_i, di, nullptr, nullptr,
-                item_bias, db, static_cast<long long>(U) * D, static_cast<long long>(I) * D, 0, I,
+  e.up = Update{user_emb, mu_u, nu_u, Acc{du, nu}, item_emb, mu_i, nu_i, Acc{di, ni},
+                nullptr, Acc{nullptr, 0}, item_bias, Acc{db, I}, nu, ni, 0, I,
                 vec_ok(U, D, user_emb, mu_u, nu_u, du), vec_ok(I, D, item_emb, mu_i, nu_i, di),
-                wd_emb, wd_bias};
+                wd_emb, wd_bias, fx};
   e.users = users;
   e.pos = pos;
   e.negs = negs;
@@ -747,6 +882,7 @@ extern "C" int collie_fused_mf_epoch(
   e.bc1s = bc1s;
   e.bc2s = bc2s;
   e.losses = losses;
+  e.partials = partials;
   e.barrier = barrier;
   e.timeline = timeline;
   e.lr = lr;
@@ -761,8 +897,7 @@ extern "C" int collie_fused_mf_epoch(
   e.loss_kind = loss_kind;
   e.adaptive = adaptive;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const bool rows_aligned = aligned16(user_emb) && aligned16(item_emb) && aligned16(du) &&
-                            aligned16(di);
+  const bool rows_aligned = aligned16(user_emb) && aligned16(item_emb);
   return static_cast<int>(with_layout(D, rows_aligned, [&](auto layout) {
     using L = decltype(layout);
     return launch_epoch<L>(mf_epoch_kernel<L>, e, B, e.up, stream);
@@ -776,20 +911,27 @@ extern "C" int collie_fused_mf_explicit_epoch(
     const int* users, const int* items,                      // [S, B] each
     const float* ratings, const float* mask,                 // [S, B] each
     const float* denoms, const float* bc1s, const float* bc2s,  // [S] each, on the device
-    float* du, float* di, float* dbu, float* dbi,            // zeroed accumulators
-    float* losses, unsigned int* barrier,                    // [S] and one word, zeroed
+    long long* du, long long* di,                            // zeroed, 2 n words each
+    long long* dbu, long long* dbi,
+    float* losses, float* partials,                          // [S], [kMaxGrid]
+    int* overflow, unsigned int* barrier,                    // one word each, zeroed
     unsigned long long* timeline,                            // [2 S + 1] or null
     int U, int I, int D, int S, int B, int loss_kind, int y_range, float y_lo, float y_span,
     const float* lr, const int* live,                        // [2] and one word, on the device
     float wd_emb, float wd_bias, void* stream_ptr) {
   if (D < 1 || D > kMaxDim || B < 1 || U < 1 || I < 1 || S < 0 || loss_kind < kMse ||
-      loss_kind > kMae || lr == nullptr || live == nullptr)
+      loss_kind > kMae || lr == nullptr || live == nullptr || partials == nullptr ||
+      overflow == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  // every word takes at most one add an example
+  Fixed fx;
+  if (!fixed_scale(B, overflow, &fx)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long nu = static_cast<long long>(U) * D, ni = static_cast<long long>(I) * D;
   ExplicitEpoch e{};
-  e.up = Update{user_emb, mu_u, nu_u, du, item_emb, mu_i, nu_i, di, user_bias, dbu,
-                item_bias, dbi, static_cast<long long>(U) * D, static_cast<long long>(I) * D, U, I,
+  e.up = Update{user_emb, mu_u, nu_u, Acc{du, nu}, item_emb, mu_i, nu_i, Acc{di, ni},
+                user_bias, Acc{dbu, U}, item_bias, Acc{dbi, I}, nu, ni, U, I,
                 vec_ok(U, D, user_emb, mu_u, nu_u, du), vec_ok(I, D, item_emb, mu_i, nu_i, di),
-                wd_emb, wd_bias};
+                wd_emb, wd_bias, fx};
   e.users = users;
   e.items = items;
   e.ratings = ratings;
@@ -798,6 +940,7 @@ extern "C" int collie_fused_mf_explicit_epoch(
   e.bc1s = bc1s;
   e.bc2s = bc2s;
   e.losses = losses;
+  e.partials = partials;
   e.barrier = barrier;
   e.timeline = timeline;
   e.lr = lr;
@@ -812,8 +955,7 @@ extern "C" int collie_fused_mf_explicit_epoch(
   e.y_lo = y_lo;
   e.y_span = y_span;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const bool rows_aligned = aligned16(user_emb) && aligned16(item_emb) && aligned16(du) &&
-                            aligned16(di);
+  const bool rows_aligned = aligned16(user_emb) && aligned16(item_emb);
   return static_cast<int>(with_layout(D, rows_aligned, [&](auto layout) {
     using L = decltype(layout);
     return launch_epoch<L>(mf_explicit_epoch_kernel<L>, e, B, e.up, stream);

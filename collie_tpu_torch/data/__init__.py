@@ -3,7 +3,8 @@ from collie_tpu_torch.data.cross_validation import random_split, stratified_spli
 from collie_tpu_torch.data.interactions import (BaseInteractions,
                                                 ExplicitInteractions,
                                                 HDF5Interactions,
-                                                Interactions)
+                                                Interactions,
+                                                write_hdf5_meta)
 from collie_tpu_torch.data.loaders import (ApproximateNegativeSamplingInteractionsDataLoader,
                                            BaseInteractionsDataLoader,
                                            HDF5InteractionsDataLoader,
@@ -26,4 +27,5 @@ __all__ = [
     'random_split',
     'stratified_split',
     'synthetic',
+    'write_hdf5_meta',
 ]

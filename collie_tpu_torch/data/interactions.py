@@ -2,8 +2,10 @@
 
 Numpy copy of ``collie_tpu.data.interactions`` (reference
 ``collie/interactions/datasets.py``: ``BaseInteractions`` at ``:17``,
-``Interactions`` at ``:196``, ``ExplicitInteractions`` at ``:448``).  The
-out-of-core HDF5 tier is not ported yet.
+``Interactions`` at ``:196``, ``ExplicitInteractions`` at ``:448``) and of
+its out-of-core ``HDF5Interactions`` / ``write_hdf5_meta`` (``:310-470``),
+which import ``h5py`` where they read or write a store, so the package
+imports without it.
 
 Key architectural shift vs the reference: the reference performs per-row
 rejection sampling of negatives inside ``Dataset.__getitem__``
@@ -309,11 +311,154 @@ class ExplicitInteractions(BaseInteractions):
 
 
 class HDF5Interactions:
-    """Out-of-core interactions over an HDF5 store
-    (``collie_tpu/data/interactions.py:310``), not ported: it needs
-    ``h5py``, which the card's machine lacks (ROADMAP Queue 1, the
-    out-of-core tier)."""
+    """Out-of-core interactions over an HDF5 store, read in contiguous chunks
+    (``collie_tpu/data/interactions.py:310``; reference
+    ``datasets.py:565-733``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'the out-of-core HDF5 tier is not ported yet (ROADMAP Queue 1)')
+    The store layout is the one ``collie_tpu_torch.utils.pandas_df_to_hdf5``
+    (and the JAX package's) writes: 1-d column datasets ``user_id`` /
+    ``item_id`` (/ ``rating``) under a group, with an optional ``meta``
+    group carrying ``num_users`` / ``num_items`` attributes
+    (``write_hdf5_meta``).  Negative sampling for HDF5 data is always
+    approximate, as in the reference (``datasets.py:664-694``); its draws
+    are numpy's, so they equal the JAX package's for the same seed.
+    """
+
+    def __init__(self,
+                 hdf5_path: str,
+                 user_col: str = 'user_id',
+                 item_col: str = 'item_id',
+                 num_negative_samples: int = 10,
+                 num_users: Union[int, str] = 'infer',
+                 num_items: Union[int, str] = 'infer',
+                 key: str = 'interactions',
+                 shuffle: bool = False,
+                 seed: Optional[int] = None):
+        import h5py
+
+        self.hdf5_path = str(hdf5_path)
+        self.user_col = user_col
+        self.item_col = item_col
+        self.key = key
+        self.num_negative_samples = int(num_negative_samples)
+        self.shuffle = shuffle
+        self.seed = seed if seed is not None else get_random_seed()
+        self._rng = np.random.default_rng(self.seed)
+
+        with h5py.File(self.hdf5_path, 'r') as f:
+            grp = f[key]
+            self.num_interactions = int(grp[user_col].shape[0])
+            meta = f.get('meta')
+            if meta is not None and 'num_users' in meta.attrs and num_users == 'infer':
+                num_users = int(meta.attrs['num_users'])
+            if meta is not None and 'num_items' in meta.attrs and num_items == 'infer':
+                num_items = int(meta.attrs['num_items'])
+            if num_users == 'infer' or num_items == 'infer':
+                if self.num_interactions == 0:
+                    raise ValueError(
+                        f'Cannot infer ``num_users``/``num_items`` from an '
+                        f'empty HDF5 store: {self.hdf5_path!r} key {key!r} '
+                        f'has 0 interactions.')
+                num_users, num_items = self._infer_sizes(grp, num_users, num_items)
+
+        self.num_users = int(num_users)
+        self.num_items = int(num_items)
+
+    def _infer_sizes(self, grp, num_users, num_items) -> Tuple[int, int]:
+        """A chunked max scan over the store (the reference's 100k-chunk
+        pass, ``datasets.py:616-654``), which doubles as its zero-index
+        check (``:632-650``): a 1-indexed store would shift every
+        embedding row, so it fails loudly."""
+        max_user = max_item = -1
+        min_user = min_item = None
+        chunk = 100_000
+        for start in range(0, self.num_interactions, chunk):
+            sl = slice(start, min(start + chunk, self.num_interactions))
+            u, i = grp[self.user_col][sl], grp[self.item_col][sl]
+            max_user = max(max_user, int(u.max()))
+            max_item = max(max_item, int(i.max()))
+            min_user = int(u.min()) if min_user is None else min(min_user, int(u.min()))
+            min_item = int(i.min()) if min_item is None else min(min_item, int(i.min()))
+        if min_user != 0 or min_item != 0:
+            raise ValueError(
+                f'Minimum values of {self.user_col} and {self.item_col} in HDF5 data '
+                f'must both be 0, not {min_user} and {min_item}, respectively.'
+            )
+        return (max_user + 1 if num_users == 'infer' else num_users,
+                max_item + 1 if num_items == 'infer' else num_items)
+
+    def __len__(self) -> int:
+        return self.num_interactions
+
+    def head(self, n: int = 5) -> 'pd.DataFrame':
+        """First ``n`` rows of the store as a DataFrame (reference
+        ``datasets.py:716-719``); negative ``n`` counts from the end."""
+        n = self._prep_head_tail_n(n)
+        return self._read_df_chunk(0, n)
+
+    def tail(self, n: int = 5) -> 'pd.DataFrame':
+        """Last ``n`` rows of the store as a DataFrame (reference
+        ``datasets.py:721-724``)."""
+        n = self._prep_head_tail_n(n)
+        return self._read_df_chunk(self.num_interactions - n, n)
+
+    def _prep_head_tail_n(self, n: int) -> int:
+        """Clamp ``n`` the way the reference does (``datasets.py:726-733``)."""
+        if n < 0:
+            n = self.num_interactions + n
+        return min(max(n, 0), self.num_interactions)
+
+    def _read_df_chunk(self, start: int, n: int) -> 'pd.DataFrame':
+        """A DataFrame chunk in the store's column order (``column_order``
+        first, then any dataset the attribute predates, name-sorted), with
+        the rows' offsets as its index, as the reference's
+        ``store.select`` gives it (``datasets.py:716-733``)."""
+        import h5py
+        import pandas as pd
+
+        with h5py.File(self.hdf5_path, 'r') as f:
+            grp = f[self.key]
+            ordered = [c for c in grp.attrs.get('column_order', ()) if c in grp]
+            cols = ordered + sorted(set(grp.keys()) - set(ordered))
+            return pd.DataFrame(
+                {col: np.asarray(grp[col][start:start + n]) for col in cols},
+                columns=cols, index=range(start, start + n))
+
+    def read_chunk(self, start: int, stop: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The raw contiguous ``[start, stop)`` user and item columns as
+        int32: the chunk tier's read primitive (it shuffles and samples
+        negatives on the device, ``training/scan_engine.build_hdf5_chunk_make``)."""
+        import h5py
+
+        with h5py.File(self.hdf5_path, 'r') as f:
+            grp = f[self.key]
+            return (np.asarray(grp[self.user_col][start:stop], dtype=np.int32),
+                    np.asarray(grp[self.item_col][start:stop], dtype=np.int32))
+
+    def __getitem__(self, index: Tuple[int, int]
+                    ) -> Tuple[Tuple[np.ndarray, np.ndarray], np.ndarray]:
+        """A contiguous ``(start_idx, batch_size)`` chunk (through
+        ``read_chunk``, the one read of the store), shuffled inside when
+        ``shuffle``, with approximate negatives ``[n, K]`` (reference
+        ``datasets.py:664-694``).  Ids come back int64."""
+        start_idx, batch_size = index
+        stop = min(start_idx + batch_size, self.num_interactions)
+        users, items = (ids.astype(np.int64) for ids in self.read_chunk(start_idx, stop))
+
+        if self.shuffle:
+            perm = self._rng.permutation(len(users))
+            users, items = users[perm], items[perm]
+
+        negatives = self._rng.integers(0, self.num_items,
+                                       size=(len(users), self.num_negative_samples))
+        return (users, items), negatives
+
+
+def write_hdf5_meta(hdf5_path: str, num_users: int, num_items: int) -> None:
+    """Write the ``meta`` group ``HDF5Interactions`` reads its sizes from."""
+    import h5py
+
+    with h5py.File(hdf5_path, 'a') as f:
+        meta = f.require_group('meta')
+        meta.attrs['num_users'] = num_users
+        meta.attrs['num_items'] = num_items

@@ -1,8 +1,8 @@
 """Batch loaders producing fixed-shape numpy batches.
 
-Numpy copy of ``collie_tpu.data.loaders`` (``InteractionsDataLoader`` and
-``ApproximateNegativeSamplingInteractionsDataLoader``; the HDF5 loader
-belongs to the out-of-core tier, see ROADMAP.md).
+Numpy copy of ``collie_tpu.data.loaders``: ``InteractionsDataLoader``,
+``ApproximateNegativeSamplingInteractionsDataLoader`` and the out-of-core
+``HDF5InteractionsDataLoader``.
 
 Rebuild of the reference's ``collie/interactions/dataloaders.py`` (loaders at
 ``:70``, ``:176``, ``:297``) without ``torch.utils.data``: each loader is a
@@ -23,7 +23,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from collie_tpu_torch.data.interactions import BaseInteractions, ExplicitInteractions, \
-    Interactions
+    HDF5Interactions, Interactions
 from collie_tpu_torch.data.sampling import NegativeSampler
 
 Batch = Dict[str, np.ndarray]
@@ -182,11 +182,66 @@ class ApproximateNegativeSamplingInteractionsDataLoader(InteractionsDataLoader):
 
 
 class HDF5InteractionsDataLoader(BaseInteractionsDataLoader):
-    """The out-of-core chunked loader of collie_tpu
-    (``collie_tpu/data/loaders.py:179``), not ported: it needs ``h5py``,
-    which the card's machine lacks (ROADMAP Queue 1, the out-of-core
-    tier)."""
+    """Chunked out-of-core loader (``collie_tpu/data/loaders.py:179``;
+    reference ``dataloaders.py:297-397``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'the out-of-core HDF5 tier is not ported yet (ROADMAP Queue 1)')
+    Shuffle permutes the order of the contiguous chunks (one
+    ``default_rng((seed, epoch))`` permutation an epoch) and, inside
+    ``HDF5Interactions``, the rows of each chunk; sampling is always
+    approximate, as in the reference's ``HDF5Sampler``
+    (``samplers.py:67-127``).  A loader built from ``hdf5_path`` hands its
+    seed to the ``HDF5Interactions`` it builds.  The trainer trains such a
+    loader through the chunk tier (``CollieTrainer``), which reads the
+    store through ``read_chunk``; iterating it gives the per-step path's
+    padded batches.
+    """
+
+    def __init__(self,
+                 interactions: Optional[HDF5Interactions] = None,
+                 hdf5_path: Optional[str] = None,
+                 batch_size: int = 1024,
+                 shuffle: bool = False,
+                 drop_last: bool = False,
+                 seed: Optional[int] = None,
+                 **interactions_kwargs):
+        if interactions is None:
+            # without the loader's seed HDF5Interactions would take a
+            # seconds-resolution time seed, and a seeded loader would still
+            # sample irreproducible negatives
+            interactions_kwargs.setdefault('seed', seed)
+            interactions = HDF5Interactions(hdf5_path=hdf5_path, shuffle=shuffle,
+                                            **interactions_kwargs)
+        self.interactions = interactions
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed if seed is not None else interactions.seed
+        self._epoch = 0
+        self.approximate_negative_sampling = True
+
+    @property
+    def mat(self):
+        raise AttributeError(
+            'HDF5-backed data is out-of-core; the full interactions matrix is unavailable '
+            '(reference ``dataloaders.py:381-385``).'
+        )
+
+    def __iter__(self) -> Iterator[Batch]:
+        rng = np.random.default_rng((self.seed, self._epoch))
+        self._epoch += 1
+        n = self.interactions.num_interactions
+        B = self.batch_size
+        stop = (n // B) * B if self.drop_last else n
+        starts = np.arange(0, stop, B)
+        if self.shuffle:
+            starts = rng.permutation(starts)
+        for start in starts:
+            (users, items), negs = self.interactions[(int(start), B)]
+            mask = np.zeros(B, dtype=np.float32)
+            mask[:len(users)] = 1.0
+            yield {
+                'users': _pad_to(users, B),
+                'pos_items': _pad_to(items, B),
+                'neg_items': _pad_to(negs, B),
+                'mask': mask,
+            }

@@ -425,8 +425,8 @@ class BasePipeline(nn.Module):
                 if K == 1:
                     neg_preds = neg_preds[0]
                     neg_items = neg_items[0]
-            return loss_fn(
-                pos_preds, neg_preds,
+            return _call_loss(
+                loss_fn, pos_preds, neg_preds,
                 num_items=self.hparams['num_items'],
                 positive_items=pos_items,
                 negative_items=neg_items,
@@ -439,7 +439,8 @@ class BasePipeline(nn.Module):
                 raise ValueError('Implicit loss with explicit data is invalid!')
             preds = self.score(params, batch['users'].long(), batch['items'].long(),
                                training=training, generator=generator)
-            return self._loss_fn()(preds, batch['ratings'].float(), sample_weights=mask)
+            return _call_loss(self._loss_fn(), preds, batch['ratings'].float(),
+                              sample_weights=mask)
         raise ValueError(f'Unexpected format for batch with keys: {sorted(batch)}.')
 
     @staticmethod
@@ -822,6 +823,17 @@ class BasePipeline(nn.Module):
     def _restore_extra_arrays(self, loaded, **kwargs) -> None:
         """Hook for subclasses to restore ``_extra_save_arrays``' arrays
         (``loaded`` is the open npz) before the params load."""
+
+
+def _call_loss(loss_function, *args, **kwargs):
+    """Call a loss that may not take the whole keyword surface: on a
+    ``TypeError``, once more without ``sample_weights`` (the reference's
+    ``_call_loss``, ``collie_tpu/models/base.py:899-906``)."""
+    try:
+        return loss_function(*args, **kwargs)
+    except TypeError:
+        kwargs.pop('sample_weights', None)
+        return loss_function(*args, **kwargs)
 
 
 def _as_array_dict(metadata):

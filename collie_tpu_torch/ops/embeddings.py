@@ -37,8 +37,34 @@ def zero_embedding_init(num_embeddings: int,
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Row gather, upcast to float32 right after it: bfloat16 tables
     (``embeddings_dtype='bfloat16'``) read half-width rows and every score
-    downstream computes in float32."""
+    downstream computes in float32.  A bfloat16 table's gradient sums the
+    rows' float32 gradients in float32 and rounds to bfloat16 once
+    (``_Bf16Lookup``), as the reference's ``_bf16_lookup`` does: popular
+    rows collide many times a batch, and summing the collisions in bfloat16
+    rounds most of the signal away."""
+    if table.dtype == torch.bfloat16:
+        return _Bf16Lookup.apply(table, ids)
     return table[ids].float()
+
+
+class _Bf16Lookup(torch.autograd.Function):
+    """``table[ids].float()`` for a bfloat16 table, whose backward
+    accumulates into a float32 table and casts to bfloat16 once.  The
+    accumulation is ``index_put_(accumulate=True)``, which on CUDA sums in
+    one sorted order, so the gradient does not depend on atomics."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        return table[ids].float()
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        ids, = ctx.saved_tensors
+        acc = torch.zeros(ctx.table_shape, dtype=torch.float32, device=grad.device)
+        acc.index_put_((ids,), grad.float(), accumulate=True)
+        return acc.to(torch.bfloat16), None
 
 
 def dropout_mask(generator: torch.Generator, shape, keep: float) -> torch.Tensor:

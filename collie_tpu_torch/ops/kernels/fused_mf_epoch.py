@@ -207,9 +207,11 @@ def fused_mf_epoch_plain(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, 
     return (*state, count, losses)
 
 
-#: the C interface's version, ``collie_fused_mf_epoch_abi()`` (2: the
-#: learning rates and the live flag in device memory)
-ABI = 2
+#: the C interface's version, ``collie_fused_mf_epoch_abi()`` (3: the
+#: fixed-point accumulators, the loss partials and the overflow word)
+ABI = 3
+#: the loss partials' length, ``collie_fused_mf_epoch_max_grid()``
+MAX_GRID = 1024
 
 
 def _library() -> ctypes.CDLL:
@@ -217,28 +219,41 @@ def _library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # pointers and the stream as c_void_p: ctypes would cut a bare int to 32 bits
     lib.collie_fused_mf_epoch.argtypes = (
-        [p] * 7 + [p] * 4 + [p, p, i] + [p] * 3 + [p] * 6 + [i] * 8 + [p, p] + [f] * 2 + [p])
+        [p] * 7 + [p] * 4 + [p, p, i] + [p] * 3 + [p] * 8 + [i] * 8 + [p, p] + [f] * 2 + [p])
     lib.collie_fused_mf_epoch.restype = i
     lib.collie_fused_mf_explicit_epoch.argtypes = (
-        [p] * 22 + [i] * 7 + [f] * 2 + [p, p] + [f] * 2 + [p])
+        [p] * 24 + [i] * 7 + [f] * 2 + [p, p] + [f] * 2 + [p])
     lib.collie_fused_mf_explicit_epoch.restype = i
-    lib.collie_fused_mf_epoch_max_dim.argtypes = []
-    lib.collie_fused_mf_epoch_max_dim.restype = i
-    if lib.collie_fused_mf_epoch_max_dim() != MAX_DIM:
-        raise RuntimeError('csrc/fused_mf_epoch.cu and its wrapper disagree on MAX_DIM')
+    for name, want in (('collie_fused_mf_epoch_max_dim', MAX_DIM),
+                       ('collie_fused_mf_epoch_max_grid', MAX_GRID)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [], i
+        if fn() != want:
+            raise RuntimeError(f'csrc/fused_mf_epoch.cu and its wrapper disagree on {name}')
     return lib
 
 
-def _zeroed(device, *shapes) -> List[torch.Tensor]:
-    """Zeroed float32 tensors of ``shapes`` cut from one allocation (one
-    memset on the card), each starting on a 16-byte boundary for the
-    kernel's float4 accesses."""
+def _zeroed(device, *shapes, dtype=torch.float32) -> List[torch.Tensor]:
+    """Zeroed tensors of ``shapes`` cut from one allocation (one memset on
+    the card), each starting on a 16-byte boundary for the kernel's 16-byte
+    accesses."""
     sizes = [math.prod(shape) for shape in shapes]
+    per_16 = 16 // torch.empty((), dtype=dtype).element_size()
     starts = [0]
     for n in sizes:
-        starts.append(starts[-1] + -(-n // 4) * 4)
-    flat = torch.zeros(starts[-1], dtype=torch.float32, device=device)
+        starts.append(starts[-1] + -(-n // per_16) * per_16)
+    flat = torch.zeros(starts[-1], dtype=dtype, device=device)
     return [flat[a:a + n].view(shape) for a, n, shape in zip(starts, sizes, shapes)]
+
+
+def _scratch(device, S: int, *gradients: torch.Tensor) -> List[torch.Tensor]:
+    """The launch's zeroed scratch: one fixed-point accumulator a gradient
+    (``2 n`` int64 words, the lo words then the hi words), then the
+    per-step losses, the blocks' loss partials, the overflow word and the
+    grid-barrier word."""
+    accumulators = _zeroed(device, *[(2 * g.numel(),) for g in gradients], dtype=torch.int64)
+    losses, partials, overflow, barrier = _zeroed(device, (S,), (MAX_GRID,), (1,), (1,))
+    return [*accumulators, losses, partials, overflow, barrier]
 
 
 def _timeline_ptr(timeline: Optional[torch.Tensor], S: int, device) -> Optional[int]:
@@ -286,9 +301,8 @@ def fused_mf_epoch_cuda(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, c
     denoms = torch.clamp(mask.sum(dim=1), min=1.0).contiguous()
     bc1s, bc2s = adam_bias_corrections(count + 1 + torch.arange(S, device=device))
     bc1s, bc2s = bc1s.contiguous(), bc2s.contiguous()
-    # the gradient accumulators, the per-step losses and the grid-barrier word
-    du, di, db, losses, barrier = _zeroed(device, user_emb.shape, item_emb.shape,
-                                          item_bias.shape, (S,), (1,))
+    du, di, db, losses, partials, overflow, barrier = _scratch(device, S, user_emb, item_emb,
+                                                               item_bias)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.collie_fused_mf_epoch(
@@ -297,8 +311,8 @@ def fused_mf_epoch_cuda(user_emb, item_emb, item_bias, mu_u, nu_u, mu_i, nu_i, c
             users.data_ptr(), pos.data_ptr(), negs.data_ptr(), mask.data_ptr(),
             meta.data_ptr() if F else None, meta_w.data_ptr() if F else None, F,
             denoms.data_ptr(), bc1s.data_ptr(), bc2s.data_ptr(),
-            du.data_ptr(), di.data_ptr(), db.data_ptr(), losses.data_ptr(), barrier.data_ptr(),
-            _timeline_ptr(timeline, S, device),
+            du.data_ptr(), di.data_ptr(), db.data_ptr(), losses.data_ptr(), partials.data_ptr(),
+            overflow.data_ptr(), barrier.data_ptr(), _timeline_ptr(timeline, S, device),
             U, I, D, S, B, K, LOSS_KINDS[loss_kind], int(bool(adaptive)),
             lrs.data_ptr(), live.data_ptr(), float(wd_emb), float(wd_bias), stream)
     if err != 0:
@@ -449,8 +463,8 @@ def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
     denoms = torch.clamp(mask.sum(dim=1), min=1.0).contiguous()
     bc1s, bc2s = adam_bias_corrections(count + 1 + torch.arange(S, device=device))
     bc1s, bc2s = bc1s.contiguous(), bc2s.contiguous()
-    du, di, dbu, dbi, losses, barrier = _zeroed(device, user_emb.shape, item_emb.shape,
-                                                user_bias.shape, item_bias.shape, (S,), (1,))
+    du, di, dbu, dbi, losses, partials, overflow, barrier = _scratch(
+        device, S, user_emb, item_emb, user_bias, item_bias)
     y_lo, y_span = ((float(y_range[0]), float(y_range[1] - y_range[0]))
                     if y_range is not None else (0.0, 1.0))
     lrs = torch.stack([_lr_value(lr_emb, device), _lr_value(lr_bias, device)])
@@ -464,7 +478,8 @@ def fused_mf_explicit_epoch_cuda(user_emb, item_emb, user_bias, item_bias,
             users.data_ptr(), items.data_ptr(), ratings.data_ptr(), mask.data_ptr(),
             denoms.data_ptr(), bc1s.data_ptr(), bc2s.data_ptr(),
             du.data_ptr(), di.data_ptr(), dbu.data_ptr(), dbi.data_ptr(), losses.data_ptr(),
-            barrier.data_ptr(), _timeline_ptr(timeline, S, device),
+            partials.data_ptr(), overflow.data_ptr(), barrier.data_ptr(),
+            _timeline_ptr(timeline, S, device),
             U, I, D, S, B, EXPLICIT_LOSS_KINDS[loss_kind], int(y_range is not None), y_lo, y_span,
             lrs.data_ptr(), live.data_ptr(), float(wd_emb), float(wd_bias), stream)
     if err != 0:

@@ -26,6 +26,13 @@ approximate loader), and then trains:
 There is no path on which a CUDA model inside the envelope trains without
 the kernel: if the kernel cannot launch, the epoch raises.
 
+The out-of-core tier (``hdf5_chunk_plan``, ``draw_chunk``,
+``build_hdf5_chunk_make``; ``collie_tpu/training/scan_engine.py:691-800``)
+trains an ``HDF5InteractionsDataLoader`` one chunk of steps at a time: the
+trainer copies each chunk's ids to the device, and the chunk function
+shuffles them inside the chunk, draws its approximate negatives and runs
+the generic step over them.
+
 Routing knobs, read when the epoch functions are built, where the JAX engine
 reads them: ``COLLIE_TPU_FUSED_EPOCH`` (``auto``, the default: the kernel on
 ``cuda`` inside the envelope; ``1``: the fused function on any device inside
@@ -288,6 +295,35 @@ def train_step(model, specs, active: List[bool], params: Dict[str, torch.Tensor]
         if fused_tables:
             params = model.fuse_params(params)
     return params, tuple(states), loss.detach()
+
+
+def train_steps(model, specs, active: List[bool], params: Dict[str, torch.Tensor],
+                opt_states: tuple, batches: Dict[str, torch.Tensor],
+                step_seeds: Optional[List[int]], fused_tables: bool):
+    """``train_step`` over every step of ``batches`` (``[S, ...]`` tensors),
+    step ``s`` with a dropout generator seeded ``step_seeds[s]`` (None: no
+    dropout), the tables carried fused when ``fused_tables``.  Returns
+    ``(params, opt_states, per-step losses)``, the params named and
+    contiguous again; an untrained table keeps its tensor, so checkpoints,
+    saves and a live select see the named layout only."""
+    old_params = params
+    if fused_tables:
+        params = model.fuse_params(params)
+    losses = []
+    for s in range(next(iter(batches.values())).shape[0]):
+        generator = None
+        if step_seeds is not None:
+            generator = torch.Generator(device=model.device)
+            generator.manual_seed(step_seeds[s])
+        params, opt_states, loss = train_step(model, specs, active, params, opt_states,
+                                              {k: v[s] for k, v in batches.items()},
+                                              generator, fused_tables)
+        losses.append(loss)
+    if fused_tables:
+        trained = {k for spec, on in zip(specs, active) if on for k in spec.keys}
+        params = {k: (v.contiguous() if k in trained else old_params[k])
+                  for k, v in model.unfuse_params(params).items()}
+    return params, opt_states, losses
 
 
 def device_stamp(device: torch.device):
@@ -637,7 +673,6 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                     losses.mean())
     else:
         with_dropout = not model._score_is_deterministic()
-        trained = {k for spec, on in zip(specs, active) if on for k in spec.keys}
 
         def epoch_fn(params, opt_states, data_, seed, epoch_idx, live=None):
             clock.begin()
@@ -645,24 +680,8 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             batches = _epoch_batches(seed, epoch_idx)
             clock.mark()
             step_seeds = dropout_step_seeds(seed, epoch_idx, S) if with_dropout else None
-            losses = []
-            if fused_tables:
-                params = model.fuse_params(params)
-            for s in range(S):
-                generator = None
-                if with_dropout:
-                    generator = torch.Generator(device=device)
-                    generator.manual_seed(step_seeds[s])
-                params, opt_states, loss = train_step(
-                    model, specs, active, params, opt_states,
-                    {k: v[s] for k, v in batches.items()}, generator, fused_tables)
-                losses.append(loss)
-            if fused_tables:
-                # named and contiguous again; an untrained table keeps its
-                # tensor, so checkpoints, saves and the live select see the
-                # named layout only
-                params = {k: (v.contiguous() if k in trained else old_params[k])
-                          for k, v in model.unfuse_params(params).items()}
+            params, opt_states, losses = train_steps(model, specs, active, params, opt_states,
+                                                     batches, step_seeds, fused_tables)
             loss = torch.stack(losses).mean()
             if live is not None:
                 params = {k: v if v is old_params[k] else torch.where(live, v, old_params[k])
@@ -680,6 +699,105 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     epoch_fn.epoch_batches = _epoch_batches
     return epoch_fn, data, S, n_used
 
+
+
+def hdf5_chunk_plan(total_steps: int, max_chunk_steps: int) -> List[Tuple[int, int]]:
+    """An out-of-core epoch as ``(start_step, num_steps)`` chunks
+    (``collie_tpu/training/scan_engine.py:691``): full chunks of
+    ``max_chunk_steps``, then the tail in power-of-two chunks, so only the
+    last batch of the last chunk can be partly padding and no step is all
+    padding (such a step would still decay the Adam moments, where the
+    per-step path never runs it)."""
+    plan = []
+    done = 0
+    while done < total_steps:
+        b = max_chunk_steps
+        while b > total_steps - done:
+            b //= 2
+        plan.append((done, b))
+        done += b
+    return plan
+
+
+def draw_chunk(seed: int, epoch_idx: int, chunk_idx: int, device, perm_n: Optional[int],
+               neg_shape: Tuple[int, int], num_items: int, num_steps: int, dropout: bool
+               ) -> Tuple[Optional[torch.Tensor], torch.Tensor, Optional[List[int]]]:
+    """One out-of-core chunk's randomness, from ``(seed, epoch, chunk)``:
+    the four Feistel keys of its in-chunk shuffle (when ``perm_n`` is set),
+    its approximate negatives ``neg_shape = [C, K]`` int32 in
+    ``[0, num_items)`` drawn on ``device``, and one dropout seed a step
+    (when ``dropout``).  The analog of the JAX chunk's
+    ``fold_in(fold_in(base_rng, epoch), chunk)`` split three ways
+    (``collie_tpu/training/scan_engine.py:736-739``); the one place a chunk
+    draws, so a test can hand it JAX's keys and negatives."""
+    words = np.random.SeedSequence([int(seed), int(epoch_idx), int(chunk_idx), 6]) \
+        .generate_state(1 + num_steps, dtype=np.uint64)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(words[0]) % (2 ** 63))
+    keys = draw_feistel_keys(generator) if perm_n else None
+    negs = torch.randint(0, num_items, neg_shape, generator=generator, device=device,
+                         dtype=torch.int32)
+    step_seeds = [int(w) for w in words[1:]] if dropout else None
+    return keys, negs, step_seeds
+
+
+def build_hdf5_chunk_make(model, specs, active: List[bool], loader,
+                          shuffle: bool) -> Callable[[int], Callable]:
+    """The out-of-core chunk tier (``collie_tpu/training/scan_engine.py:713``):
+    a factory of chunk functions for an ``HDF5InteractionsDataLoader``.
+
+    ``make(num_steps)`` returns ``chunk_fn(params, opt_states, users, items,
+    mask, seed, epoch_idx, chunk_idx) -> (params, opt_states, loss_sum)``
+    over flat ``[num_steps * B]`` device tensors (int32 ids, float32 mask):
+    the chunk's draws (``draw_chunk``), its in-chunk shuffle (the Feistel
+    permutation, on the card the cycle-walk kernel; ``COLLIE_TPU_SHUFFLE=sort``
+    a ``torch.randperm``) applied to ids and mask together, then one
+    ``train_step`` a batch, on the fused table layout where the model has
+    one (``COLLIE_TPU_FUSED_TABLES``, read here as JAX reads it at
+    ``:751-754``).  ``loss_sum`` is the 0-d sum of the per-step losses on
+    the device; the trainer divides the epoch's total by the real step
+    count.  Like JAX's chunk tier it trains through the autodiff step and
+    never through ``fused_mf_epoch``, and sampling is approximate, as for
+    all HDF5 data.  Nothing in a chunk reads a value back from the card."""
+    inter = loader.interactions
+    B = loader.batch_size
+    K = inter.num_negative_samples
+    num_items = inter.num_items
+    device = model.device
+    shuffle_kind = os.environ.get('COLLIE_TPU_SHUFFLE', 'feistel')
+    fuse_tables = (os.environ.get('COLLIE_TPU_FUSED_TABLES', 'auto') != '0'
+                   and model.supports_fused_tables())
+    with_dropout = not model._score_is_deterministic()
+
+    def make(num_steps: int) -> Callable:
+        C = num_steps * B
+        permute = shuffle and C >= 2
+
+        def chunk_fn(params, opt_states, users, items, mask, seed, epoch_idx, chunk_idx):
+            keys, negs, step_seeds = draw_chunk(seed, epoch_idx, chunk_idx, device,
+                                                C if permute else None, (C, K), num_items,
+                                                num_steps, with_dropout)
+            if permute:
+                if shuffle_kind == 'sort':
+                    generator = torch.Generator(device=device)
+                    generator.manual_seed(int(np.random.SeedSequence(
+                        [int(seed), int(epoch_idx), int(chunk_idx), 7]).generate_state(
+                            1, np.uint64)[0]) % (2 ** 63))
+                    perm = torch.randperm(C, generator=generator, device=device)
+                else:
+                    perm = feistel_permutation_from_keys(keys, C)
+                users, items, mask = users[perm], items[perm], mask[perm]
+            batches = {'users': users.reshape(num_steps, B),
+                       'pos_items': items.reshape(num_steps, B),
+                       'neg_items': negs.reshape(num_steps, B, K),
+                       'mask': mask.reshape(num_steps, B)}
+            params, opt_states, losses = train_steps(model, specs, active, params, opt_states,
+                                                     batches, step_seeds, fuse_tables)
+            return params, opt_states, torch.stack(losses).sum()
+
+        return chunk_fn
+
+    return make
 
 
 def build_scan_fit_fn(train_epoch_fn, val_epoch_fn, *, monitor_val: bool,

@@ -21,12 +21,21 @@ JAX chooses them (``:196-222``, ``:465-499``, ``:682-692``):
   takes the per-epoch loop instead, and so does every fit outside those
   conditions;
 * the per-epoch host loop of the JAX package's ``_run_epochs``
-  (``:762-869``), over one of two epoch paths:
+  (``:762-869``), over one of three epoch paths:
 
 * the whole-epoch path (``scan_engine``) for in-memory loaders, unless
   ``epoch_mode='step'``: the epoch functions are built once per fit, and an
   MF on ``cuda`` trains through a fused kernel (``fused_mf_epoch`` for
   implicit data, ``fused_mf_explicit_epoch`` for ratings);
+* the out-of-core chunk tier (``_hdf5_chunk_epoch``) for an
+  ``HDF5InteractionsDataLoader`` (JAX's rule, ``:191-221``: not
+  ``epoch_mode='step'``, ``COLLIE_TPU_HDF5_CHUNK_STEPS`` > 0, default 64):
+  the epoch's steps in chunks (``scan_engine.hdf5_chunk_plan``), in the
+  loader's chunk order, each chunk read from the store on a background
+  thread one chunk ahead, copied to the device from pinned host memory
+  without a sync and trained by one chunk function
+  (``scan_engine.build_hdf5_chunk_make``); the host reads the epoch's loss
+  once, at its end;
 * the per-step path for ``epoch_mode='step'`` and for any loader the
   whole-epoch path cannot take (a ``PrefetchLoader``, a custom iterable of
   batch dicts): each numpy batch of the loader's host iterator goes to the
@@ -35,8 +44,9 @@ JAX chooses them (``:196-222``, ``:465-499``, ``:682-692``):
   device that changes no value; here the steps run one by one, each with
   the dropout seed of its global step (``step_dropout_seed``, the analog of
   ``fold_in(PRNGKey(seed), step)``).  ``global_step`` counts these steps
-  and ``train_loss_step`` is logged every ``log_every_n_steps``; the
-  whole-epoch path leaves ``global_step`` alone, as JAX's does.  Validation
+  (and the chunk tier's) and ``train_loss_step`` is logged every
+  ``log_every_n_steps``; the whole-epoch path leaves ``global_step``
+  alone, as JAX's does.  Validation
   from a loader the whole-epoch path cannot take is the mean of per-batch
   losses.
 
@@ -60,27 +70,31 @@ its leaves in a fixed order and a scheduler as its attributes.
 state.
 
 ``flight_guard``: the context the whole fit enters around each flight's
-dispatch (none by default); ``chip_smoke.py`` sets one that turns every
-host sync inside a flight into an error.
+dispatch, and the chunk tier around an epoch's chunk loop (none by
+default); ``chip_smoke.py`` sets one that turns every host sync inside
+them into an error.
 
-Not ported (ROADMAP.md): mesh training and its ``.shards`` checkpoints, the
-HDF5 chunk tier and multi-process fits.
+Not ported (ROADMAP.md): mesh training and its ``.shards`` checkpoints and
+multi-process fits.
 """
 import contextlib
 import os
 import pickle
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from collie_tpu_torch.data import HDF5InteractionsDataLoader
 from collie_tpu_torch.training.optimizers import (get_lr, host_scalars, set_lr,
                                                   state_from_leaves, state_leaves,
                                                   whole_fit_states)
-from collie_tpu_torch.training.scan_engine import (build_scan_epoch_fns, build_scan_fit_fn,
-                                                   device_stamp, fetch_to_host,
+from collie_tpu_torch.training.scan_engine import (build_hdf5_chunk_make, build_scan_epoch_fns,
+                                                   build_scan_fit_fn, device_stamp,
+                                                   fetch_to_host, hdf5_chunk_plan,
                                                    loader_is_scannable, stamps_ms, train_step)
 from collie_tpu_torch.training.schedulers import (resolve_scheduler,
                                                   scheduler_absorb_device_state,
@@ -94,7 +108,7 @@ _FLIGHT = 4
 #: the longest block of a whole fit
 _MAX_BLOCK = 16
 
-#: entered around each flight's dispatch (module docstring)
+#: entered around each flight's dispatch and each chunk loop (module docstring)
 flight_guard = contextlib.nullcontext
 
 
@@ -103,6 +117,41 @@ def step_dropout_seed(seed: int, global_step: int) -> int:
     global_step)``."""
     return int(np.random.SeedSequence([int(seed), int(global_step), 4]).generate_state(
         1, dtype=np.uint64)[0])
+
+
+def hdf5_epoch_extent(loader) -> Tuple[int, int]:
+    """``(real steps, rows used)`` of one epoch over an
+    ``HDF5InteractionsDataLoader``: with ``drop_last`` the partial last
+    batch's rows are left out."""
+    n, B = loader.num_interactions, loader.batch_size
+    if getattr(loader, 'drop_last', False):
+        return n // B, (n // B) * B
+    return -(-n // B), n
+
+
+def read_hdf5_chunk(loader, start_step: int, steps: int, n_used: int,
+                    device: torch.device) -> List[torch.Tensor]:
+    """A chunk's ``[users, items, mask]`` as host tensors of
+    ``steps * batch_size`` rows (pinned when ``device`` is a card), the rows
+    of the store from step ``start_step`` on, the tail past ``n_used``
+    padded with id 0 and mask 0."""
+    B = loader.batch_size
+    start = start_step * B
+    stop = min(start + steps * B, n_used)
+    users, items = loader.interactions.read_chunk(start, stop)
+    out = [torch.zeros(steps * B, dtype=dtype, pin_memory=device.type == 'cuda')
+           for dtype in (torch.int32, torch.int32, torch.float32)]
+    real = stop - start
+    out[0][:real] = torch.from_numpy(users)
+    out[1][:real] = torch.from_numpy(items)
+    out[2][:real] = 1.0
+    return out
+
+
+def hdf5_chunk_to_device(host: List[torch.Tensor], device: torch.device):
+    """``read_hdf5_chunk``'s tensors on ``device``, copied without a host
+    sync."""
+    return tuple(t.to(device, non_blocking=True) for t in host)
 
 
 class CollieTrainer:
@@ -230,6 +279,12 @@ class CollieTrainer:
                           and loader_is_scannable(model.train_loader))
         use_scan_val = (model.val_loader is not None and self.epoch_mode != 'step'
                         and loader_is_scannable(model.val_loader))
+        # the out-of-core chunk tier; COLLIE_TPU_HDF5_CHUNK_STEPS=0 sends an
+        # HDF5 loader down the per-step path
+        hdf5_chunk_steps = int(os.environ.get('COLLIE_TPU_HDF5_CHUNK_STEPS', '64'))
+        use_hdf5_train = (not use_scan_train and self.epoch_mode != 'step'
+                          and hdf5_chunk_steps > 0
+                          and isinstance(model.train_loader, HDF5InteractionsDataLoader))
         if self.epoch_mode == 'scan' and not use_scan_train:
             raise ValueError(
                 'epoch_mode="scan" requires an in-memory InteractionsDataLoader '
@@ -247,10 +302,17 @@ class CollieTrainer:
         if use_scan_val:
             val_fn, val_data, _, _ = build_scan_epoch_fns(
                 model, specs, active, model.val_loader, shuffle=False, training=False)
+        hdf5 = None
+        if use_hdf5_train:
+            hdf5 = {'make': build_hdf5_chunk_make(
+                        model, specs, active, model.train_loader,
+                        shuffle=getattr(model.train_loader, 'shuffle', False)),
+                    'fns': {}, 'chunk_steps': hdf5_chunk_steps}
         steps = None
-        if not use_scan_train or (model.val_loader is not None and not use_scan_val):
+        if (not use_scan_train and not use_hdf5_train) \
+                or (model.val_loader is not None and not use_scan_val):
             steps = self._build_steps(model, specs, active)
-        self._pre_fit_report(model, params, specs, active, train_fn)
+        self._pre_fit_report(model, params, specs, active, train_fn, hdf5 is not None)
 
         # optimizer state resets each fit (reference semantics)
         opt_states = tuple(spec.transform.init({k: params[k] for k in spec.keys})
@@ -271,7 +333,7 @@ class CollieTrainer:
                              start_epoch=start_epoch, train_fn=train_fn,
                              train_data=train_data, train_examples=train_examples,
                              val_fn=val_fn, val_data=val_data, state=state, steps=steps,
-                             whole_fit=whole_fit)
+                             hdf5=hdf5, whole_fit=whole_fit)
         finally:
             # the model holds the latest tables even when an epoch raises
             model.load_params(state['params'])
@@ -279,7 +341,8 @@ class CollieTrainer:
         self.last_fit_examples_per_sec = (state['total_examples'] / fit_secs
                                           if fit_secs > 0 else None)
 
-    def _pre_fit_report(self, model, params, specs, active, train_fn=None) -> None:
+    def _pre_fit_report(self, model, params, specs, active, train_fn=None,
+                        hdf5: bool = False) -> None:
         """Model summary (name, shape, dtype, count, train/frozen), the
         training route (the epoch path; for implicit data the form of
         ``calculate_loss``, ``sparse`` or ``dense``, and its selection
@@ -308,7 +371,7 @@ class CollieTrainer:
             print(f'  {n_train:,} trainable params | '
                   f'{total - n_train:,} frozen params | {total:,} total | '
                   f'stage: {model.current_stage or "-"}')
-            print(f'  route: {self._route(model, train_fn)}')
+            print(f'  route: {self._route(model, train_fn, hdf5)}')
         if self.logger is not None:
             log_hp = getattr(self.logger, 'log_hyperparams', None)
             if callable(log_hp):
@@ -318,9 +381,11 @@ class CollieTrainer:
                     save()
 
     @staticmethod
-    def _route(model, train_fn) -> str:
+    def _route(model, train_fn, hdf5: bool = False) -> str:
         """``epoch: <path> | loss: <form>, <precision> | tables: <layout>``."""
-        if train_fn is None:
+        if hdf5:
+            epoch = 'hdf5 chunks'
+        elif train_fn is None:
             epoch = 'per-step'
         else:
             epoch = 'fused kernel' if train_fn.fused else 'generic'
@@ -474,7 +539,7 @@ class CollieTrainer:
     # -------------------------------------------------------- per-epoch loop
 
     def _run_epochs(self, *, model, specs, schedulers, start_epoch, train_fn, train_data,
-                    train_examples, val_fn, val_data, state, steps=None,
+                    train_examples, val_fn, val_data, state, steps=None, hdf5=None,
                     whole_fit: bool = False) -> None:
         if whole_fit:
             self._run_fit_scan(model=model, specs=specs, schedulers=schedulers,
@@ -492,6 +557,13 @@ class CollieTrainer:
                 train_loss = float(loss)
                 state['total_examples'] += train_examples
                 split = train_fn.split_ms()
+            elif hdf5 is not None:
+                step0 = self.global_step
+                params, opt_states, train_loss, state['total_examples'] = \
+                    self._hdf5_chunk_epoch(model=model, hdf5=hdf5, params=state['params'],
+                                           opt_states=state['opt_states'], epoch=epoch,
+                                           total_examples=state['total_examples'])
+                split = {'steps': self.global_step - step0}
             else:
                 step0 = self.global_step
                 params, opt_states, train_loss, state['total_examples'] = \
@@ -560,6 +632,47 @@ class CollieTrainer:
                               f'(best epoch {self.best_epoch_loss[0]}, '
                               f'loss {self.best_epoch_loss[1]:.5f}).')
                     break
+
+    # ------------------------------------------------------------ out of core
+
+    def _hdf5_chunk_epoch(self, *, model, hdf5, params, opt_states, epoch, total_examples):
+        """One epoch of the out-of-core chunk tier
+        (``collie_tpu/training/trainer.py:789-850``).  The chunk plan in
+        the loader's chunk order (``default_rng((loader seed, epoch))``
+        when it shuffles); a background thread reads chunk c + 1 from the
+        store into pinned host memory while this thread issues chunk c's
+        steps, and each chunk goes to the device with ``non_blocking``
+        copies.  Returns ``(params, opt_states, mean per-step loss,
+        total_examples)``; the loss is the epoch's one host read."""
+        loader = model.train_loader
+        steps_real, n_used = hdf5_epoch_extent(loader)
+        plan = hdf5_chunk_plan(steps_real, hdf5['chunk_steps'])
+        if getattr(loader, 'shuffle', False):
+            order_rng = np.random.default_rng((loader.seed, epoch))
+            plan = [plan[i] for i in order_rng.permutation(len(plan))]
+        device = model.device
+
+        def read(start_step, steps):
+            return read_hdf5_chunk(loader, start_step, steps, n_used, device)
+
+        make, fns = hdf5['make'], hdf5['fns']
+        loss_sums = []
+        with ThreadPoolExecutor(max_workers=1) as reader, flight_guard():
+            pending = reader.submit(read, *plan[0])
+            for ci, (_, steps) in enumerate(plan):
+                host = pending.result()
+                if ci + 1 < len(plan):
+                    pending = reader.submit(read, *plan[ci + 1])
+                users, items, mask = hdf5_chunk_to_device(host, device)
+                fn = fns.get(steps)
+                if fn is None:
+                    fn = fns[steps] = make(steps)
+                params, opt_states, loss_sum = fn(params, opt_states, users, items, mask,
+                                                  self.seed, epoch, ci)
+                loss_sums.append(loss_sum)
+        train_loss = float(torch.stack(loss_sums).sum() / steps_real)
+        self.global_step += steps_real
+        return params, opt_states, train_loss, total_examples + n_used
 
     # ------------------------------------------------------------- per step
 

@@ -3,13 +3,14 @@
 A numpy / pandas copy of ``collie_tpu/utils.py``: ratings-matrix
 construction, DataFrame -> ``Interactions`` conversion, implicit conversion,
 user filtering, truncated-normal init, ctor-argument capture, HTML
-rendering, a wall-clock timer and docstring merging.  The accelerator never
-sees any of this.  ``pandas_df_to_hdf5`` belongs to the out-of-core tier
-(ROADMAP.md).
+rendering, a wall-clock timer, docstring merging and ``pandas_df_to_hdf5``,
+the writer of the out-of-core tier's stores (``h5py``, imported where it
+writes).  The accelerator never sees any of this.
 """
 import datetime
 import inspect
 import time
+from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -158,6 +159,34 @@ def get_init_arguments(exclude: Optional[Iterable[str]] = (),
             print(f'Key {exclude_arg} not found in ``init_args`` '
                   'and will be ignored.')
     return captured
+
+
+def pandas_df_to_hdf5(df: pd.DataFrame,
+                      out_path: Union[str, Path],
+                      key: str = 'interactions') -> None:
+    """Append a DataFrame to an HDF5 store (``collie_tpu/utils.py:161``;
+    reference ``utils.py:249-258``): one resizable 1-d dataset per column
+    under ``/<key>``, the layout ``HDF5Interactions`` reads.  h5py lists
+    datasets name-sorted, so the group's ``column_order`` attribute keeps
+    the DataFrame's order; an append that brings new columns extends it and
+    never rewrites it."""
+    import h5py
+
+    with h5py.File(str(out_path), 'a') as f:
+        grp = f.require_group(key)
+        known = list(grp.attrs.get('column_order', ()))
+        new = [str(c) for c in df.columns if str(c) not in known]
+        if new or 'column_order' not in grp.attrs:
+            grp.attrs['column_order'] = known + new
+        for col in df.columns:
+            data = df[col].to_numpy()
+            if col in grp:
+                ds = grp[col]
+                old = ds.shape[0]
+                ds.resize((old + len(data),))
+                ds[old:] = data
+            else:
+                grp.create_dataset(col, data=data, maxshape=(None,), chunks=True)
 
 
 def df_to_html(df: pd.DataFrame,

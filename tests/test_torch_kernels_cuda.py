@@ -16,7 +16,8 @@ import torch
 
 from chip_smoke import (EPOCH_EDGES, EXPLICIT_EDGES, EXPLICIT_STATE, GS_ATOL_SCALE,
                         GS_OVERSIZE, GS_SHAPE, IMPLICIT_STATE, SHUFFLE_KEY_SETS, TOPK_EDGES,
-                        check_cycle_walk, check_skipped_launch, compare_epoch,
+                        check_cycle_walk, check_repeatable, check_skipped_launch,
+                        compare_epoch,
                         compare_topk_kernel, epoch_inputs, explicit_epoch_inputs,
                         gather_scatter_inputs, sync_errors)
 from collie_tpu_torch.ops.kernels.retrieval_kernel import (mf_topk_retrieve,
@@ -233,6 +234,43 @@ def test_persistent_explicit_epoch_kernel_matches_plain_version(cuda_device, S, 
     torch.cuda.synchronize()
     assert fused_mf_explicit_epoch.launches == before + 1
     compare_epoch(f'S={S} B={B} D={D}', out, ref, names=EXPLICIT_STATE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('explicit', [False, True])
+@pytest.mark.parametrize('D', [10, 32])
+def test_two_launches_from_one_state_are_bit_identical(cuda_device, explicit, D):
+    """The epoch kernels sum gradients in fixed point: two launches from one
+    state, half of each step's examples on one user and one item, give
+    the same bits (``chip_smoke.check_repeatable``)."""
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_epoch,
+                                                             fused_mf_explicit_epoch)
+
+    if explicit:
+        args = explicit_epoch_inputs(D, D=D, S=4, B=300, dup=True)
+        check_repeatable(f'explicit D={D}', lambda: fused_mf_explicit_epoch(
+            *[a.clone() if torch.is_tensor(a) else a for a in args], loss_kind='mse'),
+            EXPLICIT_STATE)
+    else:
+        args, _ = epoch_inputs(D, D=D, S=4, B=300, K=5, dup=True)
+        check_repeatable(f'implicit D={D}', lambda: fused_mf_epoch(
+            *[a.clone() if torch.is_tensor(a) else a for a in args], K=5, adaptive=True,
+            loss_kind='hinge'), IMPLICIT_STATE)
+
+
+@pytest.mark.cuda
+def test_an_add_out_of_fixed_point_range_reaches_the_host_as_nan(cuda_device):
+    """A gradient element beyond the accumulators' range is not wrapped:
+    the launch's losses from that step on, and the tables it updates, are
+    NaN, which the NaN trip reads at the next sync."""
+    from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch
+
+    args, _ = epoch_inputs(5, D=10, S=3, B=7, K=2)
+    args[0][:] = 1e30                      # user rows: every item gradient overflows
+    out = fused_mf_epoch(*args, K=2, adaptive=False, loss_kind='hinge')
+    losses = out[8].cpu()
+    assert torch.isnan(losses).all()
+    assert torch.isnan(out[1]).all() and torch.isnan(out[0]).all()
 
 
 @pytest.mark.cuda

@@ -165,6 +165,48 @@ def test_trainer_slice_names_are_exported(name):
     assert name in collie_tpu_torch.__all__ and hasattr(collie_tpu_torch, name)
 
 
+HDF5_SLICE = ['data/interactions.py', 'data/loaders.py', 'utils.py',
+              'training/scan_engine.py', 'training/trainer.py']
+HDF5_NAMES = ['HDF5Interactions', 'HDF5InteractionsDataLoader', 'write_hdf5_meta',
+              'pandas_df_to_hdf5']
+
+
+@pytest.mark.parametrize('module', HDF5_SLICE)
+def test_hdf5_slice_modules_are_checked(module):
+    """The out-of-core slice's modules are among the files the import rule
+    covers and among the modules imported with JAX (and, below, h5py)
+    blocked."""
+    assert PACKAGE / module in PROGRAM_FILES
+    assert 'collie_tpu_torch.' + module[:-3].replace('/', '.') in _package_modules()
+
+
+@pytest.mark.parametrize('name', HDF5_NAMES)
+def test_hdf5_slice_names_are_exported(name):
+    """Exported flat, as ``collie_tpu`` exports them."""
+    import collie_tpu_torch
+    from collie_tpu_torch import data
+
+    assert name in collie_tpu_torch.__all__ and hasattr(collie_tpu_torch, name)
+    if name != 'pandas_df_to_hdf5':
+        assert name in data.__all__ and getattr(data, name) is getattr(collie_tpu_torch, name)
+
+
+def test_every_module_imports_with_h5py_blocked():
+    """The card's machine has no h5py: every module and ``chip_smoke``
+    import without it (the HDF5 tier imports it where it reads or writes
+    a store)."""
+    script = (
+        'import sys, importlib\n'
+        "sys.modules['h5py'] = None\n"
+        f'for name in {sorted(_package_modules()) + ["chip_smoke"]!r}:\n'
+        '    importlib.import_module(name)\n'
+        "print('imported')\n")
+    proc = subprocess.run([sys.executable, '-c', script], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('imported')
+
+
 def _package_modules():
     return ['.'.join(p.relative_to(ROOT).with_suffix('').parts).replace('.__init__', '')
             for p in PACKAGE.rglob('*.py')]

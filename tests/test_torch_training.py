@@ -255,17 +255,13 @@ def test_nan_params_trip_a_real_fit(data_pair):
 
 
 def test_unported_paths_raise_not_implemented(data_pair, tmp_path):
-    """Mesh training and the HDF5 tier still raise with the ROADMAP
-    pointer; the paths the trainer slice ported (checkpoints, resume, the
-    per-step path, ``CollieMinimalTrainer``) and embedding dropout run."""
-    from collie_tpu_torch import HDF5Interactions, HDF5InteractionsDataLoader
-
+    """Mesh training and the ``.shards`` checkpoints of mesh fits still
+    raise with the ROADMAP pointer; the paths the trainer slice ported
+    (checkpoints, resume, the per-step path, ``CollieMinimalTrainer``) and
+    embedding dropout run."""
     _, (train, _) = data_pair
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         CollieTrainer(max_epochs=1, mesh=object())
-    for cls in (HDF5Interactions, HDF5InteractionsDataLoader):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            cls('interactions.h5')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         CollieTrainer(max_epochs=1).resume_from_checkpoint(tmp_path)
     model = MatrixFactorizationModel(train=train, embedding_dim=8, seed=0, map_location='cpu',
@@ -282,6 +278,23 @@ def test_unported_paths_raise_not_implemented(data_pair, tmp_path):
     assert resumed.resume_from_checkpoint(tmp_path / 'checkpoint_epoch_2.pkl') == 2
     resumed.fit(model)
     assert model.hparams['num_epochs_completed'] == 3
+
+
+def test_hdf5_classes_construct_over_a_store(tmp_path):
+    """The out-of-core tier is ported: ``HDF5Interactions`` and
+    ``HDF5InteractionsDataLoader`` construct over a store and read it
+    (their parity with collie_tpu is ``tests/test_torch_hdf5.py``)."""
+    import pandas as pd
+
+    from collie_tpu_torch import (HDF5Interactions, HDF5InteractionsDataLoader,
+                                  pandas_df_to_hdf5)
+
+    path = tmp_path / 'interactions.h5'
+    pandas_df_to_hdf5(pd.DataFrame({'user_id': [0, 1, 2], 'item_id': [1, 0, 3]}), path)
+    inter = HDF5Interactions(str(path), num_negative_samples=2, seed=0)
+    assert (inter.num_users, inter.num_items, len(inter)) == (3, 4, 3)
+    loader = HDF5InteractionsDataLoader(interactions=inter, batch_size=2)
+    assert [int(b['mask'].sum()) for b in loader] == [2, 1]
 
 
 def _slot_engaging_loader(drop_last):
