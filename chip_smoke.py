@@ -174,7 +174,31 @@ non-zero before the result line:
    four labels, ``hdf5_chunk``, ``hdf5_step``, ``hdf5_prefetch`` and
    ``in_memory``, beside the card's name and power limit; (e) the chunk
    tier's train loss falls;
-12. the kernels line (one JSON object, five kernels), the card's name and
+12. movielens (``phase_movielens``, last before the kernels line): the
+   periphery.  ML-100K-format files of the synthetic stand-ins (943 x 1,682,
+   100,000 ratings) in a temporary ``DATA_PATH``, the download replaced by
+   one that raises; (a) the readers' frames equal the frames written, then
+   ``run_movielens_example()`` at its defaults (MF, D = 10, dropout 0.05,
+   up to 20 epochs with early stopping) on the card with an ``EpochTimer``
+   as the fit's logger: the model on ``cuda``, the train loss falling, test
+   AUC above 0.5 (printed beside collie_tpu's on the same files on the CPU,
+   ``JAX_ML100K_CPU``), the saved npz reloading, the cycle-walk launched
+   and no other kernel; (b) the timer's summary; (c)
+   ``get_recommendation_visualizations`` of the fitted model equal, as
+   HTML, to the same call on a CPU copy of its params; (d) one epoch under
+   ``training.profiler.trace`` whose trace names a CUDA kernel and the
+   ``annotate``d region, and ``device_memory_stats()``'s peak;
+13. mesh (``phase_mesh``, run right after phase 4 on its model): a
+   ``torch.distributed`` NCCL group of world size 1 (``file://`` rendezvous
+   in a temporary directory) and ``make_mesh(data=1, model=1)`` on the card;
+   ``recommend(..., mesh=)`` (``MESH_REQUESTS``: three requests of 256 users
+   without seen filtering, the local-table tier's kernel path, whose
+   top-k launches are counted, and one with it) equal to ``recommend(...)``
+   in ids, scores within ``RTOL``/``ATOL``; ``evaluate_in_batches(...,
+   mesh=)`` equal to the single-device values within rtol 1e-5.  NCCL
+   takes one rank a card, so world sizes above 1 are held on the CPU only
+   (``tests/test_torch_parallel_serving.py``, gloo);
+14. the kernels line (one JSON object, five kernels), the card's name and
    power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
@@ -188,6 +212,7 @@ the other checkout times that checkout.
 """
 import argparse
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -196,6 +221,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2777,6 +2803,20 @@ OOC_LR = 1e-3
 OOC_CHUNK_STEPS = 64
 OOC_PLAN = [64, 64, 64, 32, 16, 4, 1]
 OOC_EPOCHS = 4
+# phase 12: users whose visualization the card and a CPU copy must render
+# alike, the region the traced epoch annotates, and collie_tpu's
+# run_movielens_example() on the same files on the CPU
+# (tools/movielens_jax_reference.py --runs 3; its split and model are seeded
+# from the clock, in both packages)
+MOVIELENS_VIS_USERS = (1, 2, 3)
+MOVIELENS_REGION = 'chip_smoke_movielens_epoch'
+JAX_ML100K_CPU = ('AUC 0.65885-0.66931, MRR 0.13238-0.15245, MAP@10 0.02437-0.02821 '
+                  'in 3 runs')
+# phase 13: the requests through the mesh on phase 4's model
+# (filter_seen=False takes the local-table tier's kernel path; the first
+# request also sets up the NCCL communicators)
+MESH_SEED = 13
+MESH_REQUESTS = (False, False, False, True)
 
 
 @contextlib.contextmanager
@@ -3539,6 +3579,234 @@ def phase_serving(seed: int, record: dict):
         f'MRR={mrr_v:.6f} AUC={auc_v:.6f} in {eval_s:.2f}s, peak device memory '
         f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; rank counts equal dense '
         f'metrics on 64 users ({fused} vs {dense})')
+    return model, train, test
+
+
+def phase_mesh(serving, record: dict) -> None:
+    """Phase 13: ``recommend`` and ``evaluate_in_batches`` under a
+    ``make_mesh(data=1, model=1)`` on the card (NCCL, world size 1, a
+    ``file://`` rendezvous in a temporary directory) against the
+    single-device calls, on phase 4's model.  The mesh requests run first,
+    with the counts zeroed: the top-k kernel must launch once for each
+    ``filter_seen=False`` one (the local-table tier's kernel path)."""
+    import torch.distributed as dist
+
+    from collie_tpu_torch import auc, evaluate_in_batches, mapk, mrr
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import mf_topk_retrieve
+    from collie_tpu_torch.parallel import distributed, make_mesh
+    from collie_tpu_torch.retrieval import recommend
+
+    model, train, test = serving
+    rng = np.random.default_rng(MESH_SEED)
+    requests = [(filter_seen, rng.choice(NUM_USERS, REQUEST_USERS, replace=False))
+                for filter_seen in MESH_REQUESTS]
+    with tempfile.TemporaryDirectory() as directory:
+        distributed.initialize(f'file://{directory}/rendezvous', num_processes=1, process_id=0)
+        if dist.is_initialized():
+            raise AssertionError('initialize(num_processes=1) must be a no-op')
+        dist.init_process_group('nccl', init_method=f'file://{directory}/rendezvous',
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(data=1, model=1)
+            backend = dist.get_backend()
+            log(f'mesh: {mesh} on {backend}, device {torch.cuda.current_device()}')
+            reset_launch_counts()
+            answers, mesh_ms = [], []
+            for filter_seen, users in requests:
+                t0 = time.perf_counter()
+                answers.append(recommend(model, users, k=K, filter_seen=filter_seen, mesh=mesh))
+                torch.cuda.synchronize()
+                mesh_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {w.__name__: w.launches for w in kernel_wrappers()}
+            expected = dict.fromkeys(launches, 0)
+            expected['mf_topk_retrieve'] = MESH_REQUESTS.count(False)
+            if launches != expected:
+                raise AssertionError(f'mesh recommend launches {launches}, expected {expected}')
+            record['launches'] += launches['mf_topk_retrieve']
+            t0 = time.perf_counter()
+            mesh_metrics = evaluate_in_batches([mapk, mrr, auc], test, model, k=K, mesh=mesh)
+            torch.cuda.synchronize()
+            mesh_eval_s = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    single_ms, worst = [], 0.0
+    for (filter_seen, users), (ids, scores) in zip(requests, answers):
+        t0 = time.perf_counter()
+        ref_ids, ref_scores = recommend(model, users, k=K, filter_seen=filter_seen)
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(ids, ref_ids):
+            raise AssertionError(f'mesh recommend filter_seen={filter_seen}: ids differ in '
+                                 f'{int((ids != ref_ids).any(axis=1).sum())} rows')
+        if not np.allclose(scores, ref_scores, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f'mesh recommend filter_seen={filter_seen}: scores differ')
+        worst = max(worst, float(np.abs(scores - ref_scores).max()))
+    mf_topk_retrieve.launches = 0
+    single = evaluate_in_batches([mapk, mrr, auc], test, model, k=K)
+    if not np.allclose(mesh_metrics, single, rtol=1e-5, atol=1e-7):
+        raise AssertionError(f'mesh evaluate {mesh_metrics} vs single device {single}')
+    log(f'mesh (data=1, model=1, {backend}): recommend of {REQUEST_USERS} users filter_seen='
+        f'{list(MESH_REQUESTS)}: ids equal the single-device calls, max_abs_err={worst:.3g}; '
+        f'ms mesh {[round(t, 3) for t in mesh_ms]} vs single {[round(t, 3) for t in single_ms]}; '
+        f'topk_tile launches on the mesh path {launches["mf_topk_retrieve"]}; '
+        f'evaluate_in_batches MAP@{K}, MRR, AUC {mesh_metrics} (single device {single}) in '
+        f'{mesh_eval_s:.2f}s')
+    torch.cuda.empty_cache()
+
+
+def _movielens_frames():
+    """The synthetic ML-100K stand-ins as the readers return them (1-based)."""
+    from collie_tpu_torch.movielens import get_data
+
+    return (get_data._synthetic_movielens_df(decrement_ids=False),
+            get_data._synthetic_movielens_df_item(), get_data._synthetic_movielens_df_user())
+
+
+def _check_read_back(frames) -> None:
+    """The readers' frames equal the frames written (``zip`` as text:
+    ``read_csv`` parses all-digit zips as integers)."""
+    import pandas as pd
+
+    from collie_tpu_torch.movielens import (read_movielens_df, read_movielens_df_item,
+                                            read_movielens_df_user)
+
+    df, df_item, df_user = frames
+    pd.testing.assert_frame_equal(read_movielens_df(decrement_ids=False), df)
+    pd.testing.assert_frame_equal(read_movielens_df_item(), df_item)
+    users = read_movielens_df_user()
+    pd.testing.assert_frame_equal(users.drop(columns='zip'), df_user.drop(columns='zip'))
+    if users['zip'].astype(str).tolist() != df_user['zip'].tolist():
+        raise AssertionError('u.user zip codes differ from the frame written')
+
+
+def _check_trace(directory) -> dict:
+    """The trace ``profiler.trace`` wrote: its CUDA kernels and whether it
+    names the annotated region."""
+    files = sorted(Path(directory).glob('trace_*.json'))
+    if len(files) != 1:
+        raise AssertionError(f'trace wrote {len(files)} files')
+    events = json.loads(files[0].read_text())['traceEvents']
+    kernels = {e['name'] for e in events if e.get('cat') == 'kernel'}
+    if not kernels:
+        raise AssertionError('the trace names no CUDA kernel')
+    if not any(e.get('name') == MOVIELENS_REGION for e in events):
+        raise AssertionError(f'the trace does not name {MOVIELENS_REGION!r}')
+    return {'events': len(events), 'kernels': len(kernels)}
+
+
+def phase_movielens(smi: str) -> dict:
+    """Phase 12: ``run_movielens_example()`` at its defaults on the card,
+    over ML-100K-format files of the synthetic stand-ins in a temporary
+    ``DATA_PATH`` (the download replaced by one that raises), with an
+    ``EpochTimer`` as the fit's logger; then the visualizations, a traced
+    epoch and the memory statistics.  Returns the launch counts of the
+    example's run."""
+    import pandas as pd
+
+    import collie_tpu_torch.movielens.get_data as get_data
+    import collie_tpu_torch.movielens.run as run_module
+    from collie_tpu_torch import MatrixFactorizationModel
+    from collie_tpu_torch.movielens import get_recommendation_visualizations
+    from collie_tpu_torch.training import profiler
+
+    def offline():
+        raise OSError('chip_smoke: no download')
+
+    frames = _movielens_frames()
+    timer = profiler.EpochTimer()
+    fitted = {}
+
+    class Trainer(run_module.CollieTrainer):
+        """The example's trainer, with the timer as its logger."""
+
+        def __init__(self, model, **kwargs):
+            super().__init__(model=model, logger=timer, **kwargs)
+            fitted['model'], fitted['trainer'] = model, self
+
+    saved = (get_data.DATA_PATH, get_data._download_movielens_100k, run_module.DATA_PATH,
+             run_module.CollieTrainer)
+    with tempfile.TemporaryDirectory() as directory:
+        data_path = Path(directory)
+        get_data._write_movielens_100k(data_path, *frames)
+        get_data.DATA_PATH = run_module.DATA_PATH = data_path
+        get_data._download_movielens_100k = offline
+        run_module.CollieTrainer = Trainer
+        try:
+            _check_read_back(frames)
+            out = io.StringIO()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                run_module.run_movielens_example()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {w.__name__: w.launches for w in kernel_wrappers()}
+            model = fitted['model']
+            reloaded = MatrixFactorizationModel(
+                load_model_path=data_path / 'fitted_model' / 'model.npz')
+        finally:
+            (get_data.DATA_PATH, get_data._download_movielens_100k, run_module.DATA_PATH,
+             run_module.CollieTrainer) = saved
+        printed = out.getvalue()
+        metrics = {}
+        for line in printed.splitlines():
+            for name, key in (('AUC:', 'auc'), ('MRR:', 'mrr'), ('MAP@10:', 'mapk')):
+                if line.startswith(name):
+                    metrics[key] = float(line.split()[-1])
+        losses = timer.epoch_losses
+        if model.device.type != DEVICE or reloaded.device != model.device:
+            raise AssertionError(f'the example trained on {model.device}')
+        if not losses or not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+            raise AssertionError(f'the train loss did not fall: {losses}')
+        if set(metrics) != {'auc', 'mrr', 'mapk'} or not metrics['auc'] > 0.5:
+            raise AssertionError(f'example metrics {metrics}: test AUC must exceed 0.5')
+        for name, value in model.params.items():
+            if not torch.equal(value, reloaded.params[name]):
+                raise AssertionError(f'the saved npz does not reload {name}')
+        if launches['feistel_permutation_from_keys'] < 1 or any(
+                n for name, n in launches.items() if name != 'feistel_permutation_from_keys'):
+            raise AssertionError(f'the example launched {launches}: the generic epoch must '
+                                 'shuffle through the cycle-walk and launch no other kernel')
+        log(f'movielens (a) run_movielens_example() on {model.device}: '
+            f'{len(losses)} epochs in {seconds:.2f}s, train loss {losses[0]:.5f} -> '
+            f'{losses[-1]:.5f}, AUC {metrics["auc"]:.6f} MRR {metrics["mrr"]:.6f} '
+            f'MAP@10 {metrics["mapk"]:.6f} (collie_tpu on the CPU, same files, '
+            f'tools/movielens_jax_reference.py: {JAX_ML100K_CPU}); launches {launches}; '
+            f'npz reloads; {smi}')
+        log(f'movielens (b) EpochTimer summary {timer.summary()}')
+
+        posters = pd.DataFrame({'item_id': np.arange(1, 1683),
+                                'url': [f'http://example.com/{i}.jpg' for i in range(1, 1683)]})
+        cpu_model = MatrixFactorizationModel(train=model.train_loader, val=model.val_loader,
+                                             embedding_dim=10, map_location='cpu', seed=0)
+        cpu_model.load_params({k: v.cpu() for k, v in model.params.items()})
+        for user_id in MOVIELENS_VIS_USERS:
+            kwargs = dict(user_id=user_id, df_user=frames[0], df_item=frames[1],
+                          movielens_posters_df=posters, detailed=True, shuffle=False)
+            html = get_recommendation_visualizations(model, **kwargs)
+            if html != get_recommendation_visualizations(cpu_model, **kwargs):
+                raise AssertionError(f'user {user_id}: the card\'s HTML differs from the CPU\'s')
+        log(f'movielens (c) get_recommendation_visualizations for users {MOVIELENS_VIS_USERS}: '
+            f'card HTML equals the CPU copy\'s ({len(html)} characters for the last)')
+
+        trace_dir = data_path / 'trace'
+        fresh = MatrixFactorizationModel(train=model.train_loader, val=model.val_loader,
+                                         dropout_p=0.05, loss='adaptive', lr=5e-2,
+                                         embedding_dim=10, weight_decay=1e-7, seed=0)
+        trainer = run_module.CollieTrainer(model=fresh, max_epochs=1, verbosity=0)
+        torch.cuda.reset_peak_memory_stats()
+        with profiler.trace(str(trace_dir)):
+            with profiler.annotate(MOVIELENS_REGION):
+                trainer.fit(fresh)
+        traced = _check_trace(trace_dir)
+        stats = profiler.device_memory_stats()
+        if not isinstance(stats, dict) or not stats.get('allocated_bytes.all.peak', 0) > 0:
+            raise AssertionError('device_memory_stats() has no peak allocation')
+        log(f'movielens (d) trace of one epoch: {traced["events"]} events, '
+            f'{traced["kernels"]} distinct CUDA kernels, {MOVIELENS_REGION!r} named; '
+            f'device_memory_stats peak allocated {stats["allocated_bytes.all.peak"]} bytes')
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None):
@@ -3585,7 +3853,9 @@ def main(argv=None):
     ml10m = ml10m_data()
     fused = phase_kernel_fused_epoch(ml10m['implicit'])
     explicit = phase_kernel_explicit_epoch(ml10m['explicit'])
-    phase_serving(args.seed, topk)
+    serving = phase_serving(args.seed, topk)
+    phase_mesh(serving, topk)
+    del serving
     ml10m_fit = phase_training(ml10m['implicit'], fused)
     phase_explicit_training(ml10m['explicit'], explicit)
     trainer_launches = phase_trainer(ml10m['implicit'], smi, ml10m_fit)['launches']
@@ -3601,6 +3871,7 @@ def main(argv=None):
     out_of_core = phase_out_of_core(smi)
     shuffle['launches'] += out_of_core['shuffle']
     fused['launches'] += out_of_core['fused']
+    shuffle['launches'] += phase_movielens(smi)['feistel_permutation_from_keys']
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
     print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter, shuffle]}))

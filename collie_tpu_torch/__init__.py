@@ -24,9 +24,15 @@ generic autograd epoch and served through the blockwise retrieval path, and
 the out-of-core HDF5 tier (``HDF5Interactions``,
 ``HDF5InteractionsDataLoader``, ``write_hdf5_meta``, ``pandas_df_to_hdf5``
 and ``CollieTrainer``'s chunk tier; ``h5py`` is imported only where a store
-is read or written).
+is read or written), the periphery (``movielens``, ``training.profiler``
+and the reference's import paths ``loss``, ``metrics``, ``model``,
+``interactions``, ``cross_validation``), and the parallel tier's serving
+half (``parallel``: a ``torch.distributed`` device mesh, the sharding
+rules, the sharded embedding lookup, and ``recommend`` /
+``evaluate_in_batches`` under ``mesh=``).
 
-Everything is re-exported flat from this module.
+Everything is re-exported flat from this module; ``make_mesh`` is resolved
+on first use, so importing the package does not import ``parallel``.
 """
 from collie_tpu_torch._version import __version__
 
@@ -88,5 +94,17 @@ __all__ = [
     'mrr', 'mse_loss', 'optimizer_state_from_jax', 'pandas_df_to_hdf5', 'params_from_jax',
     'random_split', 'read_checkpoint', 'recommend',
     'remove_users_with_fewer_than_n_interactions', 'stratified_split', 'trunc_normal',
-    'warp_loss', 'write_hdf5_meta',
+    'warp_loss', 'write_hdf5_meta', 'make_mesh',
 ]
+
+
+def __getattr__(name):
+    """Resolve the flat names this module does not import eagerly
+    (``make_mesh``) through ``_lazy_exports``."""
+    import importlib
+    # ``from collie_tpu_torch import _lazy_exports`` would re-enter this
+    # __getattr__; import_module targets the submodule directly
+    lazy = importlib.import_module('collie_tpu_torch._lazy_exports')
+    if name in lazy.EXPORTS:
+        return lazy.resolve(name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -1,10 +1,12 @@
 """Batched evaluation: full-catalog ranking metrics and explicit errors.
 
-Port of ``collie_tpu/evaluate.py`` (single device; the mesh tier is not
-ported yet).  ``evaluate_in_batches``: per user block the device work is one
-``score_all_items`` matmul followed by the rank-count metrics; the host only
-slices CSR target rows.  The JAX version scans the user blocks inside one
-jitted program; here the scan is a Python loop over the same blocks.
+Port of ``collie_tpu/evaluate.py``.  ``evaluate_in_batches``: per user
+block the device work is one ``score_all_items`` matmul followed by the
+rank-count metrics; the host only slices CSR target rows.  The JAX version
+scans the user blocks inside one jitted program; here the scan is a Python
+loop over the same blocks.  Under a ``mesh`` (``_sharded_evaluate``) the
+users are split over the ``data`` axis and the catalog over ``model``, and
+the additive rank counts are summed over ``model``.
 ``explicit_evaluate_in_batches``: rating errors summed on the device over the
 test loader's batches, read once at the end.
 """
@@ -15,6 +17,7 @@ import torch
 
 from collie_tpu_torch.data import ExplicitInteractions, Interactions, InteractionsDataLoader
 from collie_tpu_torch.ops import metrics as metrics_lib
+from collie_tpu_torch.ops.kernels.retrieval_kernel import NEG_INF
 
 # cap on the [block, num_items] score block the fused evaluator holds
 _FUSED_EVAL_MAX_ELEMENTS = 512 * 1024 * 1024
@@ -39,6 +42,7 @@ def evaluate_in_batches(
     batch_size: int = 128,
     logger: Optional[Any] = None,
     verbose: bool = True,
+    mesh: Optional[Any] = None,
 ) -> Union[float, List[float]]:
     """Implicit evaluation (reference ``metrics.py:285-395``).
 
@@ -47,6 +51,12 @@ def evaluate_in_batches(
     built-in ``mapk`` / ``mrr`` / ``auc`` the metrics come from rank counts
     on the device (``_fused_evaluate``); custom callables get the reference's
     ``(targets, user_ids, preds, k)`` call with numpy ``preds``.
+
+    ``mesh``: evaluate across a device mesh (``_sharded_evaluate``): users
+    split over the ``data`` axis, the catalog over ``model``; every rank
+    calls with the same arguments and gets the same values, equal to the
+    single-device ones (the rank counts are exact integers).  Custom metric
+    callables keep the single-device per-batch path.
     """
     if not isinstance(test_interactions, Interactions):
         raise ValueError(
@@ -59,7 +69,8 @@ def evaluate_in_batches(
     if len(test_users) < batch_size:
         batch_size = len(test_users)
 
-    all_scores = _fused_evaluate(metric_list, test_users, targets, model, k, batch_size)
+    all_scores = _fused_evaluate(metric_list, test_users, targets, model, k, batch_size,
+                                 mesh)
     if all_scores is None:
         accumulators = [0.0] * len(metric_list)
         for start in range(0, len(test_users), batch_size):
@@ -78,7 +89,7 @@ def evaluate_in_batches(
 
 
 def _fused_evaluate(metric_list, test_users, targets, model, k: int,
-                    batch_size: int) -> Optional[List[float]]:
+                    batch_size: int, mesh=None) -> Optional[List[float]]:
     """Built-in ranking metrics from rank counts, user block by user block.
 
     Per block: ``score_all_items`` and the column-blocked rank counts
@@ -94,6 +105,9 @@ def _fused_evaluate(metric_list, test_users, targets, model, k: int,
     num_items = model.hparams['num_items']
     # shrink the user block so the [block, num_items] scores stay under the cap
     batch_size = max(1, min(batch_size, _FUSED_EVAL_MAX_ELEMENTS // num_items))
+    if mesh is not None:
+        totals = _sharded_evaluate(model, test_users, targets, k, batch_size, mesh)
+        return [float(totals[metric_row[m]]) / U for m in metric_list]
     device = model.device
     totals = torch.zeros(3, dtype=torch.float32, device=device)
     with torch.no_grad():
@@ -107,6 +121,127 @@ def _fused_evaluate(metric_list, test_users, targets, model, k: int,
             totals += per_user.sum(dim=1)
     totals = totals.cpu().numpy()
     return [float(totals[metric_row[m]]) / U for m in metric_list]
+
+
+def _sharded_eval_param_kinds(model, mesh) -> Optional[dict]:
+    """Classify params for the evaluator's localized view
+    (``collie_tpu/evaluate.py:197-230``).
+
+    Returns ``{name: 'user' | 'item' | 'replicated'}`` when the model's
+    scoring reads params only through user-id / item-id gathers
+    (``model._sharded_eval_localizable()``) and every user/item-leading leaf
+    row-shards cleanly over the ``model`` axis; None selects the replicated
+    path, which scores from the full params.
+    """
+    from collie_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
+    from collie_tpu_torch.parallel.sharding import param_spec
+
+    if not getattr(model, '_sharded_eval_localizable', lambda: False)():
+        return None
+    num_users = model.hparams['num_users']
+    num_items = model.hparams['num_items']
+    n_model = axis_size(mesh, MODEL_AXIS)
+    if num_users == num_items:          # leading-dim kind would be ambiguous
+        return None
+    if num_users % n_model or num_items % n_model:
+        return None
+    kinds = {}
+    for name, value in model.params.items():
+        lead = value.shape[0] if value.dim() else None
+        if lead == num_users:
+            kinds[name] = 'user'
+        elif lead == num_items:
+            kinds[name] = 'item'
+        else:
+            kinds[name] = 'replicated'
+        if kinds[name] != 'replicated' and MODEL_AXIS not in param_spec(name, value, mesh):
+            return None                 # a table leaf would not be sharded
+    return kinds
+
+
+def _sharded_evaluate(model, test_users, targets, k: int, batch_size: int, mesh) -> np.ndarray:
+    """Item- and user-sharded rank-count evaluation
+    (``collie_tpu/evaluate.py:104-190,262-338``); returns the ``[3]`` metric
+    sums over the test users, the same on every rank.
+
+    The batch size is rounded to a multiple of the ``data`` axis and the
+    user list padded (pad users masked out).  Per user block each rank
+    scores its ``data`` slice of the users against its ``model`` span of
+    the catalog, reads its span's share of each positive's score and its
+    rank counts, and sums both over ``model``; the per-user metric sums add
+    up over ``data`` at the end.  Where ``_sharded_eval_param_kinds``
+    allows, each rank reads only its row shards: item leaves are its span,
+    user leaves give the block's rows by ``sharded_embedding_lookup`` from
+    its shard (communication ``O(batch x dim)``, never ``O(table)``);
+    otherwise (hybrids, cold start's bucket stage) it scores
+    its span from the full params.
+    """
+    from collie_tpu_torch.parallel.distributed import all_reduce_sum
+    from collie_tpu_torch.parallel.embedding import sharded_embedding_lookup
+    from collie_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size
+
+    U = len(test_users)
+    num_items = model.hparams['num_items']
+    n_data, n_model = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
+    batch_size = max(n_data, (batch_size // n_data) * n_data)
+    S = -(-U // batch_size)
+    pad = S * batch_size - U
+    users_padded = np.concatenate([test_users, np.full(pad, test_users[0])]) \
+        if pad else test_users
+    pos_items, pos_mask = metrics_lib.padded_positives(targets, users_padded)
+    user_mask = np.concatenate([np.ones(U, np.float32), np.zeros(pad, np.float32)])
+
+    device = model.device
+    span = -(-num_items // n_model)
+    shard = axis_index(mesh, MODEL_AXIS)
+    start = shard * span
+    item_ids = start + torch.arange(span, device=device)
+    valid_items = (item_ids < num_items)[None, :]
+    b_local = batch_size // n_data
+    first = axis_index(mesh, DATA_AXIS) * b_local
+
+    params = model.params
+    kinds = _sharded_eval_param_kinds(model, mesh)
+    if kinds is not None:
+        rows_u = model.hparams['num_users'] // n_model
+        u_start = shard * rows_u
+        shards = {name: (leaf[start:start + span] if kinds[name] == 'item'
+                         else leaf[u_start:u_start + rows_u] if kinds[name] == 'user'
+                         else leaf)
+                  for name, leaf in params.items()}
+        local_users = torch.arange(b_local, device=device)
+        local_items = torch.arange(span, device=device)
+
+    totals = torch.zeros(3, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        for s in range(S):
+            block = slice(s * batch_size + first, s * batch_size + first + b_local)
+            users = model._ids(users_padded[block])
+            pos_b = torch.as_tensor(pos_items[block], device=device)
+            if kinds is None:
+                scores = model.score_item_block(params, users,
+                                                item_ids.clamp(max=num_items - 1))
+            else:
+                # localized view: the block's user rows as [b_local, ...]
+                # pseudo-tables (one rank holds each row, so its float32
+                # sum is exact in the leaf's dtype), the item leaves this
+                # rank's span
+                view = {name: (sharded_embedding_lookup(leaf, users, mesh).to(device, leaf.dtype)
+                               if kinds[name] == 'user' else leaf)
+                        for name, leaf in shards.items()}
+                scores = model.score_item_block(view, local_users, local_items)
+            scores = torch.where(valid_items, scores, NEG_INF)
+            pos_scores = all_reduce_sum(
+                metrics_lib.positive_scores_in_block(scores, pos_b, start),
+                mesh, MODEL_AXIS).to(device)
+            counts = all_reduce_sum(
+                torch.stack(metrics_lib.rank_counts_blocked(scores, pos_scores, pos_b, start)),
+                mesh, MODEL_AXIS).to(device)
+            per_user = metrics_lib.metrics_from_rank_counts(
+                counts[0], counts[1], torch.as_tensor(pos_mask[block], device=device), k,
+                num_items)                                       # [3, b_local]
+            totals += (per_user * torch.as_tensor(user_mask[block], device=device)).sum(dim=1)
+    return all_reduce_sum(totals, mesh, DATA_AXIS).cpu().numpy()
 
 
 def explicit_evaluate_in_batches(

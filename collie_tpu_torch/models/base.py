@@ -618,6 +618,16 @@ class BasePipeline(nn.Module):
         """Single-stage models have no stage."""
         return None
 
+    def _sharded_eval_localizable(self) -> bool:
+        """True when scoring reads params ONLY through user-id gathers on
+        ``[num_users, ...]`` leaves and item-id gathers on ``[num_items, ...]``
+        leaves (no id-indexed constants): the sharded evaluator may then
+        score through a localized view of each rank's row shards
+        (``evaluate._sharded_evaluate``).  Models that gather non-param
+        arrays by id (hybrids' metadata, cold start's bucket map) override
+        this."""
+        return True
+
     # ------------------------------------------------------------- inference
 
     def score(self,

@@ -117,6 +117,11 @@ class ColdStartModel(MultiStagePipeline):
         self._item_buckets_device = torch.as_tensor(
             np.asarray(self.hparams['item_buckets'], dtype=np.int64), device=self._device)
 
+    def _sharded_eval_localizable(self) -> bool:
+        # the bucket stage maps item ids through the ``item_buckets``
+        # constant; only the final per-item stage is pure table gathers
+        return self.current_stage == 'no_buckets'
+
     def _setup_model(self, **kwargs) -> None:
         self._install_item_buckets()
         super()._setup_model(**kwargs)

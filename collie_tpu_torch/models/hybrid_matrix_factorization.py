@@ -147,6 +147,10 @@ class HybridModel(HybridMixin, MultiStagePipeline):
 
     __doc__ = merge_docstrings(MultiStagePipeline, __doc__, __init__)
 
+    def _sharded_eval_localizable(self) -> bool:
+        # scoring gathers item/user METADATA (non-param arrays) by global id
+        return False
+
     def _setup_model(self, **kwargs) -> None:
         self._install_metadata(**kwargs)
         super()._setup_model(**kwargs)

@@ -105,6 +105,10 @@ class HybridPretrainedModel(HybridMixin, BasePipeline):
 
     __doc__ = merge_docstrings(BasePipeline, __doc__, __init__)
 
+    def _sharded_eval_localizable(self) -> bool:
+        # scoring gathers item/user METADATA (non-param arrays) by global id
+        return False
+
     def _setup_model(self, trained_model, **kwargs) -> None:
         self._install_metadata(**kwargs)
         donor = trained_model.params

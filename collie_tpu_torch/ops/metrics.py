@@ -184,6 +184,26 @@ def metrics_from_rank_counts(greater: torch.Tensor,
     return torch.stack([ap_vec, rr_vec, auc_vec])
 
 
+def rank_counts_blocked(scores: torch.Tensor,
+                        pos_scores: torch.Tensor,
+                        pos_items: torch.Tensor,
+                        col_offset: int = 0,
+                        block_elements: int = RANK_COUNT_BLOCK_ELEMENTS):
+    """``rank_counts_in_block`` of a ``[B, T]`` block of item columns
+    ``[col_offset, col_offset + T)``, summed over column blocks of at most
+    ``block_elements`` compares (the counts are additive, so the result is
+    identical)."""
+    width = max(1, block_elements // max(1, scores.shape[0] * pos_items.shape[1]))
+    greater = torch.zeros(pos_items.shape, dtype=torch.float32, device=scores.device)
+    eq_after = torch.zeros_like(greater)
+    for start in range(0, scores.shape[1], width):
+        g, e = rank_counts_in_block(scores[:, start:start + width], pos_scores,
+                                    pos_items, col_offset + start)
+        greater += g
+        eq_after += e
+    return greater, eq_after
+
+
 def metrics_from_positive_ranks(scores: torch.Tensor,
                                 pos_items: torch.Tensor,
                                 pos_mask: torch.Tensor,
@@ -193,17 +213,10 @@ def metrics_from_positive_ranks(scores: torch.Tensor,
     """All three ranking metrics from each user's positive-item ranks, with
     the rank counts summed over column blocks of at most ``block_elements``
     compares.  Returns ``[3, batch]`` rows ``(ap@k, reciprocal rank, auc)``."""
-    B, T = scores.shape
     pos_scores = positive_scores_in_block(scores, pos_items)
-    width = max(1, block_elements // max(1, B * pos_items.shape[1]))
-    greater = torch.zeros(pos_items.shape, dtype=torch.float32, device=scores.device)
-    eq_after = torch.zeros_like(greater)
-    for start in range(0, T, width):
-        g, e = rank_counts_in_block(scores[:, start:start + width], pos_scores,
-                                    pos_items, start)
-        greater += g
-        eq_after += e
-    return metrics_from_rank_counts(greater, eq_after, pos_mask, k, T)
+    greater, eq_after = rank_counts_blocked(scores, pos_scores, pos_items,
+                                            block_elements=block_elements)
+    return metrics_from_rank_counts(greater, eq_after, pos_mask, k, scores.shape[1])
 
 
 def _as_score_matrix(preds) -> torch.Tensor:

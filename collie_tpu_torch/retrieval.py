@@ -1,7 +1,7 @@
 """Batch top-k retrieval (serving path).
 
-Port of ``collie_tpu/retrieval.py`` (single device; the item-sharded tier is
-not ported yet).  Three paths, chosen as in the JAX package:
+Port of ``collie_tpu/retrieval.py``.  On one device, three paths, chosen as
+in the JAX package:
 
 * **dense**: when the ``[batch, num_items]`` score block fits the budget
   (``COLLIE_TPU_RETRIEVAL_DENSE_BUDGET_MB``, 512 default), score the whole
@@ -11,6 +11,11 @@ not ported yet).  Three paths, chosen as in the JAX package:
   (``ops/kernels/retrieval_kernel.py``), which never materializes the block;
 * **blockwise**: otherwise items are scored in tiles and a running top-k is
   merged per tile, so memory is ``O(batch * (k + tile))``.
+
+**Item-sharded** (``mesh=``, ``_build_sharded_retrieval``): each rank of
+the mesh's ``model`` axis scores its span of the catalog and keeps a local
+top-k; the ``[B, k]`` candidates are all-gathered over ``model`` and merged,
+so communication is ``O(n_model * B * k)``, independent of catalog size.
 
 Every top-k here is a stable selection: equal scores go to the lowest item
 id, as ``lax.top_k`` does, so ids equal the JAX package's on ties too.
@@ -51,15 +56,46 @@ def _dense_budget_bytes() -> int:
     return int(os.environ.get('COLLIE_TPU_RETRIEVAL_DENSE_BUDGET_MB', '512')) * (1 << 20)
 
 
+def _range_topk(score_tile, user_ids, keys, k: int, item_tile: int, start: int,
+                stop: int, num_items: int):
+    """Blockwise top-k over the items ``[start, stop)`` (``stop <=
+    num_items``): tiles of ``item_tile`` ids, clamped to the catalog, scored
+    by ``score_tile(ids) -> [B, T]`` and merged into a running list that
+    starts as ``k`` entries of (``NEG_INF``, id 0).  ``keys``: the seen set
+    (``csr_keys``) to mask, or None."""
+    B = user_ids.shape[0]
+    device = user_ids.device
+    top_scores = torch.full((B, k), NEG_INF, dtype=torch.float32, device=device)
+    top_ids = torch.zeros((B, k), dtype=torch.int64, device=device)
+    offsets = torch.arange(item_tile, device=device)
+    for tile_start in range(start, stop, item_tile):
+        item_ids = tile_start + offsets
+        # clamp the tail before the gather: out of range is a device assert
+        safe = item_ids.clamp(max=num_items - 1)
+        scores = score_tile(safe)
+        valid = (item_ids < stop)[None, :]
+        if keys is not None:
+            valid = valid & ~keys_contain(keys, user_ids[:, None], safe[None, :])
+        scores = torch.where(valid, scores, NEG_INF)
+        top_scores, top_ids = _merge_topk(
+            top_scores, top_ids, scores, item_ids.expand(B, item_tile), k)
+    return top_ids, top_scores
+
+
 def build_retrieval_fn(model, k: int = 10, item_tile: int = 4096,
-                       filter_seen: bool = False):
+                       filter_seen: bool = False, mesh=None):
     """``(params, user_ids[B], seen) -> (top_ids[B, k], top_scores[B, k])``.
 
     ``user_ids``: int64 tensor on the model's device.  ``seen``:
     ``(indptr, cols)`` tensors of the CSR of interactions to exclude (train
     and/or val, rows sorted), or ``None`` when ``filter_seen`` is off.
+    ``mesh``: shard the catalog over the mesh's ``model`` axis
+    (``_build_sharded_retrieval``); every rank gets the same answer.
     """
     from collie_tpu_torch.models.base import BasePipeline
+
+    if mesh is not None:
+        return _build_sharded_retrieval(model, k, item_tile, filter_seen, mesh)
 
     num_items = model.hparams['num_items']
     dense_budget = _dense_budget_bytes()
@@ -68,26 +104,6 @@ def build_retrieval_fn(model, k: int = 10, item_tile: int = 4096,
     # for MLP-family models dwarf the block
     dense_ok = type(model).score_item_block is not BasePipeline.score_item_block
     kernel_fn = _maybe_kernel_retrieve(model, k, item_tile, filter_seen)
-    n_tiles = -(-num_items // item_tile)
-
-    def _blockwise(params, user_ids, keys):
-        B = user_ids.shape[0]
-        device = user_ids.device
-        top_scores = torch.full((B, k), NEG_INF, dtype=torch.float32, device=device)
-        top_ids = torch.zeros((B, k), dtype=torch.int64, device=device)
-        offsets = torch.arange(item_tile, device=device)
-        for tile_idx in range(n_tiles):
-            item_ids = tile_idx * item_tile + offsets
-            # clamp the tail before the gather: out of range is a device assert
-            safe = item_ids.clamp(max=num_items - 1)
-            scores = model.score_item_block(params, user_ids, safe)
-            valid = (item_ids < num_items)[None, :]
-            if filter_seen:
-                valid = valid & ~keys_contain(keys, user_ids[:, None], safe[None, :])
-            scores = torch.where(valid, scores, NEG_INF)
-            top_scores, top_ids = _merge_topk(
-                top_scores, top_ids, scores, item_ids.expand(B, item_tile), k)
-        return top_ids, top_scores
 
     def retrieve(params, user_ids, seen=None):
         _require_seen(filter_seen, seen)
@@ -106,7 +122,8 @@ def build_retrieval_fn(model, k: int = 10, item_tile: int = 4096,
                         NEG_INF, scores)
                 top_scores, top_ids = stable_topk(scores, k)
                 return top_ids, top_scores
-            return _blockwise(params, user_ids, keys)
+            return _range_topk(lambda ids: model.score_item_block(params, user_ids, ids),
+                               user_ids, keys, k, item_tile, 0, num_items, num_items)
 
     return retrieve
 
@@ -142,6 +159,87 @@ def _maybe_kernel_retrieve(model, k: int, item_tile: int, filter_seen: bool):
     return retrieve
 
 
+def _build_sharded_retrieval(model, k: int, item_tile: int, filter_seen: bool, mesh):
+    """Item-sharded retrieval over the mesh's ``model`` axis (port of
+    ``collie_tpu/retrieval.py:159-278``).  Two tiers:
+
+    * **local-table tier** (exactly ``MatrixFactorizationModel``, catalog
+      divisible by the axis): each rank scores only its row shard of the
+      item tables, through a localized view (its item rows, the B requested
+      user rows); the user tables are read as row shards too when
+      ``num_users`` divides (``sharded_embedding_lookup``: each rank gathers
+      the requested rows it holds and the rows are summed over ``model``),
+      so only ``B`` rows move.  Within the kernel's envelope
+      (``_maybe_kernel_retrieve``, and ``k`` no larger than the shard) the
+      shard goes through ``mf_topk_retrieve``, the CUDA kernel on the card;
+    * **replicated tier** (any other model): each rank scores its global
+      item range ``[start, min(start + span, num_items))`` from the full
+      params.
+
+    Either way each rank keeps a local top-k, the ``[B, k]`` candidates
+    are all-gathered over ``model`` in shard order and merged by a stable
+    top-k: ties go to the lowest id, as ``lax.top_k`` over JAX's tiled
+    all-gather gives.  The data axis replicates the work.
+    """
+    from collie_tpu_torch.models.matrix_factorization import MatrixFactorizationModel
+    from collie_tpu_torch.parallel.distributed import all_gather_cat
+    from collie_tpu_torch.parallel.embedding import sharded_embedding_lookup
+    from collie_tpu_torch.parallel.mesh import MODEL_AXIS, axis_index, axis_size
+
+    num_items = model.hparams['num_items']
+    num_users = model.hparams['num_users']
+    n_shards = axis_size(mesh, MODEL_AXIS)
+    shard = axis_index(mesh, MODEL_AXIS)
+    local_tables = type(model) is MatrixFactorizationModel and num_items % n_shards == 0
+    span = num_items // n_shards if local_tables else -(-num_items // n_shards)
+    start = shard * span
+    local_users = local_tables and num_users % n_shards == 0
+    rows_u = num_users // n_shards
+    kernel_fn = _maybe_kernel_retrieve(model, k, item_tile, filter_seen) \
+        if local_tables and k <= span else None
+
+    def _user_rows(leaf, user_ids):
+        """``[B, ...]`` user rows under either user-table layout: the
+        sharded lookup from this rank's row shard, or a gather of the whole
+        leaf.  One rank holds each row, so its float32 sum is exact in the
+        leaf's dtype."""
+        if not local_users:
+            return leaf[user_ids]
+        rows = sharded_embedding_lookup(leaf[shard * rows_u:(shard + 1) * rows_u],
+                                        user_ids, mesh)
+        return rows.to(user_ids.device, leaf.dtype)
+
+    def retrieve(params, user_ids, seen=None):
+        _require_seen(filter_seen, seen)
+        with torch.no_grad():
+            keys = csr_keys(*seen) if filter_seen else None
+            if local_tables:
+                view = {'user_embeddings': _user_rows(params['user_embeddings'], user_ids),
+                        'user_biases': _user_rows(params['user_biases'], user_ids),
+                        'item_embeddings': params['item_embeddings'][start:start + span],
+                        'item_biases': params['item_biases'][start:start + span]}
+                rows = torch.arange(user_ids.shape[0], device=user_ids.device)
+                if kernel_fn is not None:
+                    top_ids, top_scores = kernel_fn(view, rows)
+                    top_ids = top_ids.long() + start
+                else:
+                    top_ids, top_scores = _range_topk(
+                        lambda ids: model.score_item_block(view, rows,
+                                                           (ids - start).clamp(0, span - 1)),
+                        user_ids, keys, k, item_tile, start, start + span, num_items)
+            else:
+                top_ids, top_scores = _range_topk(
+                    lambda ids: model.score_item_block(params, user_ids, ids),
+                    user_ids, keys, k, item_tile, start, min(start + span, num_items),
+                    num_items)
+            all_scores = all_gather_cat(top_scores, mesh, MODEL_AXIS, dim=1)
+            all_ids = all_gather_cat(top_ids, mesh, MODEL_AXIS, dim=1)
+            merged_scores, idx = stable_topk(all_scores, k)
+            return torch.gather(all_ids, 1, idx), merged_scores
+
+    return retrieve
+
+
 def _seen_arrays(model) -> Tuple[torch.Tensor, torch.Tensor]:
     """Current train(+val) interactions as sorted-CSR tensors on the model's
     device."""
@@ -158,14 +256,17 @@ def recommend(model,
               user_ids,
               k: int = 10,
               filter_seen: bool = True,
-              item_tile: int = 4096) -> Tuple[np.ndarray, np.ndarray]:
+              item_tile: int = 4096,
+              mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k recommendations for a batch of users.
 
     Returns ``(item_ids [B, k], scores [B, k])`` as numpy.  ``filter_seen``
     excludes items present in the model's train (and val, if any) loaders,
     matching ``get_item_predictions(unseen_items_only=True)`` (reference
     ``base_pipeline.py:705-718``) but batched and on the device.  The seen set
-    is re-read from the loaders on every call.
+    is re-read from the loaders on every call.  ``mesh``: shard the catalog
+    over the mesh's ``model`` axis; every rank calls with the same arguments
+    and gets the same answer.
     """
     num_items = model.hparams['num_items']
     if k > num_items:
@@ -174,7 +275,7 @@ def recommend(model,
         )
     seen = _seen_arrays(model) if filter_seen else None
     retrieve = build_retrieval_fn(model, k=k, item_tile=item_tile,
-                                  filter_seen=filter_seen)
+                                  filter_seen=filter_seen, mesh=mesh)
     top_ids, top_scores = retrieve(model.params, model._ids(user_ids), seen)
     return (top_ids.cpu().numpy().astype(np.int32, copy=False),
             top_scores.cpu().numpy())

@@ -1,0 +1,94 @@
+"""Profiling and tracing utilities.
+
+Port of ``collie_tpu/training/profiler.py``.  The reference's observability
+is tqdm progress bars plus a wall-clock section timer
+(``collie/model/base/trainer.py:339-344``, ``utils.py:411-431``); on top of
+it:
+
+* ``trace(logdir)``: context manager around ``torch.profiler.profile``
+  (CPU activities, and CUDA ones when a CUDA device is present) that writes
+  a Chrome trace (``chrome://tracing``, Perfetto) of the region into
+  ``logdir``;
+* ``annotate(name)``: names a host region so it shows up in the trace
+  (``torch.profiler.record_function``);
+* ``device_memory_stats()``: the CUDA caching allocator's statistics;
+* ``EpochTimer``: per-epoch wall-clock and loss collector usable as a
+  trainer logger.
+
+A submodule only, as in ``collie_tpu``: ``training/__init__.py`` does not
+export it.
+"""
+import contextlib
+import os
+import time
+from typing import Dict, List, Optional
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+
+@contextlib.contextmanager
+def trace(logdir: str, create_perfetto_link: bool = False):
+    """Capture a trace of the region into ``logdir``
+    (``trace_<pid>_<ns>.json``, Chrome trace format).  ``create_perfetto_link``
+    is accepted for API parity: open the file in https://ui.perfetto.dev."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, f'trace_{os.getpid()}_{time.time_ns()}.json'))
+
+
+def annotate(name: str):
+    """Name a host region inside an active trace."""
+    return record_function(name)
+
+
+def device_memory_stats() -> Optional[Dict[str, int]]:
+    """The current CUDA device's memory statistics
+    (``torch.cuda.memory_stats()``: allocated, reserved, peak, ... bytes),
+    or None where no CUDA device is present."""
+    if not torch.cuda.is_available():
+        return None
+    return dict(torch.cuda.memory_stats())
+
+
+class EpochTimer:
+    """Trainer-compatible logger collecting per-epoch losses and timings.
+
+    Usage::
+
+        timer = EpochTimer()
+        trainer = CollieTrainer(model, logger=timer, ...)
+        trainer.fit(model)
+        print(timer.summary())
+    """
+
+    def __init__(self):
+        self.epoch_losses: List[float] = []
+        self.val_losses: List[float] = []
+        self._epoch_times: List[float] = []
+        self._last = time.perf_counter()
+
+    def log_metrics(self, metrics: Dict[str, float], step: int) -> None:
+        now = time.perf_counter()
+        if 'train_loss_epoch' in metrics:
+            self.epoch_losses.append(metrics['train_loss_epoch'])
+            self._epoch_times.append(now - self._last)
+            self._last = now
+        if 'val_loss_epoch' in metrics:
+            self.val_losses.append(metrics['val_loss_epoch'])
+
+    def summary(self) -> Dict[str, float]:
+        if not self._epoch_times:
+            return {}
+        return {
+            'epochs': len(self.epoch_losses),
+            'mean_epoch_seconds': sum(self._epoch_times) / len(self._epoch_times),
+            'final_train_loss': self.epoch_losses[-1],
+            'final_val_loss': self.val_losses[-1] if self.val_losses else None,
+        }

@@ -191,6 +191,34 @@ def test_hdf5_slice_names_are_exported(name):
         assert name in data.__all__ and getattr(data, name) is getattr(collie_tpu_torch, name)
 
 
+PERIPHERY_SLICE = ['movielens/__init__.py', 'movielens/get_data.py', 'movielens/run.py',
+                   'movielens/visualize.py', 'training/profiler.py', 'loss.py', 'metrics.py',
+                   'model.py', 'interactions.py', 'cross_validation.py', '_lazy_exports.py',
+                   'config.py']
+PARALLEL_SLICE = ['parallel/__init__.py', 'parallel/mesh.py', 'parallel/distributed.py',
+                  'parallel/sharding.py', 'parallel/embedding.py', 'retrieval.py',
+                  'evaluate.py']
+
+
+@pytest.mark.parametrize('module', PERIPHERY_SLICE + PARALLEL_SLICE)
+def test_periphery_and_parallel_modules_are_checked(module):
+    """The periphery's and the parallel serving tier's modules are among the
+    files the import rule covers and among the modules imported with JAX
+    and collie_tpu blocked (numpy-only ones such as ``movielens/get_data``
+    included: the port keeps its own copies)."""
+    assert PACKAGE / module in PROGRAM_FILES
+    name = 'collie_tpu_torch.' + module[:-3].replace('/', '.').replace('.__init__', '')
+    assert name in _package_modules()
+
+
+def test_make_mesh_is_a_flat_name():
+    import collie_tpu_torch
+    from collie_tpu_torch.parallel import mesh
+
+    assert 'make_mesh' in collie_tpu_torch.__all__
+    assert collie_tpu_torch.make_mesh is mesh.make_mesh
+
+
 def test_every_module_imports_with_h5py_blocked():
     """The card's machine has no h5py: every module and ``chip_smoke``
     import without it (the HDF5 tier imports it where it reads or writes
