@@ -198,7 +198,25 @@ non-zero before the result line:
    mesh=)`` equal to the single-device values within rtol 1e-5.  NCCL
    takes one rank a card, so world sizes above 1 are held on the CPU only
    (``tests/test_torch_parallel_serving.py``, gloo);
-14. the kernels line (one JSON object, five kernels), the card's name and
+14. mesh_training (``phase_mesh_training``, last before the kernels line):
+   the parallel tier's training half at the ML-10M-scale configuration on
+   ``make_mesh(data=1, model=1)`` over NCCL (world size 1, after a
+   one-epoch warm-up fit): (a) the whole fit through the mesh against the
+   single-card generic fit (``COLLIE_TPU_FUSED_EPOCH=0``, the same seed):
+   epochs, learning-rate changes, best epoch equal, train losses within
+   ``WHOLE_FIT_LOSS_RTOL``, examples/s both ways, one cycle-walk launch an
+   epoch and no epoch kernel; (b) a per-epoch mesh fit with a
+   ``checkpoint_dir`` writes ``.shards`` directories, and its epoch-2
+   checkpoint resumed to epoch 3 on the mesh and on one card equals (a)'s
+   third epoch; (c) the model as (a) left it, holding its shards, answers
+   ``MESH_TRAIN_REQUESTS`` ``recommend(mesh=)`` requests through the top-k
+   kernel (one launch each; ids equal the single-card calls) and
+   ``evaluate_in_batches(mesh=)`` (within rtol 1e-5 of one card); (d) mesh
+   steps held to single-card steps from one state (``MESH_TRAIN``
+   comment) and one mesh step's collectives, counted by kind.
+   ``tools/mesh_training.py`` runs the configuration across the cards of
+   one host;
+15. the kernels line (one JSON object, five kernels), the card's name and
    power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
@@ -2817,6 +2835,23 @@ JAX_ML100K_CPU = ('AUC 0.65885-0.66931, MRR 0.13238-0.15245, MAP@10 0.02437-0.02
 # request also sets up the NCCL communicators)
 MESH_SEED = 13
 MESH_REQUESTS = (False, False, False, True)
+# phase 14: mesh training at the ML-10M-scale configuration
+# (benchmarks/bench_ml10m_scale.py:34-72) on make_mesh(data=1, model=1);
+# the mesh fit's epochs, its checkpointed fit's, and the kernel-path
+# requests of REQUEST_USERS users its model then serves.  Two fits are held
+# by their epochs, learning-rate changes, best epoch and train losses
+# (WHOLE_FIT_LOSS_RTOL); their params as phase 10 holds generic states:
+# step by step from one state (MESH_TRAIN_HELD_STEPS steps of the trained
+# model's next epoch, the mesh step against the single-card step: losses
+# within GENERIC_SPARSE_RTOL, each table's elements beyond
+# GENERIC_GRAD_SCALE of its update's largest element in at most
+# MAX_FLIPPED_FRACTION), since over whole fits at lr 0.1 a hardest negative
+# that two summation orders pick differently cascades; the whole fits'
+# largest param difference is printed
+MESH_TRAIN_EPOCHS = 3
+MESH_TRAIN_HELD_STEPS = 3
+MESH_TRAIN_RESUME_FROM = 2
+MESH_TRAIN_REQUESTS = 3
 
 
 @contextlib.contextmanager
@@ -3654,6 +3689,300 @@ def phase_mesh(serving, record: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def _params_gap(got: dict, ref: dict) -> float:
+    """The largest difference over max|ref| of any param (``epoch_report``'s
+    measure)."""
+    return max(float((got[k].float() - v.float()).abs().max())
+               / max(float(v.float().abs().max()), 1e-30) for k, v in ref.items())
+
+
+def _record_collectives(log_rows, mesh):
+    """Wrap ``torch.distributed``'s collectives to keep ``(op, axis, dtype,
+    elements)`` of each call; returns the originals."""
+    import torch.distributed as dist
+
+    groups = {}
+    for axis in mesh.mesh_dim_names:      # a 1 x 1 mesh's axes share one group
+        key = id(mesh.get_group(axis))
+        groups[key] = f'{groups[key]}+{axis}' if key in groups else axis
+    saved = dist.all_reduce, dist.all_gather
+
+    def reduce_(tensor, *args, **kwargs):
+        log_rows.append(('all_reduce', groups.get(id(kwargs.get('group'))),
+                         str(tensor.dtype).replace('torch.', ''), tensor.numel()))
+        return saved[0](tensor, *args, **kwargs)
+
+    def gather_(parts, tensor, *args, **kwargs):
+        log_rows.append(('all_gather', groups.get(id(kwargs.get('group'))),
+                         str(tensor.dtype).replace('torch.', ''), tensor.numel() * len(parts)))
+        return saved[1](parts, tensor, *args, **kwargs)
+
+    dist.all_reduce, dist.all_gather = reduce_, gather_
+    return saved
+
+
+def hold_mesh_steps(model, mesh, epoch_idx: int, sync=None) -> dict:
+    """``MESH_TRAIN_HELD_STEPS`` steps of epoch ``epoch_idx``'s batches,
+    each from ``model``'s state (it holds its shards on ``mesh``; fresh
+    optimizer states), through the mesh step on this rank's ``data`` slice
+    and through the single-card step on the whole batch, on this rank's
+    card: losses within ``GENERIC_SPARSE_RTOL``, the gathered params'
+    elements beyond ``GENERIC_GRAD_SCALE`` of the update's largest element
+    in at most ``MAX_FLIPPED_FRACTION`` (the ``MESH_TRAIN`` comment).
+    Returns the worst gaps, the first mesh step's collectives
+    (``{'op/axis/dtype': [calls, elements]}``) and its milliseconds
+    (``sync``: the wait for the device, ``torch.cuda.synchronize`` by
+    default)."""
+    import torch.distributed as dist
+
+    from collie_tpu_torch.parallel.distributed import all_reduce_sum, gather_global
+    from collie_tpu_torch.parallel.sharding import data_slice, init_sharded_opt_states
+    from collie_tpu_torch.training import scan_engine
+
+    specs = model.optimizer_specs()
+    active = [True] * len(specs)
+    fn, _, _, _ = scan_engine.build_scan_epoch_fns(model, specs, active, model.train_loader,
+                                                   shuffle=True, mesh=mesh)
+    batches = fn.epoch_batches(7, epoch_idx)
+    layout = model.param_layout()[1]
+    shards, whole = model.params, model.whole_params()
+    mesh_states = init_sharded_opt_states(specs, shards, mesh)
+    card_states = init_sharded_opt_states(specs, whole)
+    width = batches['mask'].shape[1]
+    row0, rows = data_slice(width, mesh)
+    sync = sync or torch.cuda.synchronize
+    held, log_rows, step_ms = {'loss': 0.0, 'share': 0.0, 'max': 0.0}, [], None
+    for step in range(MESH_TRAIN_HELD_STEPS):
+        batch = {k: v[step] for k, v in batches.items()}
+        local = {}
+        for key, value in batch.items():
+            extra = row0 + rows - width
+            if extra > 0:
+                value = torch.cat([value, value.new_zeros((extra,) + value.shape[1:])])
+            local[key] = value[row0:row0 + rows]
+        scale = local['mask'].sum().clamp(min=1.0) / batch['mask'].sum().clamp(min=1.0)
+        saved = _record_collectives(log_rows, mesh) if step == 0 else None
+        try:
+            sync()
+            t0 = time.perf_counter()
+            got, _, loss = scan_engine.train_step(
+                model, specs, active, model.fuse_params(shards), mesh_states, local,
+                fused_tables=True, mesh=mesh, loss_scale=scale)
+            sync()
+            if step == 0:
+                step_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            if saved is not None:
+                dist.all_reduce, dist.all_gather = saved
+        loss = all_reduce_sum(loss, mesh, 'data')
+        got = {k: gather_global(v, mesh, layout[k])
+               for k, v in model.unfuse_params(got).items()}
+        ref, _, ref_loss = scan_engine.train_step(
+            model, specs, active, model.fuse_params(whole), card_states, batch,
+            fused_tables=True)
+        ref = model.unfuse_params(ref)
+        gap = {'loss': float((loss.to(ref_loss.device) - ref_loss).abs() / ref_loss.abs())}
+        for key, value in ref.items():
+            update = float((value.float() - whole[key].float()).abs().max())
+            diff = (got[key].float() - value.float()).abs()
+            gap['share'] = max(gap.get('share', 0.0), float(
+                (diff > GENERIC_GRAD_SCALE * update).float().mean()))
+            gap['max'] = max(gap.get('max', 0.0), float(diff.max()) / max(update, 1e-30))
+        if gap['loss'] > GENERIC_SPARSE_RTOL or gap['share'] > MAX_FLIPPED_FRACTION:
+            raise AssertionError(f'mesh step {step} apart from the single-card step: {gap}')
+        held = {k: max(v, gap[k]) for k, v in held.items()}
+    kinds = {}
+    for op, axis, dtype, n in log_rows:
+        calls, total = kinds.get(f'{op}/{axis}/{dtype}', (0, 0))
+        kinds[f'{op}/{axis}/{dtype}'] = [calls + 1, total + n]
+    return {**held, 'collectives': kinds, 'step_ms': step_ms}
+
+
+def phase_mesh_training(ml10m, smi: str) -> dict:
+    """Phase 14: the parallel tier's training half at the ML-10M-scale
+    configuration on ``make_mesh(data=1, model=1)`` over NCCL (world size 1,
+    a ``file://`` rendezvous in a temporary directory).  (a) the whole fit
+    through the mesh against the single-card generic fit
+    (``COLLIE_TPU_FUSED_EPOCH=0``, the same seed): epochs, learning-rate
+    changes and best epoch equal, train losses within
+    ``WHOLE_FIT_LOSS_RTOL``, params as phase 10 holds generic epochs
+    (``MESH_TRAIN`` comment), examples/s both ways, one cycle-walk launch a
+    training epoch and no epoch kernel; (b) a per-epoch mesh fit with a
+    ``checkpoint_dir`` to epoch ``MESH_TRAIN_RESUME_FROM`` (``.shards``
+    directories), resumed to ``MESH_TRAIN_EPOCHS`` on the mesh and on a
+    single-device trainer, each held to (a)'s fit; (c) the model as (a)'s
+    fit left it, holding its shards, serves ``MESH_TRAIN_REQUESTS``
+    kernel-path ``recommend(mesh=)`` requests (one top-k launch each, ids
+    equal to the single-card calls) and ``evaluate_in_batches(mesh=)``
+    (within rtol 1e-5 of the single-card values); (d) the elements each
+    collective of one mesh step moves (at world size 1 the calls' pattern,
+    not the bytes).  Returns the launches of the top-k kernel and the
+    cycle-walk on the paths driven here."""
+    import torch.distributed as dist
+
+    from collie_tpu_torch import CollieTrainer, auc, evaluate_in_batches, mapk, mrr
+    from collie_tpu_torch.parallel import make_mesh
+    from collie_tpu_torch.retrieval import recommend
+    from collie_tpu_torch.training import scan_engine
+
+    train, _, test = ml10m
+    sub = ml10m_eval_users(test)
+    build = lambda: ml10m_model(train)              # noqa: E731
+    out = {'mf_topk_retrieve': 0, SHUFFLE_WRAPPER: 0}
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        dist.init_process_group('nccl', init_method=f'file://{directory}/rendezvous',
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(data=1, model=1)
+            # a one-epoch mesh fit first sets up the NCCL communicators and
+            # the allocator's pools, so (a) times the fit, not the setup
+            warm = build()
+            CollieTrainer(warm, max_epochs=1, verbosity=0, seed=7, mesh=mesh,
+                          enable_model_summary=False).fit(warm)
+            del warm
+            # (a) the whole fit through the mesh, the counts zeroed just before
+            reset_launch_counts()
+            meshed = record_fit(build, True, 'mesh', smi, epochs=MESH_TRAIN_EPOCHS, seed=7,
+                                mesh=mesh)
+            launches = _kernel_counts()
+            expected = dict.fromkeys(launches, 0)
+            expected[SHUFFLE_WRAPPER] = meshed['epochs']
+            if launches != expected:
+                raise AssertionError(f'mesh fit launches {launches}, expected {expected}')
+            out[SHUFFLE_WRAPPER] += launches[SHUFFLE_WRAPPER]
+            os.environ['COLLIE_TPU_FUSED_EPOCH'] = '0'
+            try:
+                single = record_fit(build, True, 'single card, generic', smi,
+                                    epochs=MESH_TRAIN_EPOCHS, seed=7)
+            finally:
+                del os.environ['COLLIE_TPU_FUSED_EPOCH']
+            model = meshed['model']
+            layout = model.param_layout()
+            if layout is None or layout[0] is not mesh:
+                raise AssertionError('the mesh fit left the model without its layout')
+            ref = single['model'].params
+            gap = _params_gap(model.params, ref)
+            a, b = np.asarray(meshed['losses']), np.asarray(single['losses'])
+            parted = float(np.max(np.abs(a - b) / np.abs(b)))
+            equal = {'epochs': meshed['epochs'] == single['epochs'],
+                     'lr changes': meshed['changes'] == single['changes'],
+                     'best epoch': meshed['best_epoch'] == single['best_epoch']}
+            log(f'mesh_training (a) ML-10M whole fit on make_mesh(1, 1) (nccl): '
+                f'{meshed["epochs"]} epochs, lr changes {meshed["changes"]}, best epoch '
+                f'{meshed["best_epoch"]}; train losses {[round(float(x), 6) for x in a]} within '
+                f'{parted:.3g} of the single-card generic fit\'s (rtol {WHOLE_FIT_LOSS_RTOL}); '
+                f'largest param difference {gap:.3g} of max|ref|; examples/s mesh '
+                f'{meshed["examples_per_s"]:,.0f}, single card {single["examples_per_s"]:,.0f} '
+                f'({smi}); epoch s mesh {[round(e["seconds"], 4) for e in meshed["epoch_log"]]}, '
+                f'single card {[round(e["seconds"], 4) for e in single["epoch_log"]]}; '
+                f'cycle-walk launches {launches[SHUFFLE_WRAPPER]}')
+            if not all(equal.values()) or parted > WHOLE_FIT_LOSS_RTOL:
+                raise AssertionError(f'mesh fit vs single card: {equal}, losses parted '
+                                     f'{parted}')
+
+            # (b) checkpoints of the mesh fit, resumed on the mesh and on one card
+            ckpt_dir = os.path.join(directory, 'checkpoints')
+            before = _kernel_counts()
+            first = build()
+            CollieTrainer(first, max_epochs=MESH_TRAIN_RESUME_FROM, verbosity=0, seed=7,
+                          mesh=mesh, checkpoint_dir=ckpt_dir,
+                          enable_model_summary=False).fit(first)
+            shards = os.path.join(ckpt_dir, f'checkpoint_epoch_{MESH_TRAIN_RESUME_FROM}.shards')
+            written = sorted(os.listdir(shards))
+            gaps, resumed_losses = {}, {}
+            for label, resume_mesh in (('mesh', mesh), ('one card', None)):
+                resumed, losses = build(), _LossLog()
+                trainer = CollieTrainer(resumed, max_epochs=MESH_TRAIN_EPOCHS, verbosity=0,
+                                        seed=7, mesh=resume_mesh, enable_model_summary=False,
+                                        logger=losses)
+                if trainer.resume_from_checkpoint(shards) != MESH_TRAIN_RESUME_FROM:
+                    raise AssertionError(f'{shards}: wrong epoch')
+                os.environ['COLLIE_TPU_FUSED_EPOCH'] = '0'     # the one card's generic epoch
+                try:
+                    trainer.fit(resumed)
+                finally:
+                    del os.environ['COLLIE_TPU_FUSED_EPOCH']
+                gaps[label] = _params_gap(resumed.whole_params(), ref)
+                resumed_losses[label] = [float(x) for x in losses.losses]
+            torch.cuda.synchronize()
+            launches = _count_delta(before)
+            expected = dict.fromkeys(launches, 0)
+            expected[SHUFFLE_WRAPPER] = (MESH_TRAIN_RESUME_FROM
+                                         + 2 * (MESH_TRAIN_EPOCHS - MESH_TRAIN_RESUME_FROM))
+            if launches != expected:
+                raise AssertionError(f'checkpointed fits launched {launches}, expected {expected}')
+            tail = [float(x) for x in meshed['losses'][MESH_TRAIN_RESUME_FROM:]]
+            resumed_gap = max(abs(r - t) / abs(t) for losses in resumed_losses.values()
+                              for r, t in zip(losses, tail))
+            log(f'mesh_training (b) per-epoch mesh fit to epoch {MESH_TRAIN_RESUME_FROM} '
+                f'wrote {os.path.basename(shards)} ({written}); resumed to epoch '
+                f'{MESH_TRAIN_EPOCHS} on the mesh and on one card: train losses '
+                f'{resumed_losses} within {resumed_gap:.3g} of (a)\'s uninterrupted {tail} '
+                f'(rtol {WHOLE_FIT_LOSS_RTOL}); largest param difference {gaps["mesh"]:.3g} / '
+                f'{gaps["one card"]:.3g} of max|ref|')
+            if any(len(losses) != len(tail) for losses in resumed_losses.values()) \
+                    or resumed_gap > WHOLE_FIT_LOSS_RTOL:
+                raise AssertionError(f'resumed fits apart from the uninterrupted: '
+                                     f'{resumed_losses} vs {tail}')
+            out[SHUFFLE_WRAPPER] += launches[SHUFFLE_WRAPPER]
+
+            # (c) the model as the fit left it serves through the mesh
+            rng = np.random.default_rng(MESH_SEED)
+            requests = [rng.choice(train.num_users, REQUEST_USERS, replace=False)
+                        for _ in range(MESH_TRAIN_REQUESTS)]
+            reset_launch_counts()
+            answers, mesh_ms = [], []
+            for users in requests:
+                t0 = time.perf_counter()
+                answers.append(recommend(model, users, k=K, filter_seen=False, mesh=mesh))
+                torch.cuda.synchronize()
+                mesh_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = _kernel_counts()
+            expected = dict.fromkeys(launches, 0)
+            expected['mf_topk_retrieve'] = MESH_TRAIN_REQUESTS
+            if launches != expected:
+                raise AssertionError(f'mesh recommend launches {launches}, expected {expected}')
+            out['mf_topk_retrieve'] += launches['mf_topk_retrieve']
+            mesh_metrics = evaluate_in_batches([mapk, mrr, auc], sub, model, k=K, mesh=mesh,
+                                               verbose=False)
+            if model.param_layout() is None:
+                raise AssertionError('serving re-laid the model out')
+            worst = 0.0
+            for users, (ids, scores) in zip(requests, answers):
+                ref_ids, ref_scores = recommend(model, users, k=K, filter_seen=False)
+                if not np.array_equal(ids, ref_ids):
+                    raise AssertionError(f'mesh recommend of the trained model: ids differ in '
+                                         f'{int((ids != ref_ids).any(axis=1).sum())} rows')
+                worst = max(worst, float(np.abs(scores - ref_scores).max()))
+            single_metrics = evaluate_in_batches([mapk, mrr, auc], sub, model, k=K,
+                                                 verbose=False)
+            if not np.allclose(mesh_metrics, single_metrics, rtol=1e-5, atol=1e-7):
+                raise AssertionError(f'mesh evaluate {mesh_metrics} vs {single_metrics}')
+            log(f'mesh_training (c) the trained model, holding its shards: {MESH_TRAIN_REQUESTS} '
+                f'recommend(mesh=) requests of {REQUEST_USERS} users, k={K}, ids equal the '
+                f'single-card calls (max_abs_err={worst:.3g}), ms {[round(t, 3) for t in mesh_ms]}, '
+                f'topk_tile launches {launches["mf_topk_retrieve"]}; evaluate_in_batches(mesh=) '
+                f'MAP@{K}, MRR, AUC {mesh_metrics} (single card {single_metrics})')
+
+            # (d) mesh steps held to single-card steps, the first one's
+            # collectives recorded
+            held = hold_mesh_steps(model, mesh, MESH_TRAIN_EPOCHS + 1)
+            log(f'mesh_training (d) {MESH_TRAIN_HELD_STEPS} mesh steps of the trained model '
+                f'held to the single-card steps from its state: losses within '
+                f'{held["loss"]:.3g} (rtol {GENERIC_SPARSE_RTOL}), table elements beyond '
+                f'{GENERIC_GRAD_SCALE} of the update {held["share"]:.3g} (at most '
+                f'{MAX_FLIPPED_FRACTION}), largest difference {held["max"]:.3g} of the update')
+            log(f'mesh_training (d) one mesh step (B={ML10M_BATCH}, fused tables): collectives '
+                + '; '.join(f'{kind}: {calls} calls, {total:,} elements'
+                            for kind, (calls, total) in sorted(held['collectives'].items())))
+        finally:
+            dist.destroy_process_group()
+    log(f'mesh_training phase: {time.perf_counter() - start:.1f}s')
+    torch.cuda.empty_cache()
+    return out
+
+
 def _movielens_frames():
     """The synthetic ML-100K stand-ins as the readers return them (1-based)."""
     from collie_tpu_torch.movielens import get_data
@@ -3872,6 +4201,9 @@ def main(argv=None):
     shuffle['launches'] += out_of_core['shuffle']
     fused['launches'] += out_of_core['fused']
     shuffle['launches'] += phase_movielens(smi)['feistel_permutation_from_keys']
+    mesh_training = phase_mesh_training(ml10m['implicit'], smi)
+    topk['launches'] += mesh_training['mf_topk_retrieve']
+    shuffle['launches'] += mesh_training[SHUFFLE_WRAPPER]
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
     print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter, shuffle]}))

@@ -26,10 +26,12 @@ the out-of-core HDF5 tier (``HDF5Interactions``,
 and ``CollieTrainer``'s chunk tier; ``h5py`` is imported only where a store
 is read or written), the periphery (``movielens``, ``training.profiler``
 and the reference's import paths ``loss``, ``metrics``, ``model``,
-``interactions``, ``cross_validation``), and the parallel tier's serving
-half (``parallel``: a ``torch.distributed`` device mesh, the sharding
-rules, the sharded embedding lookup, and ``recommend`` /
-``evaluate_in_batches`` under ``mesh=``).
+``interactions``, ``cross_validation``), and the parallel tier
+(``parallel``: a ``torch.distributed`` device mesh, the sharding rules, the
+sharded embedding lookup, ``recommend`` / ``evaluate_in_batches`` under
+``mesh=``, ``CollieTrainer(mesh=)`` with row-sharded tables and moments,
+and the per-shard ``.shards`` checkpoints).  After this the port does
+everything the JAX package does.
 
 Everything is re-exported flat from this module; ``make_mesh`` is resolved
 on first use, so importing the package does not import ``parallel``.

@@ -10,6 +10,7 @@ the additive rank counts are summed over ``model``.
 ``explicit_evaluate_in_batches``: rating errors summed on the device over the
 test loader's batches, read once at the end.
 """
+import contextlib
 from typing import Any, Callable, Iterable, List, Optional, Union
 
 import numpy as np
@@ -69,16 +70,20 @@ def evaluate_in_batches(
     if len(test_users) < batch_size:
         batch_size = len(test_users)
 
-    all_scores = _fused_evaluate(metric_list, test_users, targets, model, k, batch_size,
-                                 mesh)
+    # a model holding shards is evaluated on them under its mesh, and
+    # gathered whole for the single-device paths
+    with model.gathered() if mesh is None else contextlib.nullcontext():
+        all_scores = _fused_evaluate(metric_list, test_users, targets, model, k, batch_size,
+                                     mesh)
     if all_scores is None:
         accumulators = [0.0] * len(metric_list)
-        for start in range(0, len(test_users), batch_size):
-            user_range = test_users[start:start + batch_size]
-            preds = get_preds(model, user_range).cpu().numpy()
-            for metric_ind, metric in enumerate(metric_list):
-                score = metric(targets=targets, user_ids=user_range, preds=preds, k=k)
-                accumulators[metric_ind] += score * len(user_range)
+        with model.gathered():
+            for start in range(0, len(test_users), batch_size):
+                user_range = test_users[start:start + batch_size]
+                preds = get_preds(model, user_range).cpu().numpy()
+                for metric_ind, metric in enumerate(metric_list):
+                    score = metric(targets=targets, user_ids=user_range, preds=preds, k=k)
+                    accumulators[metric_ind] += score * len(user_range)
         all_scores = [acc / len(test_users) for acc in accumulators]
 
     if logger is not None:
@@ -146,8 +151,9 @@ def _sharded_eval_param_kinds(model, mesh) -> Optional[dict]:
     if num_users % n_model or num_items % n_model:
         return None
     kinds = {}
-    for name, value in model.params.items():
-        lead = value.shape[0] if value.dim() else None
+    for name, shape in model.global_shapes().items():
+        value = torch.empty(shape, device='meta')
+        lead = shape[0] if shape else None
         if lead == num_users:
             kinds[name] = 'user'
         elif lead == num_items:
@@ -174,7 +180,9 @@ def _sharded_evaluate(model, test_users, targets, k: int, batch_size: int, mesh)
     user leaves give the block's rows by ``sharded_embedding_lookup`` from
     its shard (communication ``O(batch x dim)``, never ``O(table)``);
     otherwise (hybrids, cold start's bucket stage) it scores
-    its span from the full params.
+    its span from the full params.  A model that holds its shards on this
+    mesh (``BasePipeline.param_layout``) gives its row shards as they are;
+    the full-params path gathers them.
     """
     from collie_tpu_torch.parallel.distributed import all_reduce_sum
     from collie_tpu_torch.parallel.embedding import sharded_embedding_lookup
@@ -201,11 +209,18 @@ def _sharded_evaluate(model, test_users, targets, k: int, batch_size: int, mesh)
     first = axis_index(mesh, DATA_AXIS) * b_local
 
     params = model.params
+    layout = model.param_layout()
+    held = layout[1] if layout is not None and layout[0] is mesh else None
     kinds = _sharded_eval_param_kinds(model, mesh)
-    if kinds is not None:
+    if kinds is None:
+        params = model.whole_params()
+    else:
+        if layout is not None and held is None:
+            params = model.whole_params()
         rows_u = model.hparams['num_users'] // n_model
         u_start = shard * rows_u
-        shards = {name: (leaf[start:start + span] if kinds[name] == 'item'
+        shards = {name: (leaf if held is not None and held[name]
+                         else leaf[start:start + span] if kinds[name] == 'item'
                          else leaf[u_start:u_start + rows_u] if kinds[name] == 'user'
                          else leaf)
                   for name, leaf in params.items()}
@@ -278,7 +293,7 @@ def explicit_evaluate_in_batches(
 
     loader = InteractionsDataLoader(interactions=test_interactions, **kwargs)
     device = model.device
-    params = model.params
+    params = model.whole_params()
     error_sums = torch.zeros(2, dtype=torch.float64, device=device)   # squared, absolute
     count = 0
     custom_preds: List[torch.Tensor] = []

@@ -28,7 +28,21 @@ training=True, generator=g)`` applies it.
 Device: models live on ``cuda`` unless ``map_location`` asks for another
 device (``'cpu'`` in the tests); with no GPU and no explicit device,
 construction raises.
+
+Shards: after a mesh fit (``CollieTrainer(mesh=)``) or a resume from a
+``.shards`` checkpoint under a mesh, ``params`` holds this rank's row
+shard of every table the mesh split and the other leaves whole, and
+``param_layout()`` gives ``(mesh, {name: spec})`` beside them, as a JAX
+model's params are global arrays whose devices hold only their shards.  The
+mesh tiers of ``recommend`` and ``evaluate_in_batches`` serve such a model
+as it is.  What needs whole tables (``save_model``, ``forward``, the
+prediction and similarity APIs, the single-device ``recommend`` and
+``evaluate_in_batches``) gathers them first (``gathered``): that costs
+``O(table)`` on every rank, as JAX's ``np.asarray`` of a global array does,
+and, being a collective, every rank must make the same call.
 """
+import contextlib
+import functools
 import json
 import os
 import warnings
@@ -49,6 +63,15 @@ from collie_tpu_torch.training.optimizers import (OptimizerSpec, build_transform
 from collie_tpu_torch.utils import get_random_seed
 
 INTERACTIONS_LIKE_INPUT = Union[BaseInteractions, InteractionsDataLoader, None]
+
+
+def _whole_tables(method):
+    """Run ``method`` with the whole tables installed (``gathered``)."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with self.gathered():
+            return method(self, *args, **kwargs)
+    return wrapper
 
 
 def resolve_device(map_location: Optional[Union[str, torch.device]]) -> torch.device:
@@ -257,6 +280,16 @@ class BasePipeline(nn.Module):
         """Install ``{name: tensor}`` as the model's parameters, on the
         model's device and in its ``embeddings_dtype`` (for instance the
         output of ``collie_tpu_torch.weights.params_from_jax``)."""
+        self._install(params)
+        self._param_layout = None
+
+    def load_shards(self, shards: Dict[str, torch.Tensor], mesh, specs: Dict[str, tuple]) -> None:
+        """Install this rank's ``shards`` of the params under ``mesh``, each
+        split by its spec in ``specs`` (``()``: the whole leaf)."""
+        self._install(shards)
+        self._param_layout = (mesh, {name: tuple(specs.get(name, ())) for name in shards})
+
+    def _install(self, params: Dict[str, torch.Tensor]) -> None:
         params = self._apply_embeddings_dtype(
             {k: v.to(self.device) for k, v in params.items()})
         for name in list(self._parameters):
@@ -265,6 +298,48 @@ class BasePipeline(nn.Module):
         for name, value in params.items():
             self.register_parameter(
                 name, nn.Parameter(value, requires_grad=value.is_floating_point()))
+
+    def param_layout(self):
+        """``(mesh, {name: spec})`` when ``params`` holds this rank's shards
+        (module docstring), else None."""
+        return getattr(self, '_param_layout', None)
+
+    def global_shapes(self) -> Dict[str, tuple]:
+        """Each param's whole shape, whether the model holds it or a shard."""
+        from collie_tpu_torch.parallel.sharding import global_shape
+
+        layout = self.param_layout()
+        return {name: (tuple(value.shape) if layout is None
+                       else global_shape(value.shape, layout[0], layout[1][name]))
+                for name, value in self.params.items()}
+
+    def whole_params(self) -> Dict[str, torch.Tensor]:
+        """The whole params on the model's device: gathered over the mesh
+        when the model holds shards (``O(table)`` a rank, a collective every
+        rank must call), else ``params``."""
+        layout = self.param_layout()
+        if layout is None:
+            return self.params
+        from collie_tpu_torch.parallel.distributed import gather_global
+
+        mesh, specs = layout
+        return {name: gather_global(value, mesh, specs[name]).to(self.device)
+                for name, value in self.params.items()}
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """Within the block the model holds its whole params
+        (``whole_params``); its shards come back after it."""
+        layout = self.param_layout()
+        if layout is None:
+            yield
+            return
+        shards = self.params
+        self.load_params(self.whole_params())
+        try:
+            yield
+        finally:
+            self.load_shards(shards, *layout)
 
     @property
     def device(self) -> torch.device:
@@ -652,6 +727,7 @@ class BasePipeline(nn.Module):
             return ids.to(device=self.device, dtype=torch.int64)
         return torch.as_tensor(np.asarray(ids, dtype=np.int64), device=self.device)
 
+    @_whole_tables
     def forward(self,
                 users: Union[np.ndarray, Iterable[int]],
                 items: Union[np.ndarray, Iterable[int]]) -> np.ndarray:
@@ -697,6 +773,7 @@ class BasePipeline(nn.Module):
                   for start in range(0, n_chunks * chunk, chunk)]
         return torch.cat(blocks, dim=1)[:, :T] if n_chunks > 1 else blocks[0]
 
+    @_whole_tables
     def get_item_predictions(self,
                              user_id: int = 0,
                              unseen_items_only: bool = False,
@@ -743,6 +820,7 @@ class BasePipeline(nn.Module):
             preds = preds.drop(np.concatenate(seen))
         return preds
 
+    @_whole_tables
     def item_item_similarity(self, item_id: int) -> pd.Series:
         """Most-similar items by cosine over item embeddings
         (reference ``base_pipeline.py:785-823``)."""
@@ -753,6 +831,7 @@ class BasePipeline(nn.Module):
             )
         return self._embedding_similarity(self._get_item_embeddings(), item_id)
 
+    @_whole_tables
     def user_user_similarity(self, user_id: int) -> pd.Series:
         """Most-similar users by cosine over user embeddings
         (reference ``base_pipeline.py:825-864``)."""
@@ -782,10 +861,21 @@ class BasePipeline(nn.Module):
 
     # ------------------------------------------------------------ persistence
 
+    @_whole_tables
     def save_model(self, filename: Union[str, Path] = 'model.npz') -> None:
         """Persist ``{params, hparams}`` to one ``.npz`` in the JAX package's
         format; no trainer or optimizer state (reference
-        ``base_pipeline.py:880-900``)."""
+        ``base_pipeline.py:880-900``).  A model that holds shards writes the
+        whole tables; across processes every rank gathers, rank 0 writes
+        and the call returns on every rank once the file is complete."""
+        from collie_tpu_torch.parallel.distributed import barrier, is_multiprocess, process_index
+
+        if process_index() == 0:
+            self._write_npz(filename)
+        if is_multiprocess():
+            barrier()
+
+    def _write_npz(self, filename: Union[str, Path]) -> None:
         # npz has no bfloat16: store bf16 tables upcast to float32 (lossless)
         # and let load re-apply hparams['embeddings_dtype']
         arrays = {

@@ -18,7 +18,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from collie_tpu_torch.models.base import INTERACTIONS_LIKE_INPUT
+from collie_tpu_torch.models.base import INTERACTIONS_LIKE_INPUT, _whole_tables
 from collie_tpu_torch.models.multi_stage import MultiStagePipeline
 from collie_tpu_torch.ops.embeddings import dropout, scaled_embedding_init, tiled_dropout_dots, \
     zero_embedding_init
@@ -159,11 +159,26 @@ class ColdStartModel(MultiStagePipeline):
             print('Copying over item embeddings...')
             params = self.params
             buckets = self._item_buckets_device
-            self.load_params({
-                **params,
-                'item_embeddings': params['item_bucket_embeddings'][buckets],
-                'item_biases': params['item_bucket_biases'][buckets],
-            })
+            layout = self.param_layout()
+            if layout is None:
+                self.load_params({
+                    **params,
+                    'item_embeddings': params['item_bucket_embeddings'][buckets],
+                    'item_biases': params['item_bucket_biases'][buckets],
+                })
+            else:
+                # a model holding shards fills each rank's item-row shard
+                # from the (possibly sharded) bucket table by the sharded
+                # lookup; no rank gathers a whole table
+                from collie_tpu_torch.parallel.embedding import lookup_for_shards
+
+                mesh, specs = layout
+                self.load_shards({**params, **{
+                    target: lookup_for_shards(params[source], bool(specs[source]), buckets,
+                                              bool(specs[target]), mesh)
+                    for target, source in (('item_embeddings', 'item_bucket_embeddings'),
+                                           ('item_biases', 'item_bucket_biases'))}},
+                    mesh, specs)
         super().set_stage(stage)
 
     # the fused [*, D+1] layout of the generic epoch: all three
@@ -211,6 +226,7 @@ class ColdStartModel(MultiStagePipeline):
                                   self.hparams.get('dropout_p', 0.0), training, generator)
         return dots + user_b[None, :] + item_biases
 
+    @_whole_tables
     def item_bucket_item_similarity(self, item_bucket_id: int) -> pd.Series:
         """Cosine similarity of one bucket embedding against every item
         embedding (reference ``:322-359``)."""

@@ -111,7 +111,7 @@ class HybridPretrainedModel(HybridMixin, BasePipeline):
 
     def _setup_model(self, trained_model, **kwargs) -> None:
         self._install_metadata(**kwargs)
-        donor = trained_model.params
+        donor = trained_model.whole_params()     # a donor fit on a mesh holds shards
         # record the donor's dims so a load can rebuild the tables (``:256-260``)
         self.hparams['user_num_embeddings'] = donor['user_embeddings'].shape[0]
         self.hparams['user_embeddings_dim'] = donor['user_embeddings'].shape[1]

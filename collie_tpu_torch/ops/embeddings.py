@@ -41,7 +41,13 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     rows' float32 gradients in float32 and rounds to bfloat16 once
     (``_Bf16Lookup``), as the reference's ``_bf16_lookup`` does: popular
     rows collide many times a batch, and summing the collisions in bfloat16
-    rounds most of the signal away."""
+    rounds most of the signal away.
+
+    A mesh training step hands the models its tables as
+    ``parallel.embedding.ShardedTable`` objects, whose own ``lookup`` is
+    the sharded one."""
+    if not isinstance(table, torch.Tensor):
+        return table.lookup(ids)
     if table.dtype == torch.bfloat16:
         return _Bf16Lookup.apply(table, ids)
     return table[ids].float()

@@ -1,18 +1,17 @@
-"""Mesh construction, sharding rules, and multi-process execution.
-
-The sharded-training half of ``collie_tpu.parallel`` (``checkpoint``,
-``init_sharded_opt_states``) is not ported yet.
-"""
-from collie_tpu_torch.parallel import distributed
+"""Mesh construction, sharding rules, multi-process execution and per-shard
+checkpoints (the exports of ``collie_tpu.parallel``)."""
+from collie_tpu_torch.parallel import checkpoint, distributed
 from collie_tpu_torch.parallel.embedding import shard_table, sharded_embedding_lookup
 from collie_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
-from collie_tpu_torch.parallel.sharding import (param_shardings,
+from collie_tpu_torch.parallel.sharding import (init_sharded_opt_states,
+                                                param_shardings,
                                                 param_spec,
                                                 shard_batch_fn,
                                                 shard_params)
 
 __all__ = [
-    'DATA_AXIS', 'MODEL_AXIS', 'distributed', 'make_mesh',
+    'DATA_AXIS', 'MODEL_AXIS', 'checkpoint', 'distributed',
+    'init_sharded_opt_states', 'make_mesh',
     'param_shardings', 'param_spec', 'shard_batch_fn', 'shard_params',
     'shard_table', 'sharded_embedding_lookup',
 ]

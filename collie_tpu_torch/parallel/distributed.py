@@ -22,7 +22,9 @@ Launch pattern (one process a device; the same script everywhere)::
     ids, scores = recommend(model, users, mesh=mesh)      # same on every rank
 
 ``all_reduce_sum`` and ``all_gather_cat`` are the collectives the mesh
-paths call, one place to record their traffic.
+paths call, one place to record their traffic.  ``gather_global`` /
+``fetch`` bring a sharded tensor back whole; ``process_index``,
+``process_count`` and ``barrier`` stand for JAX's process queries.
 """
 from typing import Any, Optional, Sequence
 
@@ -63,6 +65,22 @@ def is_multiprocess() -> bool:
     return dist.is_initialized() and dist.get_world_size() > 1
 
 
+def process_index() -> int:
+    """This process's rank in the group (``jax.process_index``); 0 without one."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The group's size (``jax.process_count``); 1 without one."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def barrier() -> None:
+    """Wait for every process of the group (a no-op without one)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _local_index(shape: Sequence[int], mesh: DeviceMesh, spec: Sequence) -> tuple:
     """This rank's slice of an array of ``shape`` under ``spec``."""
     index = []
@@ -82,10 +100,11 @@ def _local_index(shape: Sequence[int], mesh: DeviceMesh, spec: Sequence) -> tupl
 
 def put_global(x, mesh: DeviceMesh, spec: Sequence = ()) -> torch.Tensor:
     """This rank's slice of the full host array ``x`` under ``spec``, on the
-    mesh's device.  ``x`` must be the same full array on every process."""
+    mesh's device, a copy that keeps nothing else of ``x`` alive.  ``x``
+    must be the same full array on every process."""
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
-    return x[_local_index(x.shape, mesh, spec)].to(mesh_device(mesh))
+    return x[_local_index(x.shape, mesh, spec)].to(mesh_device(mesh), copy=True)
 
 
 def put_replicated(x, mesh: DeviceMesh) -> torch.Tensor:
@@ -107,8 +126,8 @@ def put_epoch_array(x, mesh: DeviceMesh, axis: int = 0) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """Sum of ``x`` over the ranks along ``axis`` (``lax.psum``), a new
-    tensor on the mesh's device."""
-    out = x.to(mesh_device(mesh), copy=True)
+    contiguous tensor on the mesh's device (NCCL takes no other)."""
+    out = x.to(mesh_device(mesh)).clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
     return out
 
@@ -155,16 +174,23 @@ def assert_same_across_processes(tag: str, *arrays) -> None:
             'before a multi-process run.')
 
 
+def gather_global(x: torch.Tensor, mesh: Optional[DeviceMesh], spec: Sequence = ()) -> torch.Tensor:
+    """The whole tensor whose slice on this rank under ``spec`` is ``x``:
+    all-gathered over each sharded axis, on the mesh's device, in ``x``'s
+    dtype (a bfloat16 tensor travels as float32, which holds it exactly).
+    ``spec == ()`` returns ``x``."""
+    dtype = x.dtype
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            x = all_gather_cat(x.float() if dtype == torch.bfloat16 else x, mesh, axis,
+                               dim=dim).to(dtype)
+    return x
+
+
 def fetch(x, mesh: Optional[DeviceMesh] = None, spec: Sequence = ()) -> np.ndarray:
-    """Bring a sharded tensor to the host: this rank's slice ``x`` under
-    ``spec`` all-gathered over each sharded axis.  Replicated tensors
-    (``spec == ()``) convert directly."""
+    """Bring a sharded tensor to the host (``gather_global``), bfloat16 as
+    float32.  Replicated tensors (``spec == ()``) convert directly."""
     if isinstance(x, torch.Tensor):
-        for dim, axis in enumerate(spec):
-            if axis is not None:
-                x = all_gather_cat(x, mesh, axis, dim=dim)
-        x = x.detach().cpu()
-        if x.dtype == torch.bfloat16:
-            x = x.float()
-        return x.numpy()
+        x = gather_global(x.detach(), mesh, spec).cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)

@@ -186,6 +186,9 @@ def _build_sharded_retrieval(model, k: int, item_tile: int, filter_seen: bool, m
     from collie_tpu_torch.parallel.embedding import sharded_embedding_lookup
     from collie_tpu_torch.parallel.mesh import MODEL_AXIS, axis_index, axis_size
 
+    layout = model.param_layout()
+    held = layout[1] if layout is not None and layout[0] is mesh else {}
+
     num_items = model.hparams['num_items']
     num_users = model.hparams['num_users']
     n_shards = axis_size(mesh, MODEL_AXIS)
@@ -198,26 +201,34 @@ def _build_sharded_retrieval(model, k: int, item_tile: int, filter_seen: bool, m
     kernel_fn = _maybe_kernel_retrieve(model, k, item_tile, filter_seen) \
         if local_tables and k <= span else None
 
-    def _user_rows(leaf, user_ids):
+    def _user_rows(params, name, user_ids):
         """``[B, ...]`` user rows under either user-table layout: the
         sharded lookup from this rank's row shard, or a gather of the whole
         leaf.  One rank holds each row, so its float32 sum is exact in the
         leaf's dtype."""
+        leaf = params[name]
         if not local_users:
             return leaf[user_ids]
-        rows = sharded_embedding_lookup(leaf[shard * rows_u:(shard + 1) * rows_u],
-                                        user_ids, mesh)
+        if not held.get(name):
+            leaf = leaf[shard * rows_u:(shard + 1) * rows_u]
+        rows = sharded_embedding_lookup(leaf, user_ids, mesh)
         return rows.to(user_ids.device, leaf.dtype)
+
+    def _item_rows(params, name):
+        """This rank's span of an item leaf: the shard the model holds, or
+        a slice of the whole leaf."""
+        leaf = params[name]
+        return leaf if held.get(name) else leaf[start:start + span]
 
     def retrieve(params, user_ids, seen=None):
         _require_seen(filter_seen, seen)
         with torch.no_grad():
             keys = csr_keys(*seen) if filter_seen else None
             if local_tables:
-                view = {'user_embeddings': _user_rows(params['user_embeddings'], user_ids),
-                        'user_biases': _user_rows(params['user_biases'], user_ids),
-                        'item_embeddings': params['item_embeddings'][start:start + span],
-                        'item_biases': params['item_biases'][start:start + span]}
+                view = {'user_embeddings': _user_rows(params, 'user_embeddings', user_ids),
+                        'user_biases': _user_rows(params, 'user_biases', user_ids),
+                        'item_embeddings': _item_rows(params, 'item_embeddings'),
+                        'item_biases': _item_rows(params, 'item_biases')}
                 rows = torch.arange(user_ids.shape[0], device=user_ids.device)
                 if kernel_fn is not None:
                     top_ids, top_scores = kernel_fn(view, rows)
@@ -237,6 +248,9 @@ def _build_sharded_retrieval(model, k: int, item_tile: int, filter_seen: bool, m
             merged_scores, idx = stable_topk(all_scores, k)
             return torch.gather(all_ids, 1, idx), merged_scores
 
+    # the local-table tier reads the shards a model holds on this mesh; the
+    # replicated tier scores from whole params
+    retrieve.takes_shards = local_tables and bool(held)
     return retrieve
 
 
@@ -266,7 +280,9 @@ def recommend(model,
     ``base_pipeline.py:705-718``) but batched and on the device.  The seen set
     is re-read from the loaders on every call.  ``mesh``: shard the catalog
     over the mesh's ``model`` axis; every rank calls with the same arguments
-    and gets the same answer.
+    and gets the same answer.  A model that holds its shards
+    (``BasePipeline.param_layout``) is served on them in the local-table
+    tier of its mesh, and gathered whole for every other path.
     """
     num_items = model.hparams['num_items']
     if k > num_items:
@@ -276,6 +292,8 @@ def recommend(model,
     seen = _seen_arrays(model) if filter_seen else None
     retrieve = build_retrieval_fn(model, k=k, item_tile=item_tile,
                                   filter_seen=filter_seen, mesh=mesh)
-    top_ids, top_scores = retrieve(model.params, model._ids(user_ids), seen)
+    params = (model.params if getattr(retrieve, 'takes_shards', False)
+              else model.whole_params())
+    top_ids, top_scores = retrieve(params, model._ids(user_ids), seen)
     return (top_ids.cpu().numpy().astype(np.int32, copy=False),
             top_scores.cpu().numpy())

@@ -254,6 +254,50 @@ def state_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def state_paths(tree: Any, path: tuple = ()) -> List[Tuple[tuple, Any]]:
+    """``(path, leaf)`` of every leaf of an optimizer state in
+    ``state_leaves``' order; a path holds dataclass field names, dict keys
+    and sequence indices."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [item for f in dataclasses.fields(tree)
+                for item in state_paths(getattr(tree, f.name), path + (f.name,))]
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in state_paths(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, v in enumerate(tree) for item in state_paths(v, path + (i,))]
+    return [(path, tree)]
+
+
+def state_tree(state: Any) -> Any:
+    """An optimizer state as plain containers: each dataclass a dict of its
+    fields, dicts as dicts, sequences as lists; ``state_from_tree`` puts the
+    structure back."""
+    if dataclasses.is_dataclass(state) and not isinstance(state, type):
+        return {f.name: state_tree(getattr(state, f.name)) for f in dataclasses.fields(state)}
+    if isinstance(state, dict):
+        return {k: state_tree(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [state_tree(v) for v in state]
+    return state
+
+
+def state_from_tree(template: Any, tree: Any) -> Any:
+    """``template``'s structure with the leaves of ``state_tree``'s form
+    ``tree``."""
+    if dataclasses.is_dataclass(template) and not isinstance(template, type):
+        return dataclasses.replace(template, **{
+            f.name: state_from_tree(getattr(template, f.name), tree[f.name])
+            for f in dataclasses.fields(template)})
+    if isinstance(template, dict):
+        return {k: state_from_tree(template[k], tree[k]) for k in template}
+    if isinstance(template, (list, tuple)):
+        items = [state_from_tree(t, v) for t, v in zip(template, tree)]
+        if hasattr(template, '_fields'):
+            return type(template)(*items)
+        return type(template)(items)
+    return tree
+
+
 def state_from_leaves(template: Any, leaves) -> Any:
     """``template``'s structure with ``state_leaves``' order filled from the
     iterator ``leaves``."""

@@ -1,7 +1,7 @@
 """Whole-epoch training: the epoch is built on the device, then trained.
 
-Port of ``collie_tpu/training/scan_engine.py`` for single-device in-memory
-loaders, implicit and explicit.  Per epoch the interaction ids (and, for
+Port of ``collie_tpu/training/scan_engine.py`` for in-memory loaders,
+implicit and explicit, on one device or a mesh.  Per epoch the interaction ids (and, for
 explicit data, the ratings) live on the device; the engine shuffles them with
 the Feistel permutation, samples every negative of an implicit epoch in one
 pass of an exact complement sampler (or draws them uniformly for an
@@ -79,6 +79,26 @@ gather (``_unpack_rows``, ``:496-527``); the reorder path otherwise, and
 always for explicit data (``items`` and ``ratings`` gathered by the same
 permutation, ``:465-467``) and for the padded and CSR samplers, which draw
 per batch position (``:470-487``).
+
+Under a mesh (``build_scan_epoch_fns(mesh=)``) every rank draws the whole
+epoch from the seed as one device does, through the same shuffle and
+sampler draws, and trains on its ``data`` slice of each step's rows
+(a step that does not divide the axis padded with mask-0 rows), through the
+generic epoch: the fused kernels are off under a mesh, as in JAX
+(``_fused_epoch_config``).  Each slice's loss is scaled to its share of the
+step's mask sum, so the shares sum over ``data`` to the single-device
+loss (the losses normalize by ``clamp(mask.sum(), 1)``; a custom loss is
+assumed to be a weighted mean over its rows), and ``train_step``'s mesh
+form (``_mesh_grads``) makes the update the global step's on every rank:
+the tables read by id reach ``calculate_loss`` as
+``parallel.embedding.ShardedTable`` objects and their gradients are
+exchanged over ``data`` by ``TableGrads``; the other leaves' gradients are
+summed over ``data`` in one all-reduce.  Drawing the epoch on every rank
+costs each the whole sampler pass (JAX feeds each process its shard of the
+flat arrays instead, ``:243-265``).  Collie_tpu's slot-domain epoch crashes
+under a mesh when the grouped slot count does not divide the data axis
+(``:425``); here the epoch is drawn whole and only the steps' rows are
+split, so any count trains.
 
 Randomness: per epoch one generator stream (seeded from the trainer's seed
 and the epoch) gives the four Feistel keys, then the sampler's draws:
@@ -235,12 +255,16 @@ def draw_epoch(seed: int, epoch_idx: int, training: bool, device,
     return keys, samples
 
 
-def dropout_step_seeds(seed: int, epoch_idx: int, num_steps: int) -> List[int]:
+def dropout_step_seeds(seed: int, epoch_idx: int, num_steps: int,
+                       data_index: int = 0) -> List[int]:
     """One dropout seed per step of a generic training epoch, derived from
     ``(seed, epoch)`` and the step index: the analog of the JAX engine's
-    ``fold_in(dropout_rng, step_i)`` (``collie_tpu/training/scan_engine.py:636-644``)."""
-    words = np.random.SeedSequence([int(seed), int(epoch_idx), 3]).generate_state(
-        num_steps, dtype=np.uint64)
+    ``fold_in(dropout_rng, step_i)`` (``collie_tpu/training/scan_engine.py:636-644``).
+    Under a mesh each ``data`` rank draws the masks of its own rows: rank
+    ``data_index`` > 0 mixes its index in (rank 0 keeps the single-device
+    seeds), and the ``model`` ranks of one ``data`` slice share them."""
+    entropy = [int(seed), int(epoch_idx), 3] + ([int(data_index)] if data_index else [])
+    words = np.random.SeedSequence(entropy).generate_state(num_steps, dtype=np.uint64)
     return [int(w) for w in words]
 
 
@@ -254,9 +278,70 @@ def select_state(live: torch.Tensor, new: Any, old: Any) -> Any:
         for a, b in pairs]))
 
 
+def table_layout(model, mesh, name: str, value: torch.Tensor) -> Optional[bool]:
+    """How a mesh step holds the leaf ``name`` (this rank's ``value``):
+    True for a row shard of a table read by id, False for such a table
+    held whole, None for any other leaf (``parallel.sharding.is_id_table``;
+    a fused table is split as its named parts are)."""
+    from collie_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
+    from collie_tpu_torch.parallel.sharding import table_rows
+
+    rows = table_rows(name, model.hparams)
+    if rows is None or not value.dim():
+        return None
+    n_model = axis_size(mesh, MODEL_AXIS)
+    if n_model > 1 and rows % n_model == 0 and value.shape[0] == rows // n_model:
+        return True
+    return False if value.shape[0] == rows else None
+
+
+def mesh_leaves(model, mesh, params: Dict[str, torch.Tensor], differentiated=(), tape=None
+                ) -> Dict[str, Any]:
+    """The params a mesh step hands ``calculate_loss``: each table read by
+    id as a ``ShardedTable`` (recording on ``tape`` when differentiated),
+    the other leaves as tensors (requiring grad when differentiated)."""
+    from collie_tpu_torch.parallel.embedding import ShardedTable
+
+    leaves = {}
+    for k, v in params.items():
+        sharded = table_layout(model, mesh, k, v)
+        if sharded is not None:
+            leaves[k] = ShardedTable(v, mesh, sharded, tape if k in differentiated else None, k)
+        else:
+            leaves[k] = v.detach().requires_grad_() if k in differentiated else v.detach()
+    return leaves
+
+
+def _mesh_grads(model, mesh, params, differentiated, batch, generator, loss_scale):
+    """A mesh step's loss and gradients (``build_scan_epoch_fns``): the loss
+    of this rank's rows times ``loss_scale``, each dense leaf's gradient
+    summed over ``data`` (one all-reduce for all of them), each table's
+    from ``TableGrads``' exchange."""
+    from collie_tpu_torch.parallel.distributed import all_reduce_sum
+    from collie_tpu_torch.parallel.embedding import TableGrads
+    from collie_tpu_torch.parallel.mesh import DATA_AXIS
+
+    tape = TableGrads(mesh)
+    leaves = mesh_leaves(model, mesh, params, differentiated, tape)
+    dense = [k for k in differentiated if torch.is_tensor(leaves[k])]
+    loss = model.calculate_loss(leaves, batch, generator=generator, training=True) * loss_scale
+    rows = tape.row_leaves()
+    got = torch.autograd.grad(loss, [leaves[k] for k in dense] + rows, allow_unused=True)
+    grads = {k: g for k, g in zip(dense, got) if g is not None}
+    if grads:
+        flat = all_reduce_sum(torch.cat([g.float().reshape(-1) for g in grads.values()]), mesh,
+                              DATA_AXIS)
+        offsets = np.cumsum([0] + [g.numel() for g in grads.values()])
+        grads = {k: flat[a:b].reshape(g.shape).to(g.dtype)
+                 for (k, g), a, b in zip(grads.items(), offsets, offsets[1:])}
+    grads.update(tape.table_gradients(got[len(dense):], params))
+    return loss, grads
+
+
 def train_step(model, specs, active: List[bool], params: Dict[str, torch.Tensor],
                opt_states: tuple, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None, fused_tables: bool = False):
+               generator: Optional[torch.Generator] = None, fused_tables: bool = False,
+               mesh=None, loss_scale=None):
     """One optimizer step on one batch: ``calculate_loss`` under autograd,
     then each active optimizer's update of its params (the JAX package's
     ``train_step``, ``collie_tpu/training/trainer.py:960-972``).  Returns
@@ -268,17 +353,27 @@ def train_step(model, specs, active: List[bool], params: Dict[str, torch.Tensor]
     the fused tables of which a part is trained; their gradients are split
     into the named keys, each active optimizer updates its named slices
     with the same transforms and states as on the named layout, and the
-    tables are fused again."""
+    tables are fused again.
+
+    ``mesh``: ``params`` are this rank's shards and ``batch`` its ``data``
+    slice of the step's rows; the returned loss is this slice's share of
+    the step's loss (``loss_scale`` times its loss), which sums over
+    ``data`` to the step's loss (``build_scan_epoch_fns``), and the update
+    is the global step's on every rank (``_mesh_grads``)."""
     trained = [k for spec, on in zip(specs, active) if on for k in spec.keys]
     differentiated = trained
     if fused_tables:
         parts = {fused_key: {a, b} for a, b, fused_key in model._FUSED_TABLE_SPEC}
         differentiated = [k for k in params if k in trained or parts.get(k, set()) & set(trained)]
-    leaves = {k: (v.detach().requires_grad_() if k in differentiated else v.detach())
-              for k, v in params.items()}
-    loss = model.calculate_loss(leaves, batch, generator=generator, training=True)
-    grads = dict(zip(differentiated, torch.autograd.grad(
-        loss, [leaves[k] for k in differentiated], allow_unused=True)))
+    if mesh is not None:
+        loss, grads = _mesh_grads(model, mesh, params, differentiated, batch, generator,
+                                  loss_scale)
+    else:
+        leaves = {k: (v.detach().requires_grad_() if k in differentiated else v.detach())
+                  for k, v in params.items()}
+        loss = model.calculate_loss(leaves, batch, generator=generator, training=True)
+        grads = dict(zip(differentiated, torch.autograd.grad(
+            loss, [leaves[k] for k in differentiated], allow_unused=True)))
     if fused_tables:
         params = model.unfuse_params(params)
         grads = model.unfuse_params({k: g for k, g in grads.items() if g is not None})
@@ -299,13 +394,15 @@ def train_step(model, specs, active: List[bool], params: Dict[str, torch.Tensor]
 
 def train_steps(model, specs, active: List[bool], params: Dict[str, torch.Tensor],
                 opt_states: tuple, batches: Dict[str, torch.Tensor],
-                step_seeds: Optional[List[int]], fused_tables: bool):
+                step_seeds: Optional[List[int]], fused_tables: bool, mesh=None,
+                loss_scales: Optional[torch.Tensor] = None):
     """``train_step`` over every step of ``batches`` (``[S, ...]`` tensors),
     step ``s`` with a dropout generator seeded ``step_seeds[s]`` (None: no
-    dropout), the tables carried fused when ``fused_tables``.  Returns
-    ``(params, opt_states, per-step losses)``, the params named and
-    contiguous again; an untrained table keeps its tensor, so checkpoints,
-    saves and a live select see the named layout only."""
+    dropout), the tables carried fused when ``fused_tables``; under a
+    ``mesh`` with ``loss_scales[s]``.  Returns ``(params, opt_states,
+    per-step losses)``, the params named and contiguous again; an untrained
+    table keeps its tensor, so checkpoints, saves and a live select see the
+    named layout only."""
     old_params = params
     if fused_tables:
         params = model.fuse_params(params)
@@ -315,9 +412,9 @@ def train_steps(model, specs, active: List[bool], params: Dict[str, torch.Tensor
         if step_seeds is not None:
             generator = torch.Generator(device=model.device)
             generator.manual_seed(step_seeds[s])
-        params, opt_states, loss = train_step(model, specs, active, params, opt_states,
-                                              {k: v[s] for k, v in batches.items()},
-                                              generator, fused_tables)
+        params, opt_states, loss = train_step(
+            model, specs, active, params, opt_states, {k: v[s] for k, v in batches.items()},
+            generator, fused_tables, mesh, None if loss_scales is None else loss_scales[s])
         losses.append(loss)
     if fused_tables:
         trained = {k for spec, on in zip(specs, active) if on for k in spec.keys}
@@ -400,9 +497,12 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     ``COLLIE_TPU_FUSED_EPOCH``, by default the kernel on ``cuda`` inside the
     envelope and the generic epoch elsewhere; ``True`` requires the envelope
     and runs the fused function on any device (its plain version on the
-    CPU); ``False`` runs the generic autograd epoch on any device."""
-    if mesh is not None:
-        raise NotImplementedError('mesh training is not ported yet (ROADMAP Queue 1)')
+    CPU); ``False`` runs the generic autograd epoch on any device.
+
+    ``mesh``: the epoch trains on the mesh (module docstring) through the
+    generic epoch on every rank, the fused kernels off as in JAX
+    (``_fused_epoch_config``); ``params`` and ``opt_states`` are then this
+    rank's shards, and the loss the global one on every rank."""
     inter = loader.interactions
     explicit = isinstance(inter, ExplicitInteractions)
     device = model.device
@@ -479,6 +579,38 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         data['csr_keys'] = csr_keys(data['indptr'], data['shifted_cols'])
     W = K + SPARES_PER_ROUND * dedup_rounds
     clock = _EpochClock(device)
+    data_index = 0
+    if mesh is not None:
+        from collie_tpu_torch.parallel.distributed import all_reduce_sum
+        from collie_tpu_torch.parallel.mesh import DATA_AXIS, axis_index
+        from collie_tpu_torch.parallel.sharding import data_slice
+
+        data_index = axis_index(mesh, DATA_AXIS)
+        row0, b_local = data_slice(B, mesh)
+
+    def _local(batches):
+        """This rank's ``data`` slice of every step's rows, the steps padded
+        with rows of id 0 and mask 0 to a multiple of the axis, and each
+        step's loss scale: its slice's share of the step's mask sum, as the
+        losses normalize (``clamp(mask.sum(), 1)``), so the slices' scaled
+        losses sum to the single-device step's loss."""
+        out = {}
+        for key, value in batches.items():
+            extra = row0 + b_local - value.shape[1]
+            if extra > 0:
+                value = torch.cat([value, value.new_zeros((S, extra) + value.shape[2:])], dim=1)
+            out[key] = value[:, row0:row0 + b_local]
+        scales = (out['mask'].sum(dim=1).clamp(min=1.0)
+                  / batches['mask'].sum(dim=1).clamp(min=1.0))
+        return out, scales
+
+    def _global_mean(losses):
+        """The epoch's mean of the steps' losses: the slices' shares summed
+        over ``data`` (one all-reduce an epoch), the same on every rank."""
+        losses = torch.stack(losses)
+        if mesh is not None:
+            losses = all_reduce_sum(losses, mesh, DATA_AXIS).to(device)
+        return losses.mean()
 
     def _draws(seed, epoch_idx):
         if 'packed_slots' in data:
@@ -578,10 +710,15 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     if not training:
         def val_epoch_fn(params, data_, seed, epoch_idx):
             batches = _epoch_batches(seed, epoch_idx)
+            if mesh is not None:
+                batches, scales = _local(batches)
+                params = mesh_leaves(model, mesh, params)
             with torch.no_grad():
                 losses = [model.calculate_loss(params, {k: v[s] for k, v in batches.items()},
                                                training=False) for s in range(S)]
-            return torch.stack(losses).mean()
+            if mesh is not None:
+                losses = [loss * scales[s] for s, loss in enumerate(losses)]
+            return _global_mean(losses)
 
         val_epoch_fn.sampler = sampler
         return val_epoch_fn, data, S, n_used
@@ -678,11 +815,16 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             clock.begin()
             old_params, old_states = params, opt_states
             batches = _epoch_batches(seed, epoch_idx)
+            scales = None
+            if mesh is not None:
+                batches, scales = _local(batches)
             clock.mark()
-            step_seeds = dropout_step_seeds(seed, epoch_idx, S) if with_dropout else None
+            step_seeds = (dropout_step_seeds(seed, epoch_idx, S, data_index) if with_dropout
+                          else None)
             params, opt_states, losses = train_steps(model, specs, active, params, opt_states,
-                                                     batches, step_seeds, fused_tables)
-            loss = torch.stack(losses).mean()
+                                                     batches, step_seeds, fused_tables, mesh,
+                                                     scales)
+            loss = _global_mean(losses)
             if live is not None:
                 params = {k: v if v is old_params[k] else torch.where(live, v, old_params[k])
                           for k, v in params.items()}

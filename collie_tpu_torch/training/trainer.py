@@ -1,7 +1,7 @@
 """Training engine: the whole fit, or one epoch function call per epoch.
 
-Port of ``collie_tpu/training/trainer.py`` for single-device fits of
-implicit or explicit data.  ``CollieTrainer.fit`` has three tiers, chosen as
+Port of ``collie_tpu/training/trainer.py`` for fits of implicit or
+explicit data on one device or a mesh.  ``CollieTrainer.fit`` has three tiers, chosen as
 JAX chooses them (``:196-222``, ``:465-499``, ``:682-692``):
 
 * the whole fit (``_run_fit_scan``, the default): when the loaders are
@@ -74,8 +74,27 @@ dispatch, and the chunk tier around an epoch's chunk loop (none by
 default); ``chip_smoke.py`` sets one that turns every host sync inside
 them into an error.
 
-Not ported (ROADMAP.md): mesh training and its ``.shards`` checkpoints and
-multi-process fits.
+Mesh training (``mesh=``, a ``parallel.make_mesh`` mesh; JAX ``:64,
+84, 104-178, 313-365``): SPMD, every rank calling ``fit`` with the same
+arguments on the same data (checked by a fingerprint at fit start when
+there are several processes; ranks other than 0 print nothing).  The
+model's params are split by ``parallel.sharding.train_param_spec`` (tables
+read by id row-sharded over ``model``, the rest whole) and the optimizer
+states built on the shards (``init_sharded_opt_states``); all three tiers
+run on the mesh, the epochs through the generic epoch's mesh step
+(``scan_engine.build_scan_epoch_fns``) and the per-step path through
+``shard_batch_fn`` (a batch that does not divide ``data`` padded with
+mask-0 rows).  The whole fit checks at the end of each flight that every
+rank took the same decisions (losses, learning rates, the stop).  With a
+``checkpoint_dir`` a mesh fit writes ``checkpoint_epoch_<n>.shards``
+directories (``parallel.checkpoint``), which ``resume_from_checkpoint``
+takes, from either package, on any mesh or on one device.  The
+out-of-core chunk tier is off under a mesh, as in JAX: at world size 1 an
+HDF5 loader takes the per-step path, above it the fit raises JAX's
+multi-process message (JAX refuses every loader but the in-memory one
+across processes; here each rank reads the same loader and takes its rows,
+so the per-step path runs on any mesh).  After the fit the model holds its shards
+(``BasePipeline.load_shards``).
 """
 import contextlib
 import os
@@ -90,19 +109,20 @@ import torch
 
 from collie_tpu_torch.data import HDF5InteractionsDataLoader
 from collie_tpu_torch.training.optimizers import (get_lr, host_scalars, set_lr,
-                                                  state_from_leaves, state_leaves,
+                                                  state_from_leaves, state_from_tree,
+                                                  state_leaves, state_paths, state_tree,
                                                   whole_fit_states)
 from collie_tpu_torch.training.scan_engine import (build_hdf5_chunk_make, build_scan_epoch_fns,
                                                    build_scan_fit_fn, device_stamp,
                                                    fetch_to_host, hdf5_chunk_plan,
-                                                   loader_is_scannable, stamps_ms, train_step)
+                                                   loader_is_scannable, mesh_leaves, stamps_ms,
+                                                   train_step)
 from collie_tpu_torch.training.schedulers import (resolve_scheduler,
                                                   scheduler_absorb_device_state,
                                                   scheduler_device_config, scaled_lr)
 from collie_tpu_torch.weights import (device_leaf, host_leaf, optimizer_state_from_jax,
                                       read_checkpoint)
 
-_ROADMAP = 'not ported yet (ROADMAP Queue 1)'
 #: blocks of a whole fit dispatched between two host syncs
 _FLIGHT = 4
 #: the longest block of a whole fit
@@ -112,11 +132,17 @@ _MAX_BLOCK = 16
 flight_guard = contextlib.nullcontext
 
 
-def step_dropout_seed(seed: int, global_step: int) -> int:
+def step_dropout_seed(seed: int, global_step: int, data_index: int = 0) -> int:
     """The dropout seed of one per-step-path step, from ``(seed,
-    global_step)``."""
-    return int(np.random.SeedSequence([int(seed), int(global_step), 4]).generate_state(
-        1, dtype=np.uint64)[0])
+    global_step)``; a mesh's ``data`` rank ``data_index`` > 0 mixes its
+    index in (``scan_engine.dropout_step_seeds``)."""
+    entropy = [int(seed), int(global_step), 4] + ([int(data_index)] if data_index else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1, dtype=np.uint64)[0])
+
+
+def _leaf_key(path) -> Optional[str]:
+    """The innermost dict key on a checkpoint leaf's path."""
+    return next((entry for entry in reversed(path) if isinstance(entry, str)), None)
 
 
 def hdf5_epoch_extent(loader) -> Tuple[int, int]:
@@ -176,8 +202,6 @@ class CollieTrainer:
                  enable_model_summary: bool = True,
                  seed: Optional[int] = None):
         assert epoch_mode in ('auto', 'scan', 'step'), epoch_mode
-        if mesh is not None:
-            raise NotImplementedError(f'mesh training is {_ROADMAP}')
         self.max_epochs = max_epochs
         self.benchmark = benchmark
         self.deterministic = deterministic
@@ -198,6 +222,8 @@ class CollieTrainer:
         self.enable_model_summary = enable_model_summary
         self.exact_sampling_dedup_rounds = exact_sampling_dedup_rounds
         self._pending_resume: Optional[Dict[str, Any]] = None
+        #: under a mesh, the fit's ``train_param_spec`` of every param
+        self._specs: Optional[Dict[str, tuple]] = None
         #: training examples per second of the last ``fit``
         self.last_fit_examples_per_sec: Optional[float] = None
         #: per epoch of the last ``fit``: ``epoch``, ``seconds`` (validation
@@ -213,15 +239,35 @@ class CollieTrainer:
     # ---------------------------------------------------------- checkpoints
 
     def _write_checkpoint(self, params, opt_states, schedulers, epoch: int) -> None:
+        from collie_tpu_torch.parallel import distributed
+
         Path(self.checkpoint_dir).mkdir(parents=True, exist_ok=True)
-        payload = {
-            'params': {k: host_leaf(v) for k, v in params.items()},
-            'opt_states': tuple([host_leaf(leaf) for leaf in state_leaves(host_scalars(state))]
-                                for state in opt_states),
+        host_payload = {
             'schedulers': [None if s is None else dict(vars(s)) for s in schedulers],
             'epoch': epoch,
             'global_step': self.global_step,
             'best_epoch_loss': self.best_epoch_loss,
+        }
+        if self.mesh is not None or distributed.is_multiprocess():
+            # per-shard format (JAX ``:104-126``): each process writes only
+            # the shards it owns, so no full table is ever gathered
+            from collie_tpu_torch.parallel.checkpoint import save_sharded_pytree
+            path = Path(self.checkpoint_dir) / f'checkpoint_epoch_{epoch}.shards'
+            local = {k: tuple(v.shape) for k, v in params.items()}
+            save_sharded_pytree(
+                path, {'params': dict(params),
+                       'opt_states': tuple(state_tree(host_scalars(s)) for s in opt_states)},
+                host_payload, mesh=self.mesh,
+                specs=lambda leaf_path, leaf: self._leaf_spec(leaf_path, tuple(leaf.shape),
+                                                              local))
+            if self.verbosity > 1:
+                print(f'  checkpoint -> {path}')
+            return
+        payload = {
+            'params': {k: host_leaf(v) for k, v in params.items()},
+            'opt_states': tuple([host_leaf(leaf) for leaf in state_leaves(host_scalars(state))]
+                                for state in opt_states),
+            **host_payload,
         }
         path = Path(self.checkpoint_dir) / f'checkpoint_epoch_{epoch}.pkl'
         tmp = path.with_suffix('.tmp')
@@ -231,16 +277,44 @@ class CollieTrainer:
         if self.verbosity > 1:
             print(f'  checkpoint -> {path}')
 
+    def _leaf_spec(self, path, shape, shapes) -> tuple:
+        """The spec of a checkpoint leaf at ``path``: a param's, or a moment's
+        of the param whose dict key it sits under when it has that param's
+        ``shape`` in ``shapes`` (JAX's rule, ``make_sharded_init``), else
+        replicated."""
+        key = _leaf_key(path)
+        if self.mesh is None or key not in shapes or tuple(shape) != shapes[key]:
+            return ()
+        return self._specs[key]
+
     def resume_from_checkpoint(self, path) -> int:
         """Arm the next ``fit`` call to restore the full training state
         (parameters, optimizer moments and learning rates, scheduler and
         early-stopping state, epoch and step counters) from a checkpoint
-        written by either package.  Returns the checkpoint's epoch."""
-        if os.path.isdir(path):
-            raise NotImplementedError(
-                f'per-shard checkpoints of mesh fits are {_ROADMAP}')
+        written by either package: a ``checkpoint_epoch_<n>.pkl`` or a
+        per-shard ``.shards`` directory (read at ``fit`` time, each rank
+        reading its shards of the fit's layout, whatever mesh wrote it).
+        Returns the checkpoint's epoch."""
+        from collie_tpu_torch.parallel.checkpoint import is_sharded_checkpoint, read_meta
+
+        if is_sharded_checkpoint(path):
+            epoch = read_meta(path)['host_payload']['epoch']
+            self._pending_resume = {'sharded_path': str(path), 'epoch': epoch}
+            return epoch
         self._pending_resume = read_checkpoint(path)
         return self._pending_resume['epoch']
+
+    def _read_sharded(self, path, params) -> Dict[str, Any]:
+        """A ``.shards`` checkpoint as ``read_checkpoint``'s payload, every
+        array this rank's shard of the fit's layout."""
+        from collie_tpu_torch.parallel.checkpoint import load_sharded_pytree
+        from collie_tpu_torch.parallel.sharding import global_shape
+
+        shapes = {k: (global_shape(v.shape, self.mesh, self._specs[k]) if self.mesh is not None
+                      else tuple(v.shape)) for k, v in params.items()}
+        tree, host_payload = load_sharded_pytree(
+            path, lambda leaf_path, shape: self._leaf_spec(leaf_path, shape, shapes), self.mesh)
+        return {'params': tree['params'], 'opt_states': tree['opt_states'], **host_payload}
 
     def _restore(self, model, ckpt, opt_states, schedulers):
         """The state a checkpoint holds, on the model's device: ``(params,
@@ -253,6 +327,10 @@ class CollieTrainer:
         for saved, fresh in zip(ckpt['opt_states'], opt_states):
             if hasattr(saved, 'hyperparams'):      # an optax state of the JAX package
                 restored.append(optimizer_state_from_jax(saved, device))
+            elif isinstance(saved, dict):          # a .shards state of the port
+                tree = state_from_tree(fresh, saved)
+                restored.append(state_from_leaves(
+                    fresh, iter([device_leaf(leaf, device) for leaf in state_leaves(tree)])))
             else:
                 leaves = iter([device_leaf(leaf, device) for leaf in saved])
                 restored.append(state_from_leaves(fresh, leaves))
@@ -269,11 +347,77 @@ class CollieTrainer:
 
     # ------------------------------------------------------------------- fit
 
+    def _check_mesh(self, model) -> None:
+        """The multi-process preamble (JAX ``:159-178``): a mesh spanning the
+        processes, narration from rank 0 only, and the same data on every
+        rank; and the model on the mesh's device."""
+        from collie_tpu_torch.parallel import distributed
+
+        if distributed.is_multiprocess():
+            if self.mesh is None:
+                raise ValueError(
+                    'multi-process training requires a mesh spanning all '
+                    'processes (collie_tpu_torch.parallel.make_mesh()).')
+            if distributed.process_index() != 0:
+                self.verbosity = 0
+            for tag, loader in (('train data', model.train_loader),
+                                ('val data', model.val_loader)):
+                if loader is None:
+                    continue
+                try:
+                    mat = loader.interactions.mat.tocoo()
+                except (AttributeError, NotImplementedError):
+                    continue    # out-of-core loaders are refused below
+                distributed.assert_same_across_processes(tag, mat.row, mat.col, mat.data)
+        if self.mesh is not None:
+            from collie_tpu_torch.parallel.mesh import mesh_device
+
+            device = mesh_device(self.mesh)
+            if model.device.type != device.type or (
+                    device.index is not None and model.device.index != device.index):
+                raise ValueError(f'the model is on {model.device}, this rank of the mesh on '
+                                 f'{device}: build the model after make_mesh, on its device')
+
+    def _fit_params(self, model) -> Dict[str, torch.Tensor]:
+        """The params the fit starts from: the whole tables without a mesh;
+        under one this rank's shards by ``train_param_spec`` (``self._specs``),
+        taken as the model holds them when it holds exactly those."""
+        if self.mesh is None:
+            self._specs = None
+            return dict(model.whole_params())
+        from collie_tpu_torch.parallel.distributed import put_global
+        from collie_tpu_torch.parallel.sharding import train_param_shardings
+
+        self._specs = train_param_shardings(model.global_shapes(), self.mesh, model.hparams)
+        layout = model.param_layout()
+        if layout is not None and layout[0] is self.mesh and layout[1] == self._specs:
+            return dict(model.params)
+        return {k: put_global(v, self.mesh, self._specs[k])
+                for k, v in model.whole_params().items()}
+
+    def _shard_restored(self, params, opt_states, whole_shapes):
+        """A whole-table checkpoint's state split to this rank's shards."""
+        from collie_tpu_torch.parallel.distributed import put_global
+
+        params = {k: put_global(v, self.mesh, self._specs[k]) for k, v in params.items()}
+        states = []
+        for state in opt_states:
+            leaves = [put_global(leaf, self.mesh, self._leaf_spec(path, tuple(leaf.shape),
+                                                                  whole_shapes))
+                      if torch.is_tensor(leaf) and leaf.dim() else leaf
+                      for path, leaf in state_paths(state)]
+            states.append(state_from_leaves(state, iter(leaves)))
+        return params, tuple(states)
+
     def fit(self, model) -> None:
+        from collie_tpu_torch.parallel import distributed
+
+        self._check_mesh(model)
         specs = model.optimizer_specs()
         stage = model.current_stage
         active = [spec.stage is None or spec.stage == stage for spec in specs]
-        params = dict(model.params)
+        shapes = model.global_shapes()
+        params = self._fit_params(model)
 
         use_scan_train = (self.epoch_mode != 'step'
                           and loader_is_scannable(model.train_loader))
@@ -282,14 +426,26 @@ class CollieTrainer:
         # the out-of-core chunk tier; COLLIE_TPU_HDF5_CHUNK_STEPS=0 sends an
         # HDF5 loader down the per-step path
         hdf5_chunk_steps = int(os.environ.get('COLLIE_TPU_HDF5_CHUNK_STEPS', '64'))
+        # the chunk tier is off under a mesh (JAX ``:205-209``)
         use_hdf5_train = (not use_scan_train and self.epoch_mode != 'step'
-                          and hdf5_chunk_steps > 0
+                          and self.mesh is None and hdf5_chunk_steps > 0
                           and isinstance(model.train_loader, HDF5InteractionsDataLoader))
         if self.epoch_mode == 'scan' and not use_scan_train:
             raise ValueError(
                 'epoch_mode="scan" requires an in-memory InteractionsDataLoader '
                 '(HDF5/out-of-core and custom loaders must use the per-step path).'
             )
+        # JAX refuses every loader but the in-memory one across processes
+        # (``:215-221``), its per-step path being single-host; the port's
+        # ranks each read the same loader and take their rows, so only the
+        # out-of-core loaders, which stream one store, are refused
+        if distributed.is_multiprocess() and any(
+                isinstance(loader, HDF5InteractionsDataLoader)
+                for loader in (model.train_loader, model.val_loader)):
+            raise ValueError(
+                'multi-process training supports in-memory '
+                'InteractionsDataLoaders only (the whole-epoch scan path); '
+                'HDF5/out-of-core loaders are single-process.')
         self._device_put_loss_metadata(model)
 
         train_fn = train_data = val_fn = val_data = None
@@ -297,11 +453,12 @@ class CollieTrainer:
         if use_scan_train:
             train_fn, train_data, _, train_examples = build_scan_epoch_fns(
                 model, specs, active, model.train_loader,
-                shuffle=getattr(model.train_loader, 'shuffle', True), training=True,
-                dedup_rounds=self.exact_sampling_dedup_rounds)
+                shuffle=getattr(model.train_loader, 'shuffle', True), mesh=self.mesh,
+                training=True, dedup_rounds=self.exact_sampling_dedup_rounds)
         if use_scan_val:
             val_fn, val_data, _, _ = build_scan_epoch_fns(
-                model, specs, active, model.val_loader, shuffle=False, training=False)
+                model, specs, active, model.val_loader, shuffle=False, mesh=self.mesh,
+                training=False)
         hdf5 = None
         if use_hdf5_train:
             hdf5 = {'make': build_hdf5_chunk_make(
@@ -312,15 +469,21 @@ class CollieTrainer:
         if (not use_scan_train and not use_hdf5_train) \
                 or (model.val_loader is not None and not use_scan_val):
             steps = self._build_steps(model, specs, active)
-        self._pre_fit_report(model, params, specs, active, train_fn, hdf5 is not None)
+        self._pre_fit_report(model, shapes, specs, active, train_fn, hdf5 is not None)
 
-        # optimizer state resets each fit (reference semantics)
-        opt_states = tuple(spec.transform.init({k: params[k] for k in spec.keys})
-                           for spec in specs)
+        # optimizer state resets each fit (reference semantics); under a
+        # mesh the moments sit beside their params' shards
+        from collie_tpu_torch.parallel.sharding import init_sharded_opt_states
+        opt_states = init_sharded_opt_states(specs, params, self.mesh)
         schedulers = [resolve_scheduler(model.lr_scheduler_func) for _ in specs]
         if self._pending_resume is not None:
             ckpt, self._pending_resume = self._pending_resume, None
+            whole = 'sharded_path' not in ckpt
+            if not whole:
+                ckpt = self._read_sharded(ckpt['sharded_path'], params)
             params, opt_states, schedulers = self._restore(model, ckpt, opt_states, schedulers)
+            if whole and self.mesh is not None:
+                params, opt_states = self._shard_restored(params, opt_states, shapes)
         start_epoch = model.hparams.get('num_epochs_completed', 0) + 1
         whole_fit = self._whole_fit_eligible(use_scan_train, use_scan_val,
                                              model.val_loader is not None, schedulers,
@@ -335,13 +498,17 @@ class CollieTrainer:
                              val_fn=val_fn, val_data=val_data, state=state, steps=steps,
                              hdf5=hdf5, whole_fit=whole_fit)
         finally:
-            # the model holds the latest tables even when an epoch raises
-            model.load_params(state['params'])
+            # the model holds the latest tables (its shards under a mesh)
+            # even when an epoch raises
+            if self.mesh is not None:
+                model.load_shards(state['params'], self.mesh, self._specs)
+            else:
+                model.load_params(state['params'])
         fit_secs = time.perf_counter() - fit_start
         self.last_fit_examples_per_sec = (state['total_examples'] / fit_secs
                                           if fit_secs > 0 else None)
 
-    def _pre_fit_report(self, model, params, specs, active, train_fn=None,
+    def _pre_fit_report(self, model, shapes, specs, active, train_fn=None,
                         hdf5: bool = False) -> None:
         """Model summary (name, shape, dtype, count, train/frozen), the
         training route (the epoch path; for implicit data the form of
@@ -354,11 +521,12 @@ class CollieTrainer:
                 if is_active:
                     trainable.update(spec.keys)
             rows = []
-            for name in sorted(params):
-                value = params[name]
-                n = int(np.prod(tuple(value.shape))) if value.dim() else 1
-                rows.append((name, str(tuple(value.shape)), str(value.dtype).replace('torch.', ''),
-                             n, 'train' if name in trainable else 'frozen'))
+            dtypes = {name: value.dtype for name, value in model.params.items()}
+            for name in sorted(shapes):
+                shape = tuple(shapes[name])
+                rows.append((name, str(shape), str(dtypes[name]).replace('torch.', ''),
+                             int(np.prod(shape)) if shape else 1,
+                             'train' if name in trainable else 'frozen'))
             name_w = max([len(r[0]) for r in rows] + [4])
             shape_w = max([len(r[1]) for r in rows] + [5])
             print(f'  | {"Name":<{name_w}} | {"Shape":<{shape_w}} | '
@@ -479,6 +647,14 @@ class CollieTrainer:
                 ran.append(next(host))
             es_h = [next(host) for _ in es_state]
             sched_h = [tuple(next(host) for _ in st) for st in sched_state]
+            if self.mesh is not None:
+                # every rank decided from the same global losses: check it
+                from collie_tpu_torch.parallel.distributed import assert_same_across_processes
+                assert_same_across_processes(
+                    'the whole fit\'s losses, learning rates and stop',
+                    *tl[-len(pending):], *vl[-len(pending):],
+                    *[a for per in lrs for a in per[-len(pending):]], *ran[-len(pending):],
+                    *es_h)
             seconds = [ms / 1e3 for ms in stamps_ms(marks)]
             splits = train_fn.split_ms(epochs=len(seconds))
             log += [{'seconds': sec, **split} for sec, split in zip(seconds, splits)]
@@ -582,7 +758,7 @@ class CollieTrainer:
                     val_loss = float(val_fn(params, val_data, self.seed, epoch))
                 else:
                     val_losses = [steps[1](params, batch) for batch in model.val_loader]
-                    val_loss = float(torch.stack(val_losses).mean())
+                    val_loss = float(self._data_mean(val_losses))
 
             model.hparams['num_epochs_completed'] = epoch
             self.num_epochs_completed = epoch
@@ -688,10 +864,24 @@ class CollieTrainer:
             losses.append(loss)
             total_examples += n_real
             self.global_step += 1
-            if self.logger is not None and self.global_step % self.log_every_n_steps == 0:
-                self.logger.log_metrics({'train_loss_step': float(loss)},
-                                        step=self.global_step)
-        return params, opt_states, float(torch.stack(losses).mean()), total_examples
+            if self.global_step % self.log_every_n_steps == 0 \
+                    and (self.logger is not None or self.mesh is not None):
+                loss = self._data_mean([loss])     # a collective: every rank takes it
+                if self.logger is not None:
+                    self.logger.log_metrics({'train_loss_step': float(loss)},
+                                            step=self.global_step)
+        return params, opt_states, float(self._data_mean(losses)), total_examples
+
+    def _data_mean(self, losses) -> torch.Tensor:
+        """The mean of per-step losses; under a mesh each is a ``data``
+        slice's share, summed over ``data`` first (one all-reduce)."""
+        from collie_tpu_torch.parallel import distributed
+
+        losses = torch.stack(losses)
+        if self.mesh is not None:
+            from collie_tpu_torch.parallel.mesh import DATA_AXIS
+            losses = distributed.all_reduce_sum(losses, self.mesh, DATA_AXIS)
+        return losses.mean()
 
     @staticmethod
     def _device_put_loss_metadata(model) -> None:
@@ -702,25 +892,50 @@ class CollieTrainer:
     def _build_steps(self, model, specs, active):
         """``(train, val)`` of the per-step path: ``train(params,
         opt_states, batch, global_step) -> (params, opt_states, loss)`` and
-        ``val(params, batch) -> loss`` over a numpy batch dict."""
+        ``val(params, batch) -> loss`` over a numpy batch dict.  Under a mesh
+        each rank takes its ``data`` slice of the batch (``shard_batch_fn``)
+        and the loss is the slice's share of the batch's (``_data_mean``
+        sums the shares)."""
         device = model.device
         with_dropout = not model._score_is_deterministic()
         seed = self.seed
+        mesh = self.mesh
+        data_index = 0
+        if mesh is not None:
+            from collie_tpu_torch.parallel.mesh import DATA_AXIS, axis_index
+            from collie_tpu_torch.parallel.sharding import data_slice, shard_batch_fn
+
+            shard = shard_batch_fn(mesh)
+            data_index = axis_index(mesh, DATA_AXIS)
 
         def to_device(batch):
-            return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
+            """The step's tensors and its loss scale (1 without a mesh)."""
+            if mesh is None:
+                return {k: torch.as_tensor(np.asarray(v), device=device)
+                        for k, v in batch.items()}, None
+            rows = len(next(iter(batch.values())))
+            mask = (np.asarray(batch['mask'], np.float32) if 'mask' in batch
+                    else np.ones(rows, np.float32))
+            row0, local_rows = data_slice(rows, mesh)
+            mine = float(mask[row0:row0 + local_rows].sum())    # pad rows count 0
+            return shard(batch), max(mine, 1.0) / max(float(mask.sum()), 1.0)
 
         def train(params, opt_states, batch, global_step):
             generator = None
             if with_dropout:
                 generator = torch.Generator(device=device)
-                generator.manual_seed(step_dropout_seed(seed, global_step))
-            return train_step(model, specs, active, params, opt_states, to_device(batch),
-                              generator)
+                generator.manual_seed(step_dropout_seed(seed, global_step, data_index))
+            batch, scale = to_device(batch)
+            return train_step(model, specs, active, params, opt_states, batch, generator,
+                              mesh=mesh, loss_scale=scale)
 
         def val(params, batch):
+            batch, scale = to_device(batch)
             with torch.no_grad():
-                return model.calculate_loss(params, to_device(batch), training=False)
+                if mesh is None:
+                    return model.calculate_loss(params, batch, training=False)
+                return model.calculate_loss(mesh_leaves(model, mesh, params), batch,
+                                            training=False) * scale
 
         return train, val
 

@@ -19,7 +19,8 @@ strings, to stand-ins here (optax's state named tuples, numpy's array
 reconstruction, ``ml_dtypes.bfloat16``) or to the port's schedulers, and
 refuses every other global with ``pickle.UnpicklingError``.  So a
 checkpoint of the JAX package loads with neither JAX, optax nor
-``collie_tpu`` installed.  bfloat16 arrays come back as their bit pattern,
+``collie_tpu`` installed.  ``read_pickle`` is that unpickler for other
+files of either package (``parallel.checkpoint``'s ``meta.pkl``).  bfloat16 arrays come back as their bit pattern,
 ``{BF16_BITS: uint16 array}``, which is also how the port writes them
 (``host_leaf``); ``device_leaf`` turns either back into a tensor.
 """
@@ -181,12 +182,24 @@ _CHECKPOINT_GLOBALS = {
 
 
 class _CheckpointUnpickler(pickle.Unpickler):
+    def __init__(self, file, extra_globals: Optional[Dict] = None):
+        super().__init__(file)
+        self.globals = {**_CHECKPOINT_GLOBALS, **(extra_globals or {})}
+
     def find_class(self, module, name):
         try:
-            return _CHECKPOINT_GLOBALS[(module, name)]
+            return self.globals[(module, name)]
         except KeyError:
             raise pickle.UnpicklingError(
                 f'a checkpoint may not name the global {module}.{name}') from None
+
+
+def read_pickle(file, extra_globals: Optional[Dict] = None) -> Any:
+    """A pickle of either package's checkpoints from the open ``file``,
+    through the unpickler of ``read_checkpoint`` (the globals it maps, plus
+    ``extra_globals``: ``{(module, name): stand-in}``), every array on the
+    host."""
+    return _materialize(_CheckpointUnpickler(file, extra_globals).load())
 
 
 def _materialize(tree: Any) -> Any:
@@ -211,4 +224,4 @@ def read_checkpoint(path) -> Dict[str, Any]:
     this module (``optimizer_state_from_jax`` turns each into an
     ``OptState``)."""
     with open(path, 'rb') as f:
-        return _materialize(_CheckpointUnpickler(f).load())
+        return read_pickle(f)

@@ -197,12 +197,12 @@ PERIPHERY_SLICE = ['movielens/__init__.py', 'movielens/get_data.py', 'movielens/
                    'config.py']
 PARALLEL_SLICE = ['parallel/__init__.py', 'parallel/mesh.py', 'parallel/distributed.py',
                   'parallel/sharding.py', 'parallel/embedding.py', 'retrieval.py',
-                  'evaluate.py']
+                  'evaluate.py', 'parallel/checkpoint.py']
 
 
 @pytest.mark.parametrize('module', PERIPHERY_SLICE + PARALLEL_SLICE)
 def test_periphery_and_parallel_modules_are_checked(module):
-    """The periphery's and the parallel serving tier's modules are among the
+    """The periphery's and the parallel tier's modules are among the
     files the import rule covers and among the modules imported with JAX
     and collie_tpu blocked (numpy-only ones such as ``movielens/get_data``
     included: the port keeps its own copies)."""

@@ -255,15 +255,24 @@ def test_nan_params_trip_a_real_fit(data_pair):
 
 
 def test_unported_paths_raise_not_implemented(data_pair, tmp_path):
-    """Mesh training and the ``.shards`` checkpoints of mesh fits still
-    raise with the ROADMAP pointer; the paths the trainer slice ported
-    (checkpoints, resume, the per-step path, ``CollieMinimalTrainer``) and
-    embedding dropout run."""
+    """Nothing of the trainer raises ``NotImplementedError`` any more: a
+    trainer with a mesh constructs, and a ``.shards`` checkpoint arms a
+    resume (mesh training and its checkpoints are held in
+    ``test_torch_parallel_training.py`` and
+    ``test_torch_sharded_checkpoint.py``); the paths the trainer slice
+    ported (checkpoints, resume, the per-step path,
+    ``CollieMinimalTrainer``) and embedding dropout run."""
+    from collie_tpu_torch.parallel.checkpoint import save_sharded_pytree
+
     _, (train, _) = data_pair
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        CollieTrainer(max_epochs=1, mesh=object())
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        CollieTrainer(max_epochs=1).resume_from_checkpoint(tmp_path)
+    mesh = object()
+    assert CollieTrainer(max_epochs=1, mesh=mesh).mesh is mesh
+    shards = tmp_path / 'checkpoint_epoch_2.shards'
+    save_sharded_pytree(shards, {'params': {'item_biases': torch.zeros(4)}, 'opt_states': ()},
+                        {'epoch': 2})
+    armed = CollieTrainer(max_epochs=1)
+    assert armed.resume_from_checkpoint(shards) == 2
+    assert armed._pending_resume == {'sharded_path': str(shards), 'epoch': 2}
     model = MatrixFactorizationModel(train=train, embedding_dim=8, seed=0, map_location='cpu',
                                      dropout_p=0.5)
     CollieTrainer(model, max_epochs=1, verbosity=0).fit(model)
