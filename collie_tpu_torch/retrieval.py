@@ -33,6 +33,7 @@ import torch
 from collie_tpu_torch.ops.device_sampling import csr_keys, keys_contain
 from collie_tpu_torch.ops.kernels.retrieval_kernel import MAX_K, NEG_INF, \
     mf_topk_retrieve, stable_topk
+from collie_tpu_torch.training.profiler import annotate
 
 
 def _require_seen(filter_seen: bool, seen) -> None:
@@ -257,13 +258,14 @@ def _build_sharded_retrieval(model, k: int, item_tile: int, filter_seen: bool, m
 def _seen_arrays(model) -> Tuple[torch.Tensor, torch.Tensor]:
     """Current train(+val) interactions as sorted-CSR tensors on the model's
     device."""
-    seen_csr = model.train_loader.mat.tocsr()
-    if model.val_loader is not None:
-        seen_csr = seen_csr + model.val_loader.mat.tocsr()
-    seen_csr = seen_csr.tocsr()
-    seen_csr.sort_indices()
-    return (torch.as_tensor(seen_csr.indptr.astype(np.int64), device=model.device),
-            torch.as_tensor(seen_csr.indices.astype(np.int64), device=model.device))
+    with annotate('collie.recommend.seen'):
+        seen_csr = model.train_loader.mat.tocsr()
+        if model.val_loader is not None:
+            seen_csr = seen_csr + model.val_loader.mat.tocsr()
+        seen_csr = seen_csr.tocsr()
+        seen_csr.sort_indices()
+        return (torch.as_tensor(seen_csr.indptr.astype(np.int64), device=model.device),
+                torch.as_tensor(seen_csr.indices.astype(np.int64), device=model.device))
 
 
 def recommend(model,
@@ -284,16 +286,20 @@ def recommend(model,
     (``BasePipeline.param_layout``) is served on them in the local-table
     tier of its mesh, and gathered whole for every other path.
     """
-    num_items = model.hparams['num_items']
-    if k > num_items:
-        raise ValueError(
-            f'``k`` ({k}) must not exceed the number of items ({num_items})'
-        )
-    seen = _seen_arrays(model) if filter_seen else None
-    retrieve = build_retrieval_fn(model, k=k, item_tile=item_tile,
-                                  filter_seen=filter_seen, mesh=mesh)
-    params = (model.params if getattr(retrieve, 'takes_shards', False)
-              else model.whole_params())
-    top_ids, top_scores = retrieve(params, model._ids(user_ids), seen)
-    return (top_ids.cpu().numpy().astype(np.int32, copy=False),
-            top_scores.cpu().numpy())
+    with annotate('collie.recommend'):
+        with annotate('collie.recommend.prepare'):
+            num_items = model.hparams['num_items']
+            if k > num_items:
+                raise ValueError(
+                    f'``k`` ({k}) must not exceed the number of items ({num_items})'
+                )
+            seen = _seen_arrays(model) if filter_seen else None
+            retrieve = build_retrieval_fn(model, k=k, item_tile=item_tile,
+                                          filter_seen=filter_seen, mesh=mesh)
+            params = (model.params if getattr(retrieve, 'takes_shards', False)
+                      else model.whole_params())
+            users = model._ids(user_ids)
+        top_ids, top_scores = retrieve(params, users, seen)
+        with annotate('collie.sync'):
+            return (top_ids.cpu().numpy().astype(np.int32, copy=False),
+                    top_scores.cpu().numpy())

@@ -10,7 +10,15 @@ it:
   a Chrome trace (``chrome://tracing``, Perfetto) of the region into
   ``logdir``;
 * ``annotate(name)``: names a host region so it shows up in the trace
-  (``torch.profiler.record_function``);
+  (``torch.profiler.record_function``); outside a trace it returns a
+  shared ``nullcontext`` and costs one check.  The port names its own
+  stages with it: ``collie.fit`` and, inside it, ``collie.fit.setup``
+  (``collie.fit.epoch_tables`` > ``collie.fit.sampler_tables``,
+  ``collie.fit.opt_states``), ``collie.fit.epochs`` and
+  ``collie.fit.finish``; ``collie.recommend`` > ``collie.recommend.prepare``
+  (> ``collie.recommend.seen``); and ``collie.sync`` around each deliberate
+  host wait on the card (a flight's transfer, a CUDA-event read, a loss
+  read back, a recommendation's copy to the host);
 * ``device_memory_stats()``: the CUDA caching allocator's statistics;
 * ``EpochTimer``: per-epoch wall-clock and loss collector usable as a
   trainer logger.
@@ -43,8 +51,15 @@ def trace(logdir: str, create_perfetto_link: bool = False):
     prof.export_chrome_trace(os.path.join(logdir, f'trace_{os.getpid()}_{time.time_ns()}.json'))
 
 
+#: the context ``annotate`` returns while no profiler runs
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Name a host region inside an active trace."""
+    """Name a host region inside an active trace; while no profiler runs,
+    a shared no-op context that never enters the dispatcher."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
     return record_function(name)
 
 

@@ -129,6 +129,7 @@ from collie_tpu_torch.ops.kernels.fused_mf_epoch import (MAX_DIM, _lr_value, fus
                                                          fused_mf_explicit_epoch)
 from collie_tpu_torch.ops.shuffle import draw_feistel_keys, feistel_permutation_from_keys
 from collie_tpu_torch.training.optimizers import state_from_leaves, state_leaves, with_lr
+from collie_tpu_torch.training.profiler import annotate
 from collie_tpu_torch.training.schedulers import scheduler_device_step
 
 #: the default sampler table budget (``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB``)
@@ -437,7 +438,8 @@ def stamps_ms(marks: Sequence[Any]) -> List[float]:
     """Milliseconds between consecutive ``device_stamp`` marks (reading CUDA
     events waits for the last one)."""
     if marks and not isinstance(marks[0], float):
-        marks[-1].synchronize()
+        with annotate('collie.sync'):
+            marks[-1].synchronize()
         return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
 
@@ -542,41 +544,43 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         data['ratings'] = put(inter.mat.data.astype(np.float32))
     N_g = 0
     sampler = select_sampler(inter.mat) if exact else None
-    if sampler == 'bucketed':
-        specs_np, counts_np, users_g_np, pos_of_np = build_bucketed_complement_tables(
-            inter.mat, inter.mat.row)
-        data['bucket_specs'] = tuple((put(r), put(t)) for r, t in specs_np)
-        data['row_counts'] = put(counts_np)
-        data['users_g'] = put(users_g_np)
-        N_g = len(users_g_np)
-        drop_last = getattr(loader, 'drop_last', False)
-        if packable and shuffle and not drop_last and N_g >= 2 and (N_g - n) <= 0.02 * n \
-                and slot_epoch:
-            # slot-domain epoch: ids and a validity bit at grouped-slot
-            # positions (bucket-pad slots -> mask 0), one row gather per
-            # epoch.  Its steps cover every slot, so a loader that drops
-            # its last partial batch takes the reorder path, which truncates
-            # the epoch to whole batches
-            packed_slots = np.zeros(N_g, np.int32)
-            packed_slots[pos_of_np] = packed_np
-            slot_mask = np.zeros(N_g, np.int32)
-            slot_mask[pos_of_np] = 1
-            data['packed_slots'] = put(packed_slots)
-            data['slot_mask'] = put(slot_mask)
-            del data['packed'], data['mask_flat']
-            S = -(-N_g // B)
-            slot_tail = S * B - N_g
-        else:
-            data['pos_of'] = put(pos_of_np)
-    elif sampler == 'padded':
-        pad_np, counts_np = build_padded_complement_table(inter.mat)
-        data['shifted_pad'] = put(pad_np)
-        data['row_counts'] = put(counts_np)
-    elif sampler == 'csr':
-        indptr_np, shifted_np = build_complement_tables(inter.mat)
-        data['indptr'] = put(indptr_np)
-        data['shifted_cols'] = put(shifted_np)
-        data['csr_keys'] = csr_keys(data['indptr'], data['shifted_cols'])
+    # the complement tables of the sampler, built on the host and uploaded
+    with annotate('collie.fit.sampler_tables'):
+        if sampler == 'bucketed':
+            specs_np, counts_np, users_g_np, pos_of_np = build_bucketed_complement_tables(
+                inter.mat, inter.mat.row)
+            data['bucket_specs'] = tuple((put(r), put(t)) for r, t in specs_np)
+            data['row_counts'] = put(counts_np)
+            data['users_g'] = put(users_g_np)
+            N_g = len(users_g_np)
+            drop_last = getattr(loader, 'drop_last', False)
+            if packable and shuffle and not drop_last and N_g >= 2 and (N_g - n) <= 0.02 * n \
+                    and slot_epoch:
+                # slot-domain epoch: ids and a validity bit at grouped-slot
+                # positions (bucket-pad slots -> mask 0), one row gather per
+                # epoch.  Its steps cover every slot, so a loader that drops
+                # its last partial batch takes the reorder path, which truncates
+                # the epoch to whole batches
+                packed_slots = np.zeros(N_g, np.int32)
+                packed_slots[pos_of_np] = packed_np
+                slot_mask = np.zeros(N_g, np.int32)
+                slot_mask[pos_of_np] = 1
+                data['packed_slots'] = put(packed_slots)
+                data['slot_mask'] = put(slot_mask)
+                del data['packed'], data['mask_flat']
+                S = -(-N_g // B)
+                slot_tail = S * B - N_g
+            else:
+                data['pos_of'] = put(pos_of_np)
+        elif sampler == 'padded':
+            pad_np, counts_np = build_padded_complement_table(inter.mat)
+            data['shifted_pad'] = put(pad_np)
+            data['row_counts'] = put(counts_np)
+        elif sampler == 'csr':
+            indptr_np, shifted_np = build_complement_tables(inter.mat)
+            data['indptr'] = put(indptr_np)
+            data['shifted_cols'] = put(shifted_np)
+            data['csr_keys'] = csr_keys(data['indptr'], data['shifted_cols'])
     W = K + SPARES_PER_ROUND * dedup_rounds
     clock = _EpochClock(device)
     data_index = 0
@@ -1038,7 +1042,8 @@ def fetch_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
         if t.dtype == torch.bool:
             t = t.to(torch.int32)
         words.append(t.view(torch.float32) if t.dtype == torch.int32 else t.to(torch.float32))
-    host = torch.cat(words).cpu().numpy() if words else np.zeros(0, np.float32)
+    with annotate('collie.sync'):
+        host = torch.cat(words).cpu().numpy() if words else np.zeros(0, np.float32)
     out, offset = [], 0
     for t in tensors:
         chunk = host[offset:offset + t.numel()]

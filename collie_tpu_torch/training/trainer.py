@@ -112,6 +112,7 @@ from collie_tpu_torch.training.optimizers import (get_lr, host_scalars, set_lr,
                                                   state_from_leaves, state_from_tree,
                                                   state_leaves, state_paths, state_tree,
                                                   whole_fit_states)
+from collie_tpu_torch.training.profiler import annotate
 from collie_tpu_torch.training.scan_engine import (build_hdf5_chunk_make, build_scan_epoch_fns,
                                                    build_scan_fit_fn, device_stamp,
                                                    fetch_to_host, hdf5_chunk_plan,
@@ -410,6 +411,34 @@ class CollieTrainer:
         return params, tuple(states)
 
     def fit(self, model) -> None:
+        with annotate('collie.fit'):
+            with annotate('collie.fit.setup'):
+                run = self._fit_setup(model)
+            state = run['state']
+            fit_start = time.perf_counter()
+            # the finish span opens in the ``finally`` and closes after the
+            # bookkeeping below it
+            with contextlib.ExitStack() as finish:
+                try:
+                    with annotate('collie.fit.epochs'):
+                        self._run_epochs(model=model, **run)
+                finally:
+                    finish.enter_context(annotate('collie.fit.finish'))
+                    # the model holds the latest tables (its shards under a
+                    # mesh) even when an epoch raises
+                    if self.mesh is not None:
+                        model.load_shards(state['params'], self.mesh, self._specs)
+                    else:
+                        model.load_params(state['params'])
+                fit_secs = time.perf_counter() - fit_start
+                self.last_fit_examples_per_sec = (state['total_examples'] / fit_secs
+                                                  if fit_secs > 0 else None)
+
+    def _fit_setup(self, model) -> Dict[str, Any]:
+        """Everything a fit does before its epochs: the mesh checks, the
+        params, the epoch tables or step functions, the report, the optimizer
+        and scheduler states (restored from a pending resume).  Returns
+        ``_run_epochs``' arguments but the model."""
         from collie_tpu_torch.parallel import distributed
 
         self._check_mesh(model)
@@ -451,20 +480,23 @@ class CollieTrainer:
         train_fn = train_data = val_fn = val_data = None
         train_examples = 0
         if use_scan_train:
-            train_fn, train_data, _, train_examples = build_scan_epoch_fns(
-                model, specs, active, model.train_loader,
-                shuffle=getattr(model.train_loader, 'shuffle', True), mesh=self.mesh,
-                training=True, dedup_rounds=self.exact_sampling_dedup_rounds)
+            with annotate('collie.fit.epoch_tables'):
+                train_fn, train_data, _, train_examples = build_scan_epoch_fns(
+                    model, specs, active, model.train_loader,
+                    shuffle=getattr(model.train_loader, 'shuffle', True), mesh=self.mesh,
+                    training=True, dedup_rounds=self.exact_sampling_dedup_rounds)
         if use_scan_val:
-            val_fn, val_data, _, _ = build_scan_epoch_fns(
-                model, specs, active, model.val_loader, shuffle=False, mesh=self.mesh,
-                training=False)
+            with annotate('collie.fit.epoch_tables'):
+                val_fn, val_data, _, _ = build_scan_epoch_fns(
+                    model, specs, active, model.val_loader, shuffle=False, mesh=self.mesh,
+                    training=False)
         hdf5 = None
         if use_hdf5_train:
-            hdf5 = {'make': build_hdf5_chunk_make(
-                        model, specs, active, model.train_loader,
-                        shuffle=getattr(model.train_loader, 'shuffle', False)),
-                    'fns': {}, 'chunk_steps': hdf5_chunk_steps}
+            with annotate('collie.fit.epoch_tables'):
+                hdf5 = {'make': build_hdf5_chunk_make(
+                            model, specs, active, model.train_loader,
+                            shuffle=getattr(model.train_loader, 'shuffle', False)),
+                        'fns': {}, 'chunk_steps': hdf5_chunk_steps}
         steps = None
         if (not use_scan_train and not use_hdf5_train) \
                 or (model.val_loader is not None and not use_scan_val):
@@ -474,39 +506,28 @@ class CollieTrainer:
         # optimizer state resets each fit (reference semantics); under a
         # mesh the moments sit beside their params' shards
         from collie_tpu_torch.parallel.sharding import init_sharded_opt_states
-        opt_states = init_sharded_opt_states(specs, params, self.mesh)
-        schedulers = [resolve_scheduler(model.lr_scheduler_func) for _ in specs]
-        if self._pending_resume is not None:
-            ckpt, self._pending_resume = self._pending_resume, None
-            whole = 'sharded_path' not in ckpt
-            if not whole:
-                ckpt = self._read_sharded(ckpt['sharded_path'], params)
-            params, opt_states, schedulers = self._restore(model, ckpt, opt_states, schedulers)
-            if whole and self.mesh is not None:
-                params, opt_states = self._shard_restored(params, opt_states, shapes)
+        with annotate('collie.fit.opt_states'):
+            opt_states = init_sharded_opt_states(specs, params, self.mesh)
+            schedulers = [resolve_scheduler(model.lr_scheduler_func) for _ in specs]
+            if self._pending_resume is not None:
+                ckpt, self._pending_resume = self._pending_resume, None
+                whole = 'sharded_path' not in ckpt
+                if not whole:
+                    ckpt = self._read_sharded(ckpt['sharded_path'], params)
+                params, opt_states, schedulers = self._restore(model, ckpt, opt_states,
+                                                               schedulers)
+                if whole and self.mesh is not None:
+                    params, opt_states = self._shard_restored(params, opt_states, shapes)
         start_epoch = model.hparams.get('num_epochs_completed', 0) + 1
         whole_fit = self._whole_fit_eligible(use_scan_train, use_scan_val,
                                              model.val_loader is not None, schedulers,
                                              opt_states)
         self.epoch_log = []
-        state = {'params': params, 'opt_states': opt_states, 'total_examples': 0}
-        fit_start = time.perf_counter()
-        try:
-            self._run_epochs(model=model, specs=specs, schedulers=schedulers,
-                             start_epoch=start_epoch, train_fn=train_fn,
-                             train_data=train_data, train_examples=train_examples,
-                             val_fn=val_fn, val_data=val_data, state=state, steps=steps,
-                             hdf5=hdf5, whole_fit=whole_fit)
-        finally:
-            # the model holds the latest tables (its shards under a mesh)
-            # even when an epoch raises
-            if self.mesh is not None:
-                model.load_shards(state['params'], self.mesh, self._specs)
-            else:
-                model.load_params(state['params'])
-        fit_secs = time.perf_counter() - fit_start
-        self.last_fit_examples_per_sec = (state['total_examples'] / fit_secs
-                                          if fit_secs > 0 else None)
+        return dict(specs=specs, schedulers=schedulers, start_epoch=start_epoch,
+                    train_fn=train_fn, train_data=train_data, train_examples=train_examples,
+                    val_fn=val_fn, val_data=val_data,
+                    state={'params': params, 'opt_states': opt_states, 'total_examples': 0},
+                    steps=steps, hdf5=hdf5, whole_fit=whole_fit)
 
     def _pre_fit_report(self, model, shapes, specs, active, train_fn=None,
                         hdf5: bool = False) -> None:
@@ -730,7 +751,8 @@ class CollieTrainer:
             if train_fn is not None:
                 params, opt_states, loss = train_fn(state['params'], state['opt_states'],
                                                     train_data, self.seed, epoch)
-                train_loss = float(loss)
+                with annotate('collie.sync'):
+                    train_loss = float(loss)
                 state['total_examples'] += train_examples
                 split = train_fn.split_ms()
             elif hdf5 is not None:
@@ -755,10 +777,12 @@ class CollieTrainer:
             val_loss = None
             if monitor_val:
                 if val_fn is not None:
-                    val_loss = float(val_fn(params, val_data, self.seed, epoch))
+                    val_loss = val_fn(params, val_data, self.seed, epoch)
                 else:
                     val_losses = [steps[1](params, batch) for batch in model.val_loader]
-                    val_loss = float(self._data_mean(val_losses))
+                    val_loss = self._data_mean(val_losses)
+                with annotate('collie.sync'):
+                    val_loss = float(val_loss)
 
             model.hparams['num_epochs_completed'] = epoch
             self.num_epochs_completed = epoch
@@ -846,7 +870,8 @@ class CollieTrainer:
                 params, opt_states, loss_sum = fn(params, opt_states, users, items, mask,
                                                   self.seed, epoch, ci)
                 loss_sums.append(loss_sum)
-        train_loss = float(torch.stack(loss_sums).sum() / steps_real)
+        with annotate('collie.sync'):
+            train_loss = float(torch.stack(loss_sums).sum() / steps_real)
         self.global_step += steps_real
         return params, opt_states, train_loss, total_examples + n_used
 
@@ -870,7 +895,9 @@ class CollieTrainer:
                 if self.logger is not None:
                     self.logger.log_metrics({'train_loss_step': float(loss)},
                                             step=self.global_step)
-        return params, opt_states, float(self._data_mean(losses)), total_examples
+        with annotate('collie.sync'):
+            train_loss = float(self._data_mean(losses))
+        return params, opt_states, train_loss, total_examples
 
     def _data_mean(self, losses) -> torch.Tensor:
         """The mean of per-step losses; under a mesh each is a ``data``

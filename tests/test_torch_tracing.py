@@ -1,0 +1,186 @@
+"""The port's own spans (``training/profiler.annotate``) inside
+``CollieTrainer.fit`` and ``retrieval.recommend``, read from a
+``torch.profiler`` trace on the CPU.
+
+A fit opens ``collie.fit`` and, inside it in turn, ``collie.fit.setup``
+(which holds ``collie.fit.epoch_tables`` > ``collie.fit.sampler_tables``
+and ``collie.fit.opt_states``), ``collie.fit.epochs`` and
+``collie.fit.finish``; a request opens ``collie.recommend`` >
+``collie.recommend.prepare`` (> ``collie.recommend.seen`` with the seen
+filter).  ``collie.sync`` marks each deliberate host wait: on the CPU a
+whole fit's one transfer a flight, the per-epoch loop's loss reads and a
+request's copy of its answer (the CUDA-event waits exist on the card
+alone).  With no profiler running ``annotate`` never reaches
+``record_function`` and the results are bit for bit those of a traced run.
+"""
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from collie_tpu_torch import (CollieTrainer, HDF5InteractionsDataLoader,
+                              MatrixFactorizationModel, write_hdf5_meta)
+from collie_tpu_torch.data import ExplicitInteractions, Interactions
+from collie_tpu_torch.retrieval import recommend
+from collie_tpu_torch.training import profiler
+
+NU, NI, N = 30, 50, 400
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    # several threads scatter-add duplicate rows in a run-dependent order
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _pairs(seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, NU, N), rng.integers(0, NI, N), rng
+
+
+def _implicit(seed=0):
+    users, items, _ = _pairs(seed)
+    return Interactions(users=users, items=items, num_users=NU, num_items=NI,
+                        allow_missing_ids=True, check_num_negative_samples_is_valid=False,
+                        seed=seed)
+
+
+def _model(kind, tmp_path):
+    if kind == 'explicit':
+        users, items, rng = _pairs(1)
+        keys = np.unique(users * NI + items)
+        train = ExplicitInteractions(users=keys // NI, items=keys % NI,
+                                     ratings=rng.integers(1, 6, len(keys)).astype(np.float32),
+                                     num_users=NU, num_items=NI, allow_missing_ids=True)
+        return MatrixFactorizationModel(train=train, embedding_dim=4, loss='mse', seed=0,
+                                        map_location='cpu')
+    if kind == 'hdf5':
+        import h5py
+        users, items, _ = _pairs(2)
+        path = str(tmp_path / 'store.h5')
+        with h5py.File(path, 'w') as f:
+            group = f.require_group('interactions')
+            group.create_dataset('user_id', data=users.astype(np.int32))
+            group.create_dataset('item_id', data=items.astype(np.int32))
+        write_hdf5_meta(path, NU, NI)
+        loader = HDF5InteractionsDataLoader(hdf5_path=path, batch_size=128, shuffle=True,
+                                            num_negative_samples=3, seed=0)
+        return MatrixFactorizationModel(train=loader, embedding_dim=4, seed=0,
+                                        map_location='cpu')
+    val = _implicit(3) if kind == 'implicit_val' else None
+    return MatrixFactorizationModel(train=_implicit(), val=val, embedding_dim=4, seed=0,
+                                    map_location='cpu')
+
+
+def _collie_spans(prof):
+    """``(name, start_ns, end_ns)`` of every ``collie.*`` host span."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith('collie.'):
+            out.append((e.name(), e.start_ns(), e.start_ns() + e.duration_ns()))
+    return out
+
+
+def _named(spans, name):
+    return [(s, e) for n, s, e in spans if n == name]
+
+
+def _inside(child, parents):
+    return any(s <= child[0] and child[1] <= e for s, e in parents)
+
+
+def _whole_fit_flights(epochs):
+    """Flights of a whole fit of ``epochs`` epochs: greedy power-of-two
+    blocks of at most 16, four blocks a flight (``trainer._run_fit_scan``)."""
+    blocks, left = 0, epochs
+    while left:
+        b = 16
+        while b > left:
+            b //= 2
+        blocks, left = blocks + 1, left - b
+    return -(-blocks // 4)
+
+
+#: (model kind, COLLIE_TPU_WHOLE_FIT, epochs, epoch-table builds, sampler-table
+#: builds, host waits on the CPU)
+FITS = [
+    ('implicit', '1', 10, 1, 1, _whole_fit_flights(10)),
+    ('implicit', '1', 31, 1, 1, _whole_fit_flights(31)),       # 16+8+4+2+1: two flights
+    ('implicit', '0', 3, 1, 1, 3),                  # one loss read an epoch
+    ('implicit_val', '1', 5, 2, 2, _whole_fit_flights(5)),
+    ('implicit_val', '0', 3, 2, 2, 6),              # the train and val loss reads
+    ('explicit', '1', 10, 1, 1, _whole_fit_flights(10)),
+    ('explicit', '0', 3, 1, 1, 3),
+    ('hdf5', '1', 3, 1, 0, 3),                      # the chunk tier's loss read an epoch
+]
+
+
+@pytest.mark.parametrize('kind,whole,epochs,tables,samplers,syncs', FITS)
+def test_fit_spans_nest_and_count_host_waits(kind, whole, epochs, tables, samplers, syncs,
+                                             tmp_path, monkeypatch):
+    monkeypatch.setenv('COLLIE_TPU_WHOLE_FIT', whole)
+    monkeypatch.setenv('COLLIE_TPU_HDF5_CHUNK_STEPS', '4')
+    model = _model(kind, tmp_path)
+    trainer = CollieTrainer(model, max_epochs=epochs, verbosity=0, seed=0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.fit(model)
+    spans = _collie_spans(prof)
+    fit = _named(spans, 'collie.fit')
+    assert len(fit) == 1
+    (setup,), (epochs_span,), (finish,) = (_named(spans, f'collie.fit.{stage}')
+                                           for stage in ('setup', 'epochs', 'finish'))
+    assert all(_inside(span, fit) for span in (setup, epochs_span, finish))
+    assert setup[1] <= epochs_span[0] and epochs_span[1] <= finish[0]
+    built = _named(spans, 'collie.fit.epoch_tables')
+    assert len(built) == tables and all(_inside(span, [setup]) for span in built)
+    sampled = _named(spans, 'collie.fit.sampler_tables')
+    assert len(sampled) == samplers and all(_inside(span, built) for span in sampled)
+    (opt,) = _named(spans, 'collie.fit.opt_states')
+    assert _inside(opt, [setup])
+    waits = _named(spans, 'collie.sync')
+    assert len(waits) == syncs and all(_inside(span, [epochs_span]) for span in waits)
+    assert trainer.num_epochs_completed == epochs
+
+
+@pytest.mark.parametrize('filter_seen', [True, False])
+def test_recommend_spans(filter_seen):
+    model = MatrixFactorizationModel(train=_implicit(), embedding_dim=4, seed=0,
+                                     map_location='cpu')
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ids, scores = recommend(model, np.arange(7), k=5, filter_seen=filter_seen)
+    assert ids.shape == scores.shape == (7, 5)
+    spans = _collie_spans(prof)
+    (call,) = _named(spans, 'collie.recommend')
+    (prepare,) = _named(spans, 'collie.recommend.prepare')
+    assert _inside(prepare, [call])
+    seen = _named(spans, 'collie.recommend.seen')
+    assert len(seen) == int(filter_seen) and all(_inside(span, [prepare]) for span in seen)
+    (wait,) = _named(spans, 'collie.sync')
+    assert _inside(wait, [call]) and prepare[1] <= wait[0]
+
+
+def _fit_and_serve():
+    model = MatrixFactorizationModel(train=_implicit(), embedding_dim=4, seed=0,
+                                     map_location='cpu')
+    CollieTrainer(model, max_epochs=3, verbosity=0, seed=0).fit(model)
+    ids, scores = recommend(model, np.arange(NU), k=5)
+    return {k: v.clone() for k, v in model.params.items()}, ids, scores
+
+
+def test_annotate_is_free_without_a_profiler(monkeypatch):
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert isinstance(profiler.annotate('x'), torch.profiler.record_function)
+        traced = _fit_and_serve()
+
+    def refuse(name):
+        raise AssertionError(f'record_function({name!r}) entered with no profiler running')
+
+    monkeypatch.setattr(profiler, 'record_function', refuse)
+    assert profiler.annotate('x') is profiler.annotate('y')
+    params, ids, scores = _fit_and_serve()
+    assert set(params) == set(traced[0])
+    assert all(torch.equal(params[k], traced[0][k]) for k in params)
+    assert np.array_equal(ids, traced[1]) and np.array_equal(scores, traced[2])
