@@ -3,8 +3,11 @@
 Port of ``collie_tpu/ops/device_sampling.py``, with the host-side table
 builders copied bit-equal (``build_complement_tables`` ``:45``,
 ``build_padded_complement_table`` ``:60``, ``build_bucketed_complement_tables``
-``:87``, ``bucketed_table_bytes`` and ``padded_table_bytes`` ``:328``) and
-the samplers:
+``:87``, ``bucketed_table_bytes`` and ``padded_table_bytes`` ``:328``), the
+bucketed builder again on the device (``build_bucketed_complement_tables_torch``,
+the training engine's: the same tables from the interaction ids where they
+already are, one sort of the pairs and one of the examples, with one host
+read of the buckets' sizes) and the samplers:
 
 * the degree-bucketed complement sampler the training engine takes inside
   its table budget (the grouped sampler of ``:237-325`` with its
@@ -40,7 +43,8 @@ user's sorted columns because int32 flat keys overflow.  PyTorch has int64,
 so each CSR entry becomes the flat key ``user << 31 | item`` and one
 ``torch.searchsorted`` answers the whole batch.
 """
-from typing import Optional, Sequence, Tuple
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -194,6 +198,133 @@ def _ceil_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+@dataclasses.dataclass
+class BucketedPlan:
+    """What the device builder knows before it fills the bucketed tables
+    (``plan_bucketed_complement_tables``): tensors on the ids' device, and
+    on the host each bucket's width and its user and example counts."""
+    keys: torch.Tensor          # sorted ``user << 31 | item``, repeated pairs kept
+    first: torch.Tensor         # bool: the first key of its run of equal keys
+    rank: torch.Tensor          # each key's rank among its user's distinct items
+    counts: torch.Tensor        # int32 [num_users]: distinct items per user
+    user_bucket: torch.Tensor   # int64 [num_users]
+    user_local: torch.Tensor    # int64 [num_users]: the user's row in its table
+    ex_order: torch.Tensor      # canonical index of each example, grouped order
+    ex_users: torch.Tensor      # int64: each example's user, grouped order
+    sizes: torch.Tensor         # int64: the counts below, on the device
+    widths: List[int]
+    users_per_bucket: List[int]
+    examples_per_bucket: List[int]
+
+    @property
+    def table_bytes(self) -> int:
+        """``bucketed_table_bytes`` of the pairs, counted from the degrees:
+        every user's row at its bucket's width."""
+        return 4 * sum(m * w for m, w in zip(self.users_per_bucket, self.widths))
+
+
+def plan_bucketed_complement_tables(users: torch.Tensor, items: torch.Tensor,
+                                    num_users: int, num_items: int,
+                                    example_rows: Optional[torch.Tensor] = None,
+                                    lane: int = 128) -> BucketedPlan:
+    """The device builder's first half, on the ids' device: one sort of the
+    pairs' keys (a repeated pair counts once in the degrees and ranks, as
+    ``tocsr()`` merges it), the degrees' buckets, one stable sort of the
+    examples (``example_rows``, by default ``users``) by ``(bucket, user)``,
+    which is the host builder's per-bucket stable argsort, and one host
+    read of the buckets' user and example counts.  The widths run up to
+    ``num_items``, past the largest degree: the extra buckets are empty and
+    skipped, as the host builder skips empty buckets."""
+    device = users.device
+    users, items = users.long(), items.long()
+    keys = torch.sort((users << _ITEM_BITS) | items).values
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    distinct = torch.cumsum(first, 0)            # distinct keys up to each position
+    starts = torch.searchsorted(keys, torch.arange(num_users + 1, device=device) << _ITEM_BITS)
+    before = torch.cat([distinct.new_zeros(1), distinct])[starts]   # [num_users + 1]
+    counts = before[1:] - before[:-1]
+    rank = distinct - 1 - before[keys >> _ITEM_BITS]
+
+    widths = [lane]
+    while widths[-1] < num_items:
+        widths.append(widths[-1] * 2)
+    bounds = torch.arange(len(widths) + 1, device=device) * num_users
+    user_bucket = torch.searchsorted(lane << torch.arange(len(widths), device=device), counts)
+    user_key, user_order = torch.sort(user_bucket * num_users
+                                      + torch.arange(num_users, device=device))
+    user_start = torch.searchsorted(user_key, bounds)
+    user_local = torch.empty_like(user_order)
+    user_local[user_order] = (torch.arange(num_users, device=device)
+                              - user_start[user_bucket[user_order]])
+
+    ex_users = users if example_rows is None else example_rows.long()
+    ex_key, ex_order = torch.sort(user_bucket[ex_users] * num_users + ex_users, stable=True)
+    sizes = torch.cat([user_start.diff(), torch.searchsorted(ex_key, bounds).diff()])
+    if device.type == 'cpu':
+        host = sizes.tolist()
+    else:
+        from collie_tpu_torch.training.profiler import annotate
+        with annotate('collie.sync'):
+            host = sizes.tolist()
+    return BucketedPlan(keys, first, rank, counts.to(torch.int32), user_bucket, user_local,
+                        ex_order, ex_users[ex_order], sizes, widths, host[:len(widths)],
+                        host[len(widths):])
+
+
+def build_bucketed_complement_tables_torch(users: torch.Tensor, items: torch.Tensor,
+                                           num_users: int, num_items: int,
+                                           lane: int = 128, chunk: int = 8192,
+                                           example_rows: Optional[torch.Tensor] = None,
+                                           plan: Optional[BucketedPlan] = None):
+    """``build_bucketed_complement_tables`` on the ids' device, from the
+    interaction ids in their COO order (``example_rows``: the examples'
+    users, by default ``users``; ``plan``: ``plan_bucketed_complement_tables``
+    of the same arguments, made here when None).  Returns its four results
+    as tensors on that device, with the same dtypes, buckets, widths,
+    sentinel, chunk padding and grouped order; the host reads only the
+    plan's bucket counts.  The tables are views into one buffer, whose last
+    element takes the writes of repeated pairs and of empty buckets' users."""
+    device = users.device
+    if plan is None:
+        plan = plan_bucketed_complement_tables(users, items, num_users, num_items,
+                                               example_rows, lane)
+    nb = len(plan.widths)
+    width_of = lane << torch.arange(nb, device=device)
+    users_of, examples_of = plan.sizes[:nb], plan.sizes[nb:]
+    size_of = torch.where(examples_of > 0, users_of * width_of, 0)
+    start_of = torch.cumsum(size_of, 0) - size_of
+    total = sum(m * w for m, w, n in zip(plan.users_per_bucket, plan.widths,
+                                         plan.examples_per_bucket) if n)
+    key_users = plan.keys >> _ITEM_BITS
+    bucket = plan.user_bucket[key_users]
+    dest = torch.where(plan.first & (examples_of[bucket] > 0),
+                       start_of[bucket] + plan.user_local[key_users] * width_of[bucket]
+                       + plan.rank, total)
+    flat = torch.full((total + 1,), num_items, dtype=torch.int32, device=device)
+    flat[dest] = ((plan.keys & ((1 << _ITEM_BITS) - 1)) - plan.rank).to(torch.int32)
+
+    pads = [-n % min(chunk, _ceil_pow2(n)) if n else 0 for n in plan.examples_per_bucket]
+    users_g = torch.zeros(sum(plan.examples_per_bucket) + sum(pads), dtype=torch.int32,
+                          device=device)
+    pos_of = torch.empty(plan.ex_order.shape[0], dtype=torch.int32, device=device)
+    specs = []
+    table_at = slot_at = ex_at = 0
+    for m, width, n, pad in zip(plan.users_per_bucket, plan.widths,
+                                plan.examples_per_bucket, pads):
+        if n == 0:
+            continue
+        ex_users = plan.ex_users[ex_at:ex_at + n]
+        pos_of[plan.ex_order[ex_at:ex_at + n]] = torch.arange(
+            slot_at, slot_at + n, dtype=torch.int32, device=device)
+        users_g[slot_at:slot_at + n] = ex_users
+        row_idx = torch.zeros(n + pad, dtype=torch.int32, device=device)
+        row_idx[:n] = plan.user_local[ex_users]
+        specs.append((row_idx, flat[table_at:table_at + m * width].view(m, width)))
+        table_at, slot_at, ex_at = table_at + m * width, slot_at + n + pad, ex_at + n
+    return tuple(specs), plan.counts, users_g, pos_of
 
 
 def bucketed_table_bytes(csr, lane: int = 128) -> int:

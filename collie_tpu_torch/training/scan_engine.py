@@ -67,6 +67,10 @@ Exact sampling chooses its sampler as the JAX engine does
 table budget ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB`` (default 1024): the
 degree-bucketed tables when they fit it, else the padded table when it
 fits, else the CSR tables (a budget of 0 routes ``auto`` to ``csr``).  The
+bucketed tables are built on the model's device from the ids the epoch
+uploads (``build_bucketed_complement_tables_torch``), and sized from the
+degrees that build counts there; the padded and CSR tables are built on the
+host and uploaded.  The
 bucketed tables take at least 512 B a user, so above 2,097,152 users the
 default budget routes to the CSR sampler, whose tables grow with the
 interactions alone.
@@ -120,11 +124,11 @@ import torch
 
 from collie_tpu_torch.data import ExplicitInteractions, Interactions, InteractionsDataLoader
 from collie_tpu_torch.ops.device_sampling import (
-    SPARES_PER_ROUND, bucketed_table_bytes, build_bucketed_complement_tables,
+    SPARES_PER_ROUND, bucketed_table_bytes, build_bucketed_complement_tables_torch,
     build_complement_tables, build_padded_complement_table,
     complement_sample_negatives_bucketed, complement_sample_negatives_bucketed_grouped,
     complement_sample_negatives_impl, complement_sample_negatives_padded_impl, csr_keys,
-    padded_table_bytes)
+    padded_table_bytes, plan_bucketed_complement_tables)
 from collie_tpu_torch.ops.kernels.fused_mf_epoch import (MAX_DIM, _lr_value, fused_mf_epoch,
                                                          fused_mf_explicit_epoch)
 from collie_tpu_torch.ops.shuffle import draw_feistel_keys, feistel_permutation_from_keys
@@ -210,16 +214,20 @@ def _fused_epoch_config(model, specs, active, loader, mesh=None) -> Optional[dic
             'emb_idx': emb_idx, 'bias_idx': bias_idx}
 
 
-def select_sampler(mat) -> str:
+def select_sampler(mat, bucketed_bytes: Optional[int] = None) -> str:
     """The exact sampler an epoch over ``mat`` takes: ``'bucketed'``,
     ``'padded'`` or ``'csr'``, chosen by ``COLLIE_TPU_SAMPLER`` and, for
     ``auto``, ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB`` (the JAX engine's rule,
-    ``scan_engine.py:295-306``)."""
+    ``scan_engine.py:295-306``).  ``bucketed_bytes``: the bucketed tables'
+    size when known (``BucketedPlan.table_bytes``, counted from the
+    degrees), else ``bucketed_table_bytes(mat)``."""
     budget = float(os.environ.get('COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB',
                                   _PADDED_SAMPLER_BUDGET_MB)) * 2 ** 20
     kind = os.environ.get('COLLIE_TPU_SAMPLER', 'auto')
     if kind == 'auto':
-        if bucketed_table_bytes(mat) <= budget:
+        if bucketed_bytes is None:
+            bucketed_bytes = bucketed_table_bytes(mat)
+        if bucketed_bytes <= budget:
             return 'bucketed'
         # never taken by the default budget (bucketed <= padded), as in JAX
         return 'padded' if padded_table_bytes(mat) <= budget else 'csr'
@@ -532,27 +540,32 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     packable = ((inter.num_users - 1) << item_bits | (num_items - 1)) < 2 ** 31
     data: Dict = {'mask_flat': put(np.concatenate([np.ones(n_used, dtype=np.float32),
                                                    np.zeros(pad, dtype=np.float32)]))}
-    packed_np = None
     if packable:
-        packed_np = (inter.mat.row.astype(np.int64) << item_bits
-                     | inter.mat.col.astype(np.int64)).astype(np.int32)
-        data['packed'] = put(packed_np)
+        data['packed'] = put((inter.mat.row.astype(np.int64) << item_bits
+                              | inter.mat.col.astype(np.int64)).astype(np.int32))
     else:
         data['rows'] = put(inter.mat.row.astype(np.int32))
         data['cols'] = put(inter.mat.col.astype(np.int32))
     if explicit:
         data['ratings'] = put(inter.mat.data.astype(np.float32))
     N_g = 0
-    sampler = select_sampler(inter.mat) if exact else None
-    # the complement tables of the sampler, built on the host and uploaded
+    sampler = None
+    item_mask = (1 << item_bits) - 1
+    # the sampler's choice and its complement tables: the bucketed ones built
+    # on the device from the ids uploaded above, the others on the host
     with annotate('collie.fit.sampler_tables'):
+        if exact:
+            if packable:
+                ids = (data['packed'] >> item_bits, data['packed'] & item_mask)
+            else:
+                ids = (data['rows'], data['cols'])
+            plan = plan_bucketed_complement_tables(*ids, *inter.mat.shape)
+            sampler = select_sampler(inter.mat, plan.table_bytes)
         if sampler == 'bucketed':
-            specs_np, counts_np, users_g_np, pos_of_np = build_bucketed_complement_tables(
-                inter.mat, inter.mat.row)
-            data['bucket_specs'] = tuple((put(r), put(t)) for r, t in specs_np)
-            data['row_counts'] = put(counts_np)
-            data['users_g'] = put(users_g_np)
-            N_g = len(users_g_np)
+            (data['bucket_specs'], data['row_counts'], data['users_g'],
+             pos_of) = build_bucketed_complement_tables_torch(
+                *ids, *inter.mat.shape, plan=plan)
+            N_g = data['users_g'].shape[0]
             drop_last = getattr(loader, 'drop_last', False)
             if packable and shuffle and not drop_last and N_g >= 2 and (N_g - n) <= 0.02 * n \
                     and slot_epoch:
@@ -561,17 +574,16 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                 # epoch.  Its steps cover every slot, so a loader that drops
                 # its last partial batch takes the reorder path, which truncates
                 # the epoch to whole batches
-                packed_slots = np.zeros(N_g, np.int32)
-                packed_slots[pos_of_np] = packed_np
-                slot_mask = np.zeros(N_g, np.int32)
-                slot_mask[pos_of_np] = 1
-                data['packed_slots'] = put(packed_slots)
-                data['slot_mask'] = put(slot_mask)
+                slots = pos_of.long()
+                data['packed_slots'] = data['packed'].new_zeros(N_g).index_put_(
+                    (slots,), data['packed'])
+                data['slot_mask'] = torch.zeros(N_g, dtype=torch.int32,
+                                                device=device).index_fill_(0, slots, 1)
                 del data['packed'], data['mask_flat']
                 S = -(-N_g // B)
                 slot_tail = S * B - N_g
             else:
-                data['pos_of'] = put(pos_of_np)
+                data['pos_of'] = pos_of
         elif sampler == 'padded':
             pad_np, counts_np = build_padded_complement_table(inter.mat)
             data['shifted_pad'] = put(pad_np)
@@ -648,7 +660,6 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         [S, B]`` float32; for explicit data ``users``/``items [S, B]`` int32
         and ``ratings``/``mask [S, B]`` float32."""
         keys, samples = _draws(seed, epoch_idx)
-        item_mask = (1 << item_bits) - 1
         if 'packed_slots' in data:
             n_slots = S * B - slot_tail
             sigma = _permutation(keys, seed, epoch_idx, n_slots)

@@ -5,7 +5,8 @@ without one.  The fused epochs' edge shapes, inputs and tolerance are
 ``chip_smoke.py``'s, and so are the top-k kernel's edge shapes and checks,
 the binned gather/scatter's inputs, shapes and tolerance, the cycle-walk's
 key sets and bit-for-bit check, the skipped-launch check and the guard that
-turns a host sync inside a whole fit's flight into an error.  The file
+turns a host sync inside a whole fit's flight into an error; the bucketed
+sampler's tables built on the card against the numpy builder.  The file
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -443,3 +444,45 @@ def test_whole_fit_on_the_card_reads_nothing_back_inside_a_flight(cuda_device, m
     assert trainer.num_epochs_completed >= 1
     assert fused_mf_epoch.launches - before[0] == 5
     assert feistel_permutation_from_keys.launches - before[1] == 5
+
+
+@pytest.mark.cuda
+def test_device_bucketed_tables_match_the_numpy_builder(cuda_device):
+    """The bucketed sampler's tables built on the card equal the numpy
+    builder's at ~1M pairs (skewed degrees, a user holding every item,
+    users with none, repeated pairs, a shuffled order), and the build waits
+    on the card once: its read of the buckets' sizes."""
+    import warnings
+
+    from scipy.sparse import coo_matrix
+
+    from collie_tpu_torch.ops.device_sampling import (build_bucketed_complement_tables,
+                                                      build_bucketed_complement_tables_torch)
+
+    rng = np.random.default_rng(17)
+    num_users, num_items = 20_000, 10_681
+    users = (num_users * rng.random(1_000_000) ** 3).astype(np.int64)
+    items = rng.integers(0, num_items, users.shape[0])
+    users = np.concatenate([users, np.full(num_items, 7), users[:50_000]])
+    items = np.concatenate([items, np.arange(num_items), items[:50_000]])
+    order = rng.permutation(users.shape[0])
+    users, items = users[order], items[order]
+    mat = coo_matrix((np.ones(users.shape[0]), (users, items)), shape=(num_users, num_items))
+    ref = build_bucketed_complement_tables(mat, users)
+    on_card = torch.as_tensor(users, device=cuda_device), torch.as_tensor(items,
+                                                                          device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            got = build_bucketed_complement_tables_torch(*on_card, num_users, num_items)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert sum('synchroniz' in str(w.message) for w in caught) == 1
+    assert len(got[0]) == len(ref[0]) >= 6
+    flat_got = [t for pair in got[0] for t in pair] + list(got[1:])
+    flat_ref = [a for pair in ref[0] for a in pair] + list(ref[1:])
+    for g, r in zip(flat_got, flat_ref):
+        assert g.device.type == 'cuda' and g.cpu().numpy().dtype == r.dtype
+        np.testing.assert_array_equal(g.cpu().numpy(), r)
