@@ -60,6 +60,7 @@ from collie_tpu_torch.ops import losses as loss_lib
 from collie_tpu_torch.ops.embeddings import embedding_lookup, split_generator
 from collie_tpu_torch.training.optimizers import (OptimizerSpec, build_transform,
                                                   split_bias_keys)
+from collie_tpu_torch.training.profiler import annotate
 from collie_tpu_torch.utils import get_random_seed
 
 INTERACTIONS_LIKE_INPUT = Union[BaseInteractions, InteractionsDataLoader, None]
@@ -448,8 +449,10 @@ class BasePipeline(nn.Module):
 
         and otherwise the dense form, every negative scored with the params
         it is differentiated against.  ``COLLIE_TPU_SPARSE_ADAPTIVE=0``
-        keeps the dense form.  ``generator`` feeds dropout; it splits into
-        one stream for the positives and one for the negatives, as JAX's
+        keeps the dense form.  A sparse form's selection pass (with the
+        argmax of the adaptive losses) is a ``collie.loss.select`` span.
+        ``generator`` feeds dropout; it splits into one stream for the
+        positives and one for the negatives, as JAX's
         ``_split_or_none`` (``collie_tpu/models/base.py:893``).
         """
         mask = batch.get('mask')
@@ -465,11 +468,12 @@ class BasePipeline(nn.Module):
             sparse = training and self.selection_route(K) == 'sparse'
             base_loss = self._adaptive_base_loss() if sparse else None
             if base_loss is not None:
-                neg_preds_ng = self.pairwise_scores_select(params, users, neg_items,
-                                                           training=training,
-                                                           generator=gen_neg)
-                hardest_items = neg_items[torch.argmax(neg_preds_ng, dim=0),
-                                          torch.arange(B, device=neg_items.device)]
+                with annotate('collie.loss.select'):
+                    neg_preds_ng = self.pairwise_scores_select(params, users, neg_items,
+                                                               training=training,
+                                                               generator=gen_neg)
+                    hardest_items = neg_items[torch.argmax(neg_preds_ng, dim=0),
+                                              torch.arange(B, device=neg_items.device)]
                 # positive and hardest negative in ONE call: each table is
                 # gathered, and scattered into, once
                 pos_preds, neg_preds = self.pairwise_scores(
@@ -477,9 +481,10 @@ class BasePipeline(nn.Module):
                     training=training, generator=gen_pos)
                 neg_items, loss_fn = hardest_items, loss_lib.LOSSES[base_loss]
             elif sparse:  # WARP
-                all_ng = self.pairwise_scores_select(
-                    params, users, torch.cat([pos_items[None], neg_items]),
-                    training=training, generator=gen_neg)
+                with annotate('collie.loss.select'):
+                    all_ng = self.pairwise_scores_select(
+                        params, users, torch.cat([pos_items[None], neg_items]),
+                        training=training, generator=gen_neg)
                 return loss_lib.warp_loss_sparse(
                     all_ng[0], all_ng[1:],
                     rescore_pair=lambda items: self.pairwise_scores(

@@ -14,9 +14,10 @@ it:
   shared ``nullcontext`` and costs one check.  The port names its own
   stages with it: ``collie.fit`` and, inside it, ``collie.fit.setup``
   (``collie.fit.epoch_tables`` > ``collie.fit.sampler_tables``,
-  ``collie.fit.opt_states``), ``collie.fit.epochs`` and
-  ``collie.fit.finish``; ``collie.recommend`` > ``collie.recommend.prepare``
-  (> ``collie.recommend.seen``); and ``collie.sync`` around each deliberate
+  ``collie.fit.opt_states``), ``collie.fit.epochs`` (in the generic epoch
+  ``collie.fit.step`` a step, holding ``collie.loss.select``, the sparse
+  loss's selection pass) and ``collie.fit.finish``; ``collie.recommend`` >
+  ``collie.recommend.prepare`` (> ``collie.recommend.seen``); and ``collie.sync`` around each deliberate
   host wait on the card (a flight's transfer, a CUDA-event read, a loss
   read back, a recommendation's copy to the host);
 * ``device_memory_stats()``: the CUDA caching allocator's statistics;

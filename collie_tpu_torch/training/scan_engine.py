@@ -408,10 +408,10 @@ def train_steps(model, specs, active: List[bool], params: Dict[str, torch.Tensor
     """``train_step`` over every step of ``batches`` (``[S, ...]`` tensors),
     step ``s`` with a dropout generator seeded ``step_seeds[s]`` (None: no
     dropout), the tables carried fused when ``fused_tables``; under a
-    ``mesh`` with ``loss_scales[s]``.  Returns ``(params, opt_states,
-    per-step losses)``, the params named and contiguous again; an untrained
-    table keeps its tensor, so checkpoints, saves and a live select see the
-    named layout only."""
+    ``mesh`` with ``loss_scales[s]``; each step is a ``collie.fit.step``
+    span.  Returns ``(params, opt_states, per-step losses)``, the params
+    named and contiguous again; an untrained table keeps its tensor, so
+    checkpoints, saves and a live select see the named layout only."""
     old_params = params
     if fused_tables:
         params = model.fuse_params(params)
@@ -421,9 +421,10 @@ def train_steps(model, specs, active: List[bool], params: Dict[str, torch.Tensor
         if step_seeds is not None:
             generator = torch.Generator(device=model.device)
             generator.manual_seed(step_seeds[s])
-        params, opt_states, loss = train_step(
-            model, specs, active, params, opt_states, {k: v[s] for k, v in batches.items()},
-            generator, fused_tables, mesh, None if loss_scales is None else loss_scales[s])
+        with annotate('collie.fit.step'):
+            params, opt_states, loss = train_step(
+                model, specs, active, params, opt_states, {k: v[s] for k, v in batches.items()},
+                generator, fused_tables, mesh, None if loss_scales is None else loss_scales[s])
         losses.append(loss)
     if fused_tables:
         trained = {k for spec, on in zip(specs, active) if on for k in spec.keys}

@@ -184,3 +184,44 @@ def test_annotate_is_free_without_a_profiler(monkeypatch):
     assert set(params) == set(traced[0])
     assert all(torch.equal(params[k], traced[0][k]) for k in params)
     assert np.array_equal(ids, traced[1]) and np.array_equal(scores, traced[2])
+
+
+@pytest.mark.parametrize('model_kind', ['neumf', 'mf_fused'])
+def test_generic_epoch_steps_each_hold_one_selection(model_kind, monkeypatch):
+    """The generic epoch opens a ``collie.fit.step`` span a step, inside
+    ``collie.fit.epochs``, each holding one ``collie.loss.select`` (the
+    sparse loss's selection pass); the fused MF epoch (its plain version on
+    the CPU) opens neither."""
+    from collie_tpu_torch import InteractionsDataLoader, NeuralCollaborativeFiltering
+    from collie_tpu_torch.training import scan_engine
+
+    loader = InteractionsDataLoader(interactions=_implicit(), batch_size=64, shuffle=True,
+                                    seed=0)
+    if model_kind == 'neumf':
+        model = NeuralCollaborativeFiltering(train=loader, embedding_dim=4, num_layers=2,
+                                             loss='adaptive', seed=0, map_location='cpu')
+        assert model.selection_route(loader.num_negative_samples) == 'sparse'
+    else:
+        monkeypatch.setenv('COLLIE_TPU_FUSED_EPOCH', '1')
+        model = MatrixFactorizationModel(train=loader, embedding_dim=4, seed=0,
+                                         map_location='cpu')
+    calls = [0]
+    real = scan_engine.train_step
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(scan_engine, 'train_step', counting)
+    epochs = 3
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        CollieTrainer(model, max_epochs=epochs, verbosity=0, seed=0).fit(model)
+    spans = _collie_spans(prof)
+    steps, selects = _named(spans, 'collie.fit.step'), _named(spans, 'collie.loss.select')
+    if model_kind == 'mf_fused':
+        assert calls[0] == 0 and not steps and not selects
+        return
+    assert calls[0] > 0 and calls[0] % epochs == 0
+    assert len(steps) == calls[0] and len(selects) == len(steps)
+    assert all(_inside(step, _named(spans, 'collie.fit.epochs')) for step in steps)
+    assert all(sum(_inside(select, [step]) for select in selects) == 1 for step in steps)
