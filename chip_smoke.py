@@ -16,7 +16,15 @@ non-zero before the result line:
    (``TOPK_EDGES``: its per-range candidates against the plain version at
    the launch plan's range width, then the merged top-k), a tie case (ids,
    scores and candidates exactly equal) and the serving shape, whose launch
-   plans at k = 1, 10, 128 it prints;
+   plans at k = 1, 10, 128 it prints; ``topk_select`` (``stable_topk`` on the
+   card) against the full stable sort, values and indices bit for bit
+   (``SELECT_*``: row counts, row lengths, k up to whole rows, ties, signed
+   zeros, infinities, NaN, float16 and bfloat16), then ``SELECT_REQUESTS``
+   dense ``recommend`` requests at the serving cell's shape, one selection
+   each and no other kernel, timed beside the sort and ``torch.topk``.
+   From here every phase that serves (``recommend``, also under a mesh)
+   holds its selections to ``recommend_selections``; the kernels line's
+   ``launches`` for ``topk_select`` are those of the serving phases;
    ``fused_mf_epoch`` against its plain version at edge shapes (every loss
    kind, metadata, weight decay, K=1, duplicate ids, B not a power of two)
    and at the ML-10M training shape after 3 steps and after one full
@@ -216,14 +224,15 @@ non-zero before the result line:
    comment) and one mesh step's collectives, counted by kind.
    ``tools/mesh_training.py`` runs the configuration across the cards of
    one host;
-15. the kernels line (one JSON object, five kernels), the card's name and
+15. the kernels line (one JSON object, six kernels), the card's name and
    power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
 kernel at the gate and ML-10M-scale configurations; ``--kernel-times`` runs
 phases 1-2 and times the top-k kernel at the serving shape (k = 1, 10, 128;
-the launch alone and the whole ``mf_topk_retrieve``) and the binned
-gather/scatter's 50 rounds, each with one ``torch.profiler`` look;
+the launch alone and the whole ``mf_topk_retrieve``), the binned
+gather/scatter's 50 rounds and the selection at the serving cell's request,
+each with one ``torch.profiler`` look;
 ``--generic-times`` runs phases 1-2 and phase 10 (the generic epoch).  All
 three are for comparing two checkouts on one card: a copy of this script in
 the other checkout times that checkout.
@@ -240,6 +249,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -381,6 +391,33 @@ GS_OVERSIZE = dict(U=72_000, D=32, B=8192, n_bins=4, c_pad=2560, iters=50)
 TOPK_EDGES = [(B, D, k, 611) for (D, k), B in zip(
     [(D, k) for D in (1, 3, 12, 64, 65, 256) for k in (1, 10, 128)], (1, 37, 256, 300) * 5)]
 TOPK_EDGES += [(37, 12, 10, 100), (5, 64, 100, 100), (300, 65, 128, 128)]
+# the selection kernel (csrc/topk_select.cu) is held bit for bit against the
+# stable sort, values and indices: row counts, row lengths (k itself, 1,000
+# and 4,106 of one segment, the serving cell's 384,546 of several) and k;
+# then ties, signed zeros, infinities and NaN of both signs and payloads
+# (SELECT_SPECIAL_BITS, each row holding several of each) and layouts; then
+# k past one block's buffer (SELECT_LARGE: rows, length, k; one segment a
+# row, several rounds under a ceiling, a last round of several segments) and
+# the 16-bit floats with their own special patterns.  The serving cell's
+# request (SELECT_SHAPE: rows, length, k) is timed and served through
+# ``recommend`` (SELECT_REQUESTS requests)
+SELECT_ROWS = (1, 128, 513)
+SELECT_LENGTHS = ('k', 1000, 4106, 384_546)
+SELECT_KS = (1, 10, 128)
+SELECT_LARGE = [(16, 384_546, 129), (8, 384_546, 1000), (4, 100_000, 1025), (128, 4106, 500),
+                (2, 384_546, 7677), (2, 384_546, 7678), (2, 384_546, 7977),
+                (3, 50_000, 20_000), (1, 30_000, 30_000)]
+SELECT_SHAPE = (128, 384_546, 10)
+SELECT_TIMED_KS = (1, 10, 128, 1000, 8000)
+SELECT_REQUESTS = 3
+SELECT_SPECIAL_BITS = (0x7fc00000, 0xffc00000, 0x7f800001, 0xff800001, 0x7fffffff, 0xffffffff,
+                       0x7fa00000, 0xffa00000, 0x7f800000, 0xff800000, 0x00000000, 0x80000000,
+                       0x3f800000, 0xbf800000)
+SELECT_SPECIAL_BITS_16 = {
+    'float16': (0x7e00, 0xfe00, 0x7c01, 0xfc01, 0x7fff, 0xffff, 0x7d00, 0xfd00, 0x7c00, 0xfc00,
+                0x0000, 0x8000, 0x3c00, 0xbc00),
+    'bfloat16': (0x7fc0, 0xffc0, 0x7f81, 0xff81, 0x7fff, 0xffff, 0x7fa0, 0xffa0, 0x7f80, 0xff80,
+                 0x0000, 0x8000, 0x3f80, 0xbf80)}
 # the whole_fit phase: the cycle-walk kernel is held bit for bit against its
 # plain version at these sizes (2 and 3: the smallest Feistel domain; 1,024
 # and 1,025: a power of two and one past it; the ML-10M implicit and explicit
@@ -431,11 +468,11 @@ def kernel_wrappers():
     from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_epoch,
                                                              fused_mf_explicit_epoch)
     from collie_tpu_torch.ops.kernels.gather_scatter import binned_gather_scatter
-    from collie_tpu_torch.ops.kernels.retrieval_kernel import mf_topk_retrieve
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import mf_topk_retrieve, stable_topk
     from collie_tpu_torch.ops.shuffle import feistel_permutation_from_keys
 
     return (mf_topk_retrieve, fused_mf_epoch, fused_mf_explicit_epoch, binned_gather_scatter,
-            feistel_permutation_from_keys)
+            feistel_permutation_from_keys, stable_topk)
 
 
 def reset_launch_counts():
@@ -585,7 +622,7 @@ def compare_topk_kernel(label, ue, ub, ie, ib, k):
     plan's range width, then the merged top-k against a dense stable top-k;
     both through ``check_candidates``.  Returns the max abs error."""
     from collie_tpu_torch.ops.kernels.retrieval_kernel import (
-        mf_topk_retrieve, stable_topk, topk_plan, topk_tiles_cuda, topk_tiles_plain)
+        mf_topk_retrieve, stable_topk_plain, topk_plan, topk_tiles_cuda, topk_tiles_plain)
 
     (B, D), I = ue.shape, ie.shape[0]
     plan = topk_plan(B, D, k, I, torch.cuda.get_device_properties(0).multi_processor_count)
@@ -596,13 +633,216 @@ def compare_topk_kernel(label, ue, ub, ie, ib, k):
                            f'{plan.range_width})', scores, ids, ref_scores, ref_ids, ref_next,
                            ue, ie, ib, plan.range_width)
     ids, scores = mf_topk_retrieve(ue, ub, ie, ib, k=k)
-    dense_scores, dense_ids = stable_topk(ue @ ie.T + ib[None, :], min(k + 1, I))
+    dense_scores, dense_ids = stable_topk_plain(ue @ ie.T + ib[None, :], min(k + 1, I))
     dense_next = (dense_scores[:, k] if I > k
                   else torch.full((B,), float('-inf'), device=ue.device))
     torch.cuda.synchronize()
     return max(err, check_candidates(
         f'{label} merged', (scores - ub[:, None])[None], ids[None], dense_scores[None, :, :k],
         dense_ids[None, :, :k].int(), dense_next[None], ue, ie, ib, I, user_bias=ub))
+
+
+def special_rows(rng, rows: int, n: int, dtype=torch.float32) -> torch.Tensor:
+    """``[rows, n]`` normals of ``dtype`` on the card, each row holding up to
+    three copies of every special pattern of the dtype
+    (``SELECT_SPECIAL_BITS``, ``SELECT_SPECIAL_BITS_16``) at random places."""
+    values = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(dtype)
+    wide = dtype == torch.float32
+    bits = values.view(torch.int32 if wide else torch.int16).numpy()
+    patterns = SELECT_SPECIAL_BITS if wide else SELECT_SPECIAL_BITS_16[str(dtype).split('.')[-1]]
+    special = np.asarray(patterns, dtype=np.uint32 if wide else np.uint16).view(bits.dtype)
+    m = min(n, 3 * len(special))
+    for r in range(rows):
+        bits[r, rng.choice(n, m, replace=False)] = np.resize(special, m)[rng.permutation(m)]
+    return values.to(DEVICE)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits, as integers of its width."""
+    return t.contiguous().view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def compare_select(label: str, scores: torch.Tensor, k: int, quiet: bool = False):
+    """``stable_topk`` of ``scores`` against ``stable_topk_plain`` (the full
+    stable sort): values equal bit for bit, indices equal.  Returns the
+    selection kernel's launches and the largest difference of the values
+    (0 where both are NaN or equal; NaN where one is NaN and the other not)."""
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import stable_topk, stable_topk_plain
+
+    before = stable_topk.launches
+    values, indices = stable_topk(scores, k)
+    ref_values, ref_indices = stable_topk_plain(scores, k)
+    torch.cuda.synchronize()
+    launches = stable_topk.launches - before
+    if values.shape != ref_values.shape or values.dtype != ref_values.dtype \
+            or indices.dtype != torch.int64:
+        raise AssertionError(f'{label}: {tuple(values.shape)} {values.dtype} {indices.dtype} '
+                             f'against {tuple(ref_values.shape)} {ref_values.dtype} int64')
+    a, b = values.double(), ref_values.double()
+    same = (a == b) | (a.isnan() & b.isnan())
+    err = float(torch.where(same, 0.0, (a - b).abs()).max()) \
+        if values.numel() else 0.0
+    if not torch.equal(_bits(values), _bits(ref_values)) or not torch.equal(indices, ref_indices):
+        rows = (indices != ref_indices).reshape(-1, indices.shape[-1]).any(dim=1)
+        raise AssertionError(f'{label}: differs from the stable sort in rows '
+                             f'{rows.nonzero().flatten()[:5].tolist()} (max abs err {err})')
+    if not quiet:
+        log(f'  {label}: equal to the stable sort bit for bit ({launches} selection)')
+    return launches, err
+
+
+def recommend_selections(model, users: int, filter_seen: bool, shards: int = 0,
+                         item_tile: int = 4096) -> int:
+    """Selection launches (``stable_topk`` on the card) of one ``recommend``
+    of ``users`` users at k = ``K``, by ``build_retrieval_fn``'s routing:
+    one for the dense path's score block, one for the kernel path's merge of
+    its ranges, one a tile on the blockwise path; under a mesh of ``shards``
+    catalog shards, a rank's local top-k and one merge of the shards."""
+    from collie_tpu_torch.models.base import BasePipeline
+    from collie_tpu_torch.models.matrix_factorization import MatrixFactorizationModel
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import MAX_K
+    from collie_tpu_torch.retrieval import _dense_budget_bytes
+
+    num_items = model.hparams['num_items']
+    kernel = (not filter_seen and type(model) is MatrixFactorizationModel and K <= MAX_K
+              and all(v.dtype == torch.float32 for v in model.params.values()))
+    if shards:
+        local = type(model) is MatrixFactorizationModel and num_items % shards == 0
+        span = num_items // shards if local else -(-num_items // shards)
+        return (1 if local and kernel and K <= span else -(-span // item_tile)) + 1
+    within = users * num_items * 4 <= _dense_budget_bytes()
+    dense = type(model).score_item_block is not BasePipeline.score_item_block
+    return 1 if (kernel and not within) or (dense and within) else -(-num_items // item_tile)
+
+
+def select_times() -> dict:
+    """Median ms at ``SELECT_SHAPE``: ``stable_topk`` (the selection
+    kernel), the full stable sort and ``torch.topk`` (the library's
+    selection, which promises no tie order), with one ``torch.profiler``
+    look at the kernel.  Uses only public calls, so a copy of this script in
+    another checkout times that checkout's ``stable_topk``."""
+    from collie_tpu_torch.ops.kernels import retrieval_kernel
+
+    rows, n, k = SELECT_SHAPE
+    scores = _rand(np.random.default_rng(13), (rows, n))
+    plain = getattr(retrieval_kernel, 'stable_topk_plain', retrieval_kernel.stable_topk)
+    ms = cuda_median_ms(lambda: retrieval_kernel.stable_topk(scores, k), warmup=3, runs=21)
+    plain_ms = cuda_median_ms(lambda: plain(scores, k), warmup=2, runs=7)
+    library_ms = cuda_median_ms(lambda: torch.topk(scores, k, dim=-1), warmup=3, runs=21)
+    bound_ms = 4.0 * rows * n / PEAK_BYTES_PER_S * 1e3
+    by_k = {str(kk): cuda_median_ms(lambda: retrieval_kernel.stable_topk(scores, kk), warmup=2,
+                                    runs=9) for kk in SELECT_TIMED_KS}
+    log(f'  selection {rows} x {n} k={k}: stable_topk {ms:.4f} ms, stable sort {plain_ms:.4f} '
+        f'ms, torch.topk {library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes); stable_topk by '
+        f'k {by_k}')
+    profile_epoch_call(f'one stable_topk call at {rows} x {n}, k={k}',
+                       lambda: retrieval_kernel.stable_topk(scores, k))
+    return {'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms, 'bound_ms': bound_ms,
+            'ms_by_k': by_k}
+
+
+def select_request(rows: int, n: int) -> dict:
+    """``SELECT_REQUESTS`` ``recommend`` requests of ``rows`` users over an MF
+    catalog of ``n`` items (D 64, no seen filtering): the dense path, whose
+    top-k is one selection each, with every kernel count zeroed just before.
+    Each answer is held to the stable sort of the same score block.  Returns
+    the selections and the largest score difference."""
+    from collie_tpu_torch import Interactions, MatrixFactorizationModel
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import stable_topk, stable_topk_plain
+    from collie_tpu_torch.retrieval import recommend
+
+    rng = np.random.default_rng(19)
+    train = Interactions(users=rng.integers(0, 10 * rows, 5000), items=rng.integers(0, n, 5000),
+                         num_users=10 * rows, num_items=n, allow_missing_ids=True, seed=0)
+    model = MatrixFactorizationModel(train=train, embedding_dim=EMBEDDING_DIM, seed=19)
+    requests = [rng.choice(10 * rows, rows, replace=False) for _ in range(SELECT_REQUESTS)]
+    expected = SELECT_REQUESTS * recommend_selections(model, rows, False)
+    reset_launch_counts()
+    answers = [recommend(model, users, k=K, filter_seen=False) for users in requests]
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    want = dict.fromkeys(launches, 0)
+    want['stable_topk'] = expected
+    if launches != want or expected != SELECT_REQUESTS:
+        raise AssertionError(f'dense requests: kernel launches {launches}, expected {want}')
+    worst = 0.0
+    for users, (ids, scores) in zip(requests, answers):
+        with torch.no_grad():
+            block = model.score_item_block(model.params, model._ids(users),
+                                           torch.arange(n, device=model.device))
+            ref_scores, ref_ids = stable_topk_plain(block, K)
+        if not np.array_equal(ids, ref_ids.cpu().numpy()):
+            raise AssertionError('dense request: ids differ from the stable sort')
+        ref = ref_scores.cpu().numpy()
+        worst = max(worst, float(np.abs(scores - ref).max()))
+        if not np.array_equal(scores.view(np.int32), ref.view(np.int32)):
+            raise AssertionError(f'dense request: scores differ from the stable sort by {worst}')
+    log(f'  {SELECT_REQUESTS} recommend requests of {rows} users over {n} items (the dense '
+        f'path): {launches["stable_topk"]} selections, no other kernel; ids and scores equal '
+        f'the stable sort of the score block (max abs err {worst})')
+    del model
+    torch.cuda.empty_cache()
+    return {'launches': launches['stable_topk'], 'max_abs_err': worst}
+
+
+def phase_select() -> dict:
+    """The selection kernel against the stable sort (``SELECT_*``), then the
+    dense path's requests at ``SELECT_SHAPE``; returns its record, whose
+    ``launches`` are the selections of those requests (later phases add
+    theirs) and ``max_abs_err`` the largest difference measured."""
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import select_plan
+
+    log('kernel topk_select vs the stable sort (bit for bit)')
+    worst, checks = 0.0, 0
+
+    def check(label, scores, k, quiet=True):
+        nonlocal worst, checks
+        launches, err = compare_select(label, scores, k, quiet=quiet)
+        if launches != 1:
+            raise AssertionError(f'{label}: {launches} selections, expected 1')
+        worst, checks = max(worst, err), checks + 1
+
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    for rows in SELECT_ROWS:
+        for length in SELECT_LENGTHS:
+            for k in SELECT_KS:
+                n = k if length == 'k' else length
+                check(f'normal {rows} x {n} k={k}',
+                      torch.randn(rows, n, device=DEVICE, generator=gen), k)
+    log(f'  normals: {len(SELECT_ROWS) * len(SELECT_LENGTHS) * len(SELECT_KS)} shapes equal')
+    rng = np.random.default_rng(19)
+    for n in (10, 128, 1000, 4106, 384_546):
+        for k in (k for k in SELECT_KS if k <= n):
+            check(f'specials 64 x {n} k={k}', special_rows(rng, 64, n), k, quiet=False)
+            few = torch.randint(0, 4, (128, n), device=DEVICE, generator=gen).float()
+            check(f'four values 128 x {n} k={k}', few, k)
+            check(f'constant 128 x {n} k={k}', torch.full((128, n), 0.5, device=DEVICE), k)
+    for rows, n, k in SELECT_LARGE:
+        scores = torch.randn(rows, n, device=DEVICE, generator=gen)
+        plan = select_plan(scores, k)
+        check(f'large k {rows} x {n} k={k} ({plan})', scores, k, quiet=False)
+        check(f'four values {rows} x {n} k={k}',
+              torch.randint(0, 4, (rows, n), device=DEVICE, generator=gen).float(), k)
+        check(f'specials {rows} x {n} k={k}', special_rows(rng, rows, n), k)
+    for dtype in (torch.float16, torch.bfloat16):
+        for rows, n, k in ((64, 1000, 10), (128, 384_546, 10), (513, 4106, 128),
+                           (4, 100_000, 1025), (2, 30_000, 8000)):
+            check(f'{dtype} specials {rows} x {n} k={k}', special_rows(rng, rows, n, dtype), k,
+                  quiet=False)
+            check(f'{dtype} normals {rows} x {n} k={k}',
+                  torch.randn(rows, n, device=DEVICE, generator=gen).to(dtype), k)
+    log(f'  {checks} selections equal the stable sort bit for bit (max abs err {worst})')
+    rows, n, k = SELECT_SHAPE
+    served = select_request(rows, n)
+    times = select_times()
+    torch.cuda.synchronize()
+    return {'name': 'topk_select', 'route': 'cuda',
+            'source': 'collie_tpu_torch/csrc/topk_select.cu',
+            'replaces': "none (lax.top_k under XLA; the port's full stable sort)",
+            'launches': served['launches'], 'max_abs_err': max(worst, served['max_abs_err']),
+            'ms': times['ms'], 'plain_ms': times['plain_ms'], 'bound_ms': times['bound_ms'],
+            'bound_by': 'bytes', 'library_ms': times['library_ms'], 'ms_by_k': times['ms_by_k'],
+            'checked': True}
 
 
 def phase_device():
@@ -651,7 +891,7 @@ def _rand(rng, shape):
 def phase_kernels():
     """topk_tile against its plain version; returns the kernel's record."""
     from collie_tpu_torch.ops.kernels.retrieval_kernel import (
-        mf_topk_retrieve, mf_topk_retrieve_plain, stable_topk, topk_plan, topk_tiles_cuda,
+        mf_topk_retrieve, mf_topk_retrieve_plain, stable_topk_plain, topk_plan, topk_tiles_cuda,
         topk_tiles_plain)
 
     max_err = 0.0
@@ -694,7 +934,7 @@ def phase_kernels():
     ie[300:600], ib[300:600] = ie[:300].clone(), ib[:300].clone()
     ids, scores = mf_topk_retrieve(ue, ub, ie, ib, k=40, tile=128)
     full = ue @ ie.T + ub[:, None] + ib[None, :]
-    ref_scores, ref_ids = stable_topk(full, 40)
+    ref_scores, ref_ids = stable_topk_plain(full, 40)
     torch.cuda.synchronize()
     if not torch.equal(ids.long(), ref_ids) or not torch.equal(scores, ref_scores):
         raise AssertionError('tie case: kernel ids/scores differ from the stable top-k')
@@ -1127,8 +1367,9 @@ def epoch_times(ml10m) -> dict:
 def kernel_times() -> dict:
     """Median ms of the top-k kernel (launch alone and the whole
     ``mf_topk_retrieve`` call, at k = 1, 10 and 128) at the serving shape,
-    and of ``binned_gather_scatter``'s 50 rounds at the microbench's shape,
-    with one ``torch.profiler`` look at each.  Uses only the wrappers'
+    of ``binned_gather_scatter``'s 50 rounds at the microbench's shape and of
+    the selection at ``SELECT_SHAPE`` (``select_times``), with one
+    ``torch.profiler`` look at each.  Uses only the wrappers'
     public calls, so a copy of this script in another checkout times that
     checkout's kernels."""
     from collie_tpu_torch.ops.kernels.gather_scatter import binned_gather_scatter
@@ -1162,6 +1403,7 @@ def kernel_times() -> dict:
         times['binned_gather_scatter'][f'iters={iters}'] = few
         log(f'  binned_gather_scatter at iters={iters}: {few:.4f} ms (median of 15)')
     profile_epoch_call('one binned_gather_scatter call', lambda: binned_gather_scatter(*args))
+    times['topk_select'] = select_times()
     torch.cuda.synchronize()
     return times
 
@@ -1709,18 +1951,27 @@ def zoo_loader(train):
                                   seed=42)
 
 
-def check_blockwise_recommend(name, model, zoo) -> float:
+def check_blockwise_recommend(name, model, zoo) -> Tuple[float, int]:
     """One ``recommend`` of the zoo's request users with seen filtering (the
-    blockwise path), held against a stable top-k of ``score_item_block``
-    over the whole catalog with the seen items masked; returns its ms."""
-    from collie_tpu_torch.ops.kernels.retrieval_kernel import NEG_INF, stable_topk
+    blockwise path, or the dense one for a model that scores a block
+    itself), held against a stable top-k of ``score_item_block`` over the
+    whole catalog with the seen items masked, and its selections against
+    ``recommend_selections``; returns its ms and its selections."""
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import (NEG_INF, stable_topk,
+                                                               stable_topk_plain)
     from collie_tpu_torch.retrieval import recommend
 
     users, seen_csr = zoo['users'], zoo['seen_csr']
+    expected = recommend_selections(model, len(users), True)
+    before = stable_topk.launches
     t0 = time.perf_counter()
     ids, scores = recommend(model, users, k=K)
     torch.cuda.synchronize()
     request_ms = (time.perf_counter() - t0) * 1e3
+    selections = stable_topk.launches - before
+    if selections != expected:
+        raise AssertionError(f'{name}: recommend made {selections} selections, expected '
+                             f'{expected}')
     with torch.no_grad():
         block = model.score_item_block(model.params, model._ids(users),
                                        torch.arange(zoo['train'].num_items, device=model.device))
@@ -1728,13 +1979,13 @@ def check_blockwise_recommend(name, model, zoo) -> float:
         r = np.repeat(np.arange(len(users)), np.diff(rows.indptr))
         block[torch.as_tensor(r, device=model.device),
               torch.as_tensor(rows.indices.astype(np.int64), device=model.device)] = NEG_INF
-        ref_scores, ref_ids = stable_topk(block, K)
+        ref_scores, ref_ids = stable_topk_plain(block, K)
     torch.cuda.synchronize()
     if not np.array_equal(ids, ref_ids.cpu().numpy()):
         raise AssertionError(f'{name}: recommend ids differ from the full-catalog top-k')
     if not np.allclose(scores, ref_scores.cpu().numpy(), rtol=RTOL, atol=ATOL):
         raise AssertionError(f'{name}: recommend scores differ from the full-catalog top-k')
-    return request_ms
+    return request_ms, selections
 
 
 def phase_zoo(smi: str, zoo: dict) -> dict:
@@ -1751,7 +2002,7 @@ def phase_zoo(smi: str, zoo: dict) -> dict:
 
     train, test = zoo['train'], zoo['test']
     reset_launch_counts()
-    results = {}
+    results, selections = {}, 0
     for name, kwargs in ZOO_MODELS:
         model = getattr(collie_tpu_torch, name)(train=zoo_loader(train), seed=42, **kwargs)
         if model.device.type != DEVICE:
@@ -1768,14 +2019,16 @@ def phase_zoo(smi: str, zoo: dict) -> dict:
                                                   verbose=False)
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
-        request_ms = check_blockwise_recommend(name, model, zoo)
+        request_ms, request_selections = check_blockwise_recommend(name, model, zoo)
+        selections += request_selections
         log(f'zoo {name} {kwargs}: examples/s per epoch {[round(x) for x in per_epoch]} '
             f'({smi}); per epoch ms (shuffle, sampler, train): '
             f'{[tuple(round(e[k], 3) for k in SPLIT) for e in trainer.epoch_log]}; '
             f'train loss per epoch {[round(x, 5) for x in losses.losses]}; '
             f'{len(np.unique(test.mat.row))} test users: AUC {auc_before:.5f} before the fit, '
             f'MAP@{K}={map_k:.5f} MRR={mrr_v:.5f} AUC={auc_v:.5f} after ({eval_s:.2f}s); '
-            f'recommend of {REQUEST_USERS} users (filter_seen) {request_ms:.1f} ms')
+            f'recommend of {REQUEST_USERS} users (filter_seen) {request_ms:.1f} ms, '
+            f'{request_selections} selections')
         if len(losses.losses) != ZOO_EPOCHS or not np.all(np.isfinite(losses.losses)):
             raise AssertionError(f'{name}: train losses {losses.losses}')
         if not (np.isfinite(auc_v) and auc_v > auc_before):
@@ -1791,8 +2044,11 @@ def phase_zoo(smi: str, zoo: dict) -> dict:
     log(f'zoo phase: kernel launches {launches} (the zoo and MF with dropout train through '
         f'the generic epoch, shuffled by the cycle-walk kernel, and serve through the dense '
         f'and blockwise paths)')
-    if launches.pop(SHUFFLE_WRAPPER) < 1 or any(launches.values()):
-        raise AssertionError(f'zoo path: kernel launches {_kernel_counts()}')
+    if launches.pop(SHUFFLE_WRAPPER) < 1 or launches.pop('stable_topk') != selections \
+            or any(launches.values()):
+        raise AssertionError(f'zoo path: kernel launches {_kernel_counts()}, expected '
+                             f'{selections} selections')
+    results['selections'] = selections
     return results
 
 
@@ -1922,6 +2178,7 @@ def phase_multi_stage(smi: str, zoo: dict) -> dict:
     results = {'donor': hold_donor_fit(donor, donor_trainer)}
     results['donor']['auc_before'] = evaluate_in_batches([auc], test, donor, k=K, verbose=False)
     reset_launch_counts()
+    selections = 0
     for name, kwargs, plan in MULTI_STAGE_MODELS:
         extra, donor_before = {}, None
         if name == 'ColdStartModel':
@@ -1985,7 +2242,8 @@ def phase_multi_stage(smi: str, zoo: dict) -> dict:
                                                   verbose=False)
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
-        request_ms = check_blockwise_recommend(name, model, zoo)
+        request_ms, request_selections = check_blockwise_recommend(name, model, zoo)
+        selections += request_selections
         for stage in stages:
             log(f'multi_stage {name} stage {stage["stage"]}: examples/s per epoch '
                 f'{[round(x) for x in stage["examples_per_s"]]} ({smi}); per epoch ms (shuffle, '
@@ -2021,8 +2279,10 @@ def phase_multi_stage(smi: str, zoo: dict) -> dict:
     expected = {w.__name__: 0 for w in kernel_wrappers()}
     expected['fused_mf_epoch'] = MULTI_STAGE_DONOR_EPOCHS
     expected[SHUFFLE_WRAPPER] = launches[SHUFFLE_WRAPPER]
+    expected['stable_topk'] = selections
     if launches != expected or not launches[SHUFFLE_WRAPPER]:
         raise AssertionError(f'multi_stage kernel launches {launches}, expected {expected}')
+    results['selections'] = selections
     return results
 
 
@@ -2460,7 +2720,7 @@ def phase_trainer(ml10m, smi: str, ml10m_fit: dict) -> dict:
     expected = {'mf_topk_retrieve': 0,
                 'fused_mf_epoch': 2 * ML10M_EPOCHS + 2 * RESUME_EPOCHS - RESUME_FROM,
                 'fused_mf_explicit_epoch': 15, 'binned_gather_scatter': 0,
-                SHUFFLE_WRAPPER: launches[SHUFFLE_WRAPPER]}
+                SHUFFLE_WRAPPER: launches[SHUFFLE_WRAPPER], 'stable_topk': 0}
     log(f'trainer phase: kernel launches {launches} (expected {expected}); '
         f'{time.perf_counter() - start:.1f}s')
     if launches != expected or not launches[SHUFFLE_WRAPPER]:
@@ -3507,7 +3767,7 @@ def serving_data(seed: int):
 def dense_reference(model, users: np.ndarray, seen_csr=None, k: int = K):
     """Dense stable top-(k+1) on the card: the whole catalog scored with one
     matmul, seen items masked by CSR row scatter."""
-    from collie_tpu_torch.ops.kernels.retrieval_kernel import NEG_INF, stable_topk
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import NEG_INF, stable_topk_plain
 
     with torch.no_grad():
         scores = model.score_all_items(model.params, model._ids(users))
@@ -3516,11 +3776,11 @@ def dense_reference(model, users: np.ndarray, seen_csr=None, k: int = K):
             r = np.repeat(np.arange(len(users)), np.diff(rows.indptr))
             scores[torch.as_tensor(r, device=model.device),
                    torch.as_tensor(rows.indices.astype(np.int64), device=model.device)] = NEG_INF
-        ref_scores, ref_ids = stable_topk(scores, k + 1)
+        ref_scores, ref_ids = stable_topk_plain(scores, k + 1)
     return ref_ids[:, :k], ref_scores[:, :k], ref_scores[:, k]
 
 
-def phase_serving(seed: int, record: dict):
+def phase_serving(seed: int, record: dict, select_record: dict):
     from collie_tpu_torch import MatrixFactorizationModel, auc, evaluate_in_batches, mapk, mrr
     from collie_tpu_torch.ops import metrics as metrics_lib
     from collie_tpu_torch.ops.kernels.retrieval_kernel import mf_topk_retrieve
@@ -3553,23 +3813,29 @@ def phase_serving(seed: int, record: dict):
     rng = np.random.default_rng(seed + 1)
     seen_csr = train.mat.tocsr()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
     timings = {False: [], True: []}
     requests = [(False, rng.choice(NUM_USERS, REQUEST_USERS, replace=False)) for _ in range(4)]
     requests += [(True, rng.choice(NUM_USERS, REQUEST_USERS, replace=False)) for _ in range(2)]
+    selections = sum(recommend_selections(model, REQUEST_USERS, filter_seen)
+                     for filter_seen, _ in requests)
     answers = []
+    reset_launch_counts()
     for filter_seen, users in requests:
         t0 = time.perf_counter()
         ids, scores = recommend(model, users, k=K, filter_seen=filter_seen)
         torch.cuda.synchronize()
         timings[filter_seen].append((time.perf_counter() - t0) * 1e3)
         answers.append((filter_seen, users, ids, scores))
-    launches = mf_topk_retrieve.launches
-    mf_topk_retrieve.launches = 0
+    counts = _kernel_counts()
+    launches = counts['mf_topk_retrieve']
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != 4:
-        raise AssertionError(f'kernel launches during serving: {launches}, expected 4')
+    expected = dict.fromkeys(counts, 0)
+    expected.update(mf_topk_retrieve=4, stable_topk=selections)
+    if counts != expected:
+        raise AssertionError(f'kernel launches during serving: {counts}, expected {expected}')
+    reset_launch_counts()
     record['launches'] = launches
+    select_record['launches'] += counts['stable_topk']
 
     for n, (filter_seen, users, ids, scores) in enumerate(answers):
         ref_ids, ref_scores, ref_next = dense_reference(
@@ -3586,8 +3852,8 @@ def phase_serving(seed: int, record: dict):
     torch.cuda.synchronize()
     log(f'recommend ms per request of {REQUEST_USERS} users: kernel path (filter_seen=False) '
         f'{[round(t, 3) for t in timings[False]]}, blockwise path (filter_seen=True) '
-        f'{[round(t, 3) for t in timings[True]]}; topk_tile launches {launches}; '
-        f'peak device memory {peak_gb:.3f} GB')
+        f'{[round(t, 3) for t in timings[True]]}; topk_tile launches {launches}, selections '
+        f'{counts["stable_topk"]}; peak device memory {peak_gb:.3f} GB')
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3617,7 +3883,7 @@ def phase_serving(seed: int, record: dict):
     return model, train, test
 
 
-def phase_mesh(serving, record: dict) -> None:
+def phase_mesh(serving, record: dict, select_record: dict) -> None:
     """Phase 13: ``recommend`` and ``evaluate_in_batches`` under a
     ``make_mesh(data=1, model=1)`` on the card (NCCL, world size 1, a
     ``file://`` rendezvous in a temporary directory) against the
@@ -3655,9 +3921,13 @@ def phase_mesh(serving, record: dict) -> None:
             launches = {w.__name__: w.launches for w in kernel_wrappers()}
             expected = dict.fromkeys(launches, 0)
             expected['mf_topk_retrieve'] = MESH_REQUESTS.count(False)
+            expected['stable_topk'] = sum(recommend_selections(model, REQUEST_USERS, filter_seen,
+                                                               shards=1)
+                                          for filter_seen in MESH_REQUESTS)
             if launches != expected:
                 raise AssertionError(f'mesh recommend launches {launches}, expected {expected}')
             record['launches'] += launches['mf_topk_retrieve']
+            select_record['launches'] += launches['stable_topk']
             t0 = time.perf_counter()
             mesh_metrics = evaluate_in_batches([mapk, mrr, auc], test, model, k=K, mesh=mesh)
             torch.cuda.synchronize()
@@ -3683,8 +3953,8 @@ def phase_mesh(serving, record: dict) -> None:
     log(f'mesh (data=1, model=1, {backend}): recommend of {REQUEST_USERS} users filter_seen='
         f'{list(MESH_REQUESTS)}: ids equal the single-device calls, max_abs_err={worst:.3g}; '
         f'ms mesh {[round(t, 3) for t in mesh_ms]} vs single {[round(t, 3) for t in single_ms]}; '
-        f'topk_tile launches on the mesh path {launches["mf_topk_retrieve"]}; '
-        f'evaluate_in_batches MAP@{K}, MRR, AUC {mesh_metrics} (single device {single}) in '
+        f'topk_tile launches on the mesh path {launches["mf_topk_retrieve"]}, selections '
+        f'{launches["stable_topk"]}; evaluate_in_batches MAP@{K}, MRR, AUC {mesh_metrics} (single device {single}) in '
         f'{mesh_eval_s:.2f}s')
     torch.cuda.empty_cache()
 
@@ -3828,7 +4098,7 @@ def phase_mesh_training(ml10m, smi: str) -> dict:
     train, _, test = ml10m
     sub = ml10m_eval_users(test)
     build = lambda: ml10m_model(train)              # noqa: E731
-    out = {'mf_topk_retrieve': 0, SHUFFLE_WRAPPER: 0}
+    out = {'mf_topk_retrieve': 0, SHUFFLE_WRAPPER: 0, 'stable_topk': 0}
     start = time.perf_counter()
     with tempfile.TemporaryDirectory() as directory:
         dist.init_process_group('nccl', init_method=f'file://{directory}/rendezvous',
@@ -3941,9 +4211,12 @@ def phase_mesh_training(ml10m, smi: str) -> dict:
             launches = _kernel_counts()
             expected = dict.fromkeys(launches, 0)
             expected['mf_topk_retrieve'] = MESH_TRAIN_REQUESTS
+            expected['stable_topk'] = MESH_TRAIN_REQUESTS * recommend_selections(
+                model, REQUEST_USERS, False, shards=1)
             if launches != expected:
                 raise AssertionError(f'mesh recommend launches {launches}, expected {expected}')
             out['mf_topk_retrieve'] += launches['mf_topk_retrieve']
+            out['stable_topk'] += launches['stable_topk']
             mesh_metrics = evaluate_in_batches([mapk, mrr, auc], sub, model, k=K, mesh=mesh,
                                                verbose=False)
             if model.param_layout() is None:
@@ -3962,7 +4235,8 @@ def phase_mesh_training(ml10m, smi: str) -> dict:
             log(f'mesh_training (c) the trained model, holding its shards: {MESH_TRAIN_REQUESTS} '
                 f'recommend(mesh=) requests of {REQUEST_USERS} users, k={K}, ids equal the '
                 f'single-card calls (max_abs_err={worst:.3g}), ms {[round(t, 3) for t in mesh_ms]}, '
-                f'topk_tile launches {launches["mf_topk_retrieve"]}; evaluate_in_batches(mesh=) '
+                f'topk_tile launches {launches["mf_topk_retrieve"]}, selections '
+                f'{launches["stable_topk"]}; evaluate_in_batches(mesh=) '
                 f'MAP@{K}, MRR, AUC {mesh_metrics} (single card {single_metrics})')
 
             # (d) mesh steps held to single-card steps, the first one's
@@ -4148,9 +4422,9 @@ def main(argv=None):
                              'the script in another checkout times that checkout)')
     parser.add_argument('--kernel-times', action='store_true',
                         help='only build the kernels and time the top-k kernel (k = 1, 10, '
-                             '128; launch alone and the whole call) and the binned '
-                             'gather/scatter at their main shapes (a copy of the script in '
-                             'another checkout times that checkout)')
+                             '128; launch alone and the whole call), the binned '
+                             'gather/scatter and the selection at their main shapes (a copy '
+                             'of the script in another checkout times that checkout)')
     parser.add_argument('--generic-times', action='store_true',
                         help='only build the kernels and run phase 10, the generic epoch at '
                              'the ML-10M and zoo scales (a copy of the script in another '
@@ -4178,12 +4452,13 @@ def main(argv=None):
         print(smi)
         return
     topk = phase_kernels()
+    select = phase_select()
     gather_scatter = phase_gather_scatter()
     ml10m = ml10m_data()
     fused = phase_kernel_fused_epoch(ml10m['implicit'])
     explicit = phase_kernel_explicit_epoch(ml10m['explicit'])
-    serving = phase_serving(args.seed, topk)
-    phase_mesh(serving, topk)
+    serving = phase_serving(args.seed, topk, select)
+    phase_mesh(serving, topk, select)
     del serving
     ml10m_fit = phase_training(ml10m['implicit'], fused)
     phase_explicit_training(ml10m['explicit'], explicit)
@@ -4191,8 +4466,9 @@ def main(argv=None):
     fused['launches'] += trainer_launches['fused_mf_epoch']
     explicit['launches'] += trainer_launches['fused_mf_explicit_epoch']
     zoo = zoo_data()
-    phase_zoo(smi, zoo)
+    select['launches'] += phase_zoo(smi, zoo)['selections']
     multi_stage = phase_multi_stage(smi, zoo)
+    select['launches'] += multi_stage['selections']
     fused['max_abs_err'] = max(fused['max_abs_err'], multi_stage['donor']['max_abs_err'])
     shuffle = phase_whole_fit(ml10m['implicit'], smi)
     shuffle['launches'] += fused['shuffle_launches'] + explicit['shuffle_launches']
@@ -4203,10 +4479,11 @@ def main(argv=None):
     shuffle['launches'] += phase_movielens(smi)['feistel_permutation_from_keys']
     mesh_training = phase_mesh_training(ml10m['implicit'], smi)
     topk['launches'] += mesh_training['mf_topk_retrieve']
+    select['launches'] += mesh_training['stable_topk']
     shuffle['launches'] += mesh_training[SHUFFLE_WRAPPER]
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
-    print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter, shuffle]}))
+    print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter, shuffle, select]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -17,8 +17,21 @@ PyTorch, as the JAX package leaves them to XLA.
 anything it does not take; it runs ``mf_topk_retrieve_plain`` only for
 tensors that lie on the CPU.  ``mf_topk_retrieve.launches`` counts kernel
 launches.
+
+``stable_topk``, the port's every top-k (the dense serving path, MAP@k, the
+blockwise, range and mesh merges), is on the card the exact selection kernel
+of ``collie_tpu_torch/csrc/topk_select.cu`` (``topk_select_cuda``; see its
+header for the design, the order it gives NaN and signed zeros, and its
+bound), which reads the scores once; the library's plan
+(``collie_topk_select_plan``, asked once a shape by ``select_plan``) cuts
+each row into segments from the card's resident blocks and takes a large k
+in rounds.  It takes float32, float16 and bfloat16 at any k and raises on other
+dtypes.  Its plain version ``stable_topk_plain``, a full stable sort, serves
+CPU tensors and is the kernel's reference.  ``stable_topk.launches`` counts
+the kernel's selections.
 """
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -42,6 +55,12 @@ MAX_SHARED_BYTES = 232448      # what one block may use on sm_90
 SM_SHARED_BYTES = 233472       # an SM's shared memory; 1 KB of it is reserved per block
 REGISTERS = 192                # about what ptxas gives a thread of the kernel
 H100_SMS = 132
+
+SELECT_SOURCE = 'topk_select.cu'
+SELECT_ABI = 2
+#: bytes an element of each dtype the selection kernel reads
+SELECT_DTYPES = {torch.float32: 4, torch.float16: 2, torch.bfloat16: 2}
+INT32_MAX = 2 ** 31 - 1
 
 
 @dataclass(frozen=True)
@@ -110,12 +129,119 @@ def topk_plan(B: int, D: int, k: int, num_items: int, sms: int = H100_SMS) -> To
                     blocks_per_sm)
 
 
+def stable_topk_plain(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``stable_topk`` by a full stable descending sort: the CPU's path and
+    the selection kernel's reference on the card."""
+    values, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+@dataclass(frozen=True)
+class SelectPlan:
+    """A selection's launches, as ``collie_topk_select_plan`` gives them:
+    ``rounds`` rounds (one unless k passes what one block holds), the first
+    round's ``segments`` a row of ``segment_length`` elements and its
+    ``round_k``, and the ``scratch_keys`` of pass 1 (0: one segment a row)."""
+    rounds: int
+    segments: int
+    segment_length: int
+    round_k: int
+    scratch_keys: int
+
+
+def _select_library() -> ctypes.CDLL:
+    lib = _build.load(SELECT_SOURCE, abi=('collie_topk_select_abi', SELECT_ABI))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.collie_topk_select_plan.argtypes = [ll, i, i, i, p]
+    lib.collie_topk_select_plan.restype = ll
+    lib.collie_topk_select.argtypes = [p, i, ll, i, i, p, ll, p, p, p]
+    lib.collie_topk_select.restype = i
+    return lib
+
+
+def _check_select(scores: torch.Tensor, k: int) -> None:
+    if scores.dtype not in SELECT_DTYPES:
+        raise TypeError(f'topk_select_cuda takes {sorted(map(str, SELECT_DTYPES))}, '
+                        f'got {scores.dtype}')
+    if scores.dim() < 1:
+        raise ValueError('topk_select_cuda takes a tensor of at least one axis')
+    if k < 0:
+        raise ValueError(f'topk_select_cuda takes k >= 0, got {k}')
+    if scores.shape[-1] > INT32_MAX:
+        raise ValueError(f'topk_select_cuda takes rows of at most {INT32_MAX}, '
+                         f'got {scores.shape[-1]}')
+    if scores.device.type != 'cuda':
+        raise ValueError(f'topk_select_cuda takes a CUDA tensor, not {scores.device}')
+
+
+@functools.lru_cache(maxsize=4096)
+def _select_plan(device_index: int, rows: int, n: int, k: int, elem_bytes: int) -> SelectPlan:
+    """``collie_topk_select_plan`` on card ``device_index``; a plan depends
+    on nothing else, so each shape asks the library once."""
+    first = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        scratch = _select_library().collie_topk_select_plan(rows, n, k, elem_bytes, first)
+    if scratch < 0:
+        raise RuntimeError(f'collie_topk_select_plan failed: cudaError_t {-scratch}')
+    return SelectPlan(*first, scratch)
+
+
+def select_plan(scores: torch.Tensor, k: int) -> SelectPlan:
+    """The selection kernel's plan for ``topk_select_cuda(scores, k)`` on
+    ``scores``' card (``k`` cut to the row; ``scores`` not empty)."""
+    _check_select(scores, k)
+    n = scores.shape[-1]
+    return _select_plan(scores.device.index, scores.numel() // n, n, min(k, n),
+                        SELECT_DTYPES[scores.dtype])
+
+
+def topk_select_cuda(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the selection kernel (``csrc/topk_select.cu``) on the current
+    stream: ``stable_topk`` of a CUDA float32, float16 or bfloat16 tensor,
+    any ``k >= 0`` (cut to the last axis, as the sort's slice cuts it).
+    Leading axes are flattened; a non-contiguous input is copied first."""
+    _check_select(scores, k)
+    scores = scores.contiguous()
+    device = scores.device
+    n = scores.shape[-1]
+    k = min(k, n)
+    shape = (*scores.shape[:-1], k)
+    values = torch.empty(shape, dtype=scores.dtype, device=device)
+    indices = torch.empty(shape, dtype=torch.int64, device=device)
+    if values.numel() == 0:
+        return values, indices
+    rows, elem_bytes = values.numel() // k, SELECT_DTYPES[scores.dtype]
+    plan = _select_plan(device.index, rows, n, k, elem_bytes)
+    seg_keys = (torch.empty(plan.scratch_keys, dtype=torch.int64, device=device)
+                if plan.scratch_keys else None)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _select_library().collie_topk_select(
+            scores.data_ptr(), elem_bytes, rows, n, k,
+            None if seg_keys is None else seg_keys.data_ptr(), plan.scratch_keys,
+            values.data_ptr(), indices.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f'collie_topk_select launch failed: cudaError_t {err}')
+    stable_topk.launches += 1
+    return values, indices
+
+
 def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(values, indices)`` of the ``k`` largest entries along the last axis,
     equal values in ascending index order (``lax.top_k``'s tie rule, which
-    ``torch.topk`` does not promise)."""
-    values, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
+    ``torch.topk`` does not promise), as ``stable_topk_plain``'s sort gives
+    them bit for bit, NaN and signed zeros included.  A CUDA tensor goes
+    through the selection kernel (float32, float16 or bfloat16; any other
+    dtype raises), a CPU tensor through the sort.
+    ``stable_topk.launches`` counts the kernel's selections."""
+    if scores.device.type == 'cuda':
+        return topk_select_cuda(scores, k)
+    if scores.device.type == 'cpu':
+        return stable_topk_plain(scores, k)
+    raise ValueError(f'stable_topk runs on cuda or cpu, not {scores.device}')
+
+
+stable_topk.launches = 0
 
 
 def _check_inputs(user_embeddings, user_biases, item_embeddings, item_biases,

@@ -3,7 +3,8 @@
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  The fused epochs' edge shapes, inputs and tolerance are
 ``chip_smoke.py``'s, and so are the top-k kernel's edge shapes and checks,
-the binned gather/scatter's inputs, shapes and tolerance, the cycle-walk's
+the binned gather/scatter's inputs, shapes and tolerance, the selection's
+shapes and bit-for-bit check against the stable sort, the cycle-walk's
 key sets and bit-for-bit check, the skipped-launch check and the guard that
 turns a host sync inside a whole fit's flight into an error; the bucketed
 sampler's tables built on the card against the numpy builder.  The file
@@ -16,13 +17,15 @@ import pytest
 import torch
 
 from chip_smoke import (EPOCH_EDGES, EXPLICIT_EDGES, EXPLICIT_STATE, GS_ATOL_SCALE,
-                        GS_OVERSIZE, GS_SHAPE, IMPLICIT_STATE, SHUFFLE_KEY_SETS, TOPK_EDGES,
+                        GS_OVERSIZE, GS_SHAPE, IMPLICIT_STATE, SELECT_KS, SELECT_LARGE,
+                        SELECT_LENGTHS, SELECT_ROWS, SELECT_SHAPE, SHUFFLE_KEY_SETS, TOPK_EDGES,
                         check_cycle_walk, check_repeatable, check_skipped_launch,
-                        compare_epoch,
+                        compare_epoch, compare_select,
                         compare_topk_kernel, epoch_inputs, explicit_epoch_inputs,
-                        gather_scatter_inputs, sync_errors)
+                        gather_scatter_inputs, special_rows, sync_errors)
 from collie_tpu_torch.ops.kernels.retrieval_kernel import (mf_topk_retrieve,
-                                                           mf_topk_retrieve_plain)
+                                                           mf_topk_retrieve_plain, select_plan,
+                                                           stable_topk, stable_topk_plain)
 
 EDGE_ENVELOPES = [(37, 257, 10), (1, 64, 5), (9, 4096, 10), (16, 128, 128)]
 
@@ -345,8 +348,8 @@ def test_topk_kernel_candidates_match_plain_version(cuda_device, B, D, k, num_it
 def test_topk_kernel_ties_are_exact(cuda_device, k):
     """Duplicated rows on a coarse grid tie exactly: candidates and merged
     top-k equal the plain version's and the dense stable top-k bit for bit."""
-    from collie_tpu_torch.ops.kernels.retrieval_kernel import (stable_topk, topk_plan,
-                                                               topk_tiles_cuda, topk_tiles_plain)
+    from collie_tpu_torch.ops.kernels.retrieval_kernel import (topk_plan, topk_tiles_cuda,
+                                                               topk_tiles_plain)
 
     rng = np.random.default_rng(k)
     grid = lambda shape: torch.tensor(  # noqa: E731
@@ -354,13 +357,169 @@ def test_topk_kernel_ties_are_exact(cuda_device, k):
     ue, ub, ie, ib = grid((24, 12)), grid((24,)), grid((611, 12)), grid((611,))
     ie[300:600], ib[300:600] = ie[:300].clone(), ib[:300].clone()
     ids, scores = mf_topk_retrieve(ue, ub, ie, ib, k=k)
-    ref_scores, ref_ids = stable_topk(ue @ ie.T + ub[:, None] + ib[None, :], k)
+    ref_scores, ref_ids = stable_topk_plain(ue @ ie.T + ub[:, None] + ib[None, :], k)
     plan = topk_plan(24, 12, k, 611, torch.cuda.get_device_properties(0).multi_processor_count)
     cand = topk_tiles_cuda(ue, ie, ib, k)
     ref_cand = topk_tiles_plain(ue, ie, ib, k, plan.range_width)
     torch.cuda.synchronize()
     assert torch.equal(ids.long(), ref_ids) and torch.equal(scores, ref_scores)
     assert all(torch.equal(a, b) for a, b in zip(cand, ref_cand))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows', SELECT_ROWS)
+@pytest.mark.parametrize('length', SELECT_LENGTHS)
+@pytest.mark.parametrize('k', SELECT_KS)
+def test_selection_matches_the_stable_sort(cuda_device, rows, length, k):
+    """``stable_topk`` on the card (the selection kernel, one launch) equals
+    the full stable sort's first k, values bit for bit and indices, from
+    rows as long as k to the serving cell's 384,546 (several segments)."""
+    n = k if length == 'k' else length
+    gen = torch.Generator(device=cuda_device).manual_seed(rows * 1_000_003 + n * 131 + k)
+    scores = torch.randn(rows, n, device=cuda_device, generator=gen)
+    assert compare_select(f'{rows} x {n} k={k}', scores, k) == (1, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [10, 128, 1000, 4106, 384_546])
+def test_selection_orders_ties_zeros_infinities_and_nan_as_the_sort(cuda_device, n):
+    """Where the order rule decides: each row holding +-0, +-inf and NaN of
+    both signs and several payloads, rows of four values, constant rows and
+    rows of alternating -0.0 and +0.0; k in ``SELECT_KS`` up to the row."""
+    rng = np.random.default_rng(n)
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    zeros = torch.zeros(8, n, device=cuda_device)
+    zeros[:, ::2] = -0.0
+    for k in (k for k in SELECT_KS if k <= n):
+        compare_select(f'specials n={n} k={k}', special_rows(rng, 64, n), k)
+        compare_select(f'four values n={n} k={k}',
+                       torch.randint(0, 4, (128, n), device=cuda_device, generator=gen).float(), k)
+        compare_select(f'constant n={n} k={k}', torch.full((128, n), 0.5, device=cuda_device), k)
+        compare_select(f'signed zeros n={n} k={k}', zeros, k)
+        ascending = torch.arange(n, device=cuda_device, dtype=torch.float32).repeat(16, 1)
+        compare_select(f'ascending n={n} k={k}', ascending, k)
+
+
+@pytest.mark.cuda
+def test_selection_takes_any_layout(cuda_device):
+    """A transposed (non-contiguous) block, a 3-D block, rows starting at each
+    float offset from 16-byte alignment, and k beyond the row (cut to it, as
+    the sort's slice cuts it)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    rows, n, k = SELECT_SHAPE
+    compare_select('transposed', torch.randn(n, rows, device=cuda_device, generator=gen).T, k)
+    compare_select('3-D', torch.randn(4, 32, 5000, device=cuda_device, generator=gen), k)
+    flat = torch.randn(rows * n + 4, device=cuda_device, generator=gen)
+    for offset in range(4):
+        compare_select(f'offset {offset}', flat[offset:offset + rows * n].view(rows, n), k)
+        compare_select(f'offset {offset}, n 4,107',
+                       flat[offset:offset + 64 * 4107].view(64, 4107), k)
+    values, indices = stable_topk(torch.randn(8, 50, device=cuda_device, generator=gen), 100)
+    assert values.shape == indices.shape == (8, 50)
+    before = stable_topk.launches
+    values, indices = stable_topk(torch.randn(8, 50, device=cuda_device, generator=gen), 0)
+    assert values.shape == indices.shape == (8, 0) and stable_topk.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows,n,k', SELECT_LARGE)
+def test_selection_takes_any_k(cuda_device, rows, n, k):
+    """k past 128: one segment a row where pass 2 could not merge them,
+    dynamic shared memory up to 128 KB, and rounds under a ceiling key past
+    one block's buffer (the last round of several segments at k 7,977); bit
+    for bit the stable sort's on normals, four values and special values."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows * 7 + n + k)
+    rng = np.random.default_rng(k)
+    scores = torch.randn(rows, n, device=cuda_device, generator=gen)
+    plan = select_plan(scores, k)
+    assert plan.rounds == -(-k // plan.round_k) and plan.round_k == min(k, plan.round_k)
+    assert compare_select(f'normals {rows} x {n} k={k}', scores, k) == (1, 0.0)
+    few = torch.randint(0, 4, (rows, n), device=cuda_device, generator=gen).float()
+    assert compare_select(f'four values {rows} x {n} k={k}', few, k) == (1, 0.0)
+    assert compare_select(f'specials {rows} x {n} k={k}', special_rows(rng, rows, n), k) == (1, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize('rows,n,k', [(64, 10, 10), (64, 1000, 10), (128, 384_546, 10),
+                                      (513, 4106, 128), (4, 100_000, 1025), (2, 30_000, 8000)])
+def test_selection_of_16_bit_floats(cuda_device, dtype, rows, n, k):
+    """float16 and bfloat16 keep their own bits: values equal the stable
+    sort's bit for bit and indices equal, on normals (many ties at 16 bits)
+    and on rows holding the dtype's NaN, infinities and signed zeros."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + k)
+    rng = np.random.default_rng(n + k)
+    scores = torch.randn(rows, n, device=cuda_device, generator=gen).to(dtype)
+    assert compare_select(f'{dtype} normals {rows} x {n} k={k}', scores, k) == (1, 0.0)
+    assert compare_select(f'{dtype} specials {rows} x {n} k={k}',
+                          special_rows(rng, rows, n, dtype), k) == (1, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.int32, torch.int64, torch.bool])
+def test_selection_rejects_other_dtypes_on_the_card(cuda_device, dtype):
+    before = stable_topk.launches
+    with pytest.raises(TypeError):
+        stable_topk(torch.zeros(4, 100, device=cuda_device).to(dtype), 3)
+    assert stable_topk.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows,n,k', [(128, 384_546, 10), (1, 384_546, 1), (513, 384_546, 128),
+                                      (128, 4106, 10), (3, 10, 10), (1, 8192, 1),
+                                      (2048, 2_000_000, 10), (1, 2 ** 31 - 1, 1)])
+def test_select_plan_covers_each_row_in_aligned_segments(cuda_device, rows, n, k):
+    """The library's plan: segments of a multiple of 4 elements cover the row
+    with none empty; pass 2 merges at most 2,048 keys; several segments only
+    where each is at least 4,096 long and the grid fits the card's resident
+    blocks (at most 8 blocks of 256 threads an SM)."""
+    plan = select_plan(torch.empty(1, device=cuda_device).expand(rows, n), k)
+    segs, seg_len = plan.segments, plan.segment_length
+    assert plan.rounds == 1 and plan.round_k == k
+    assert seg_len % 4 == 0 and (segs - 1) * seg_len < n <= segs * seg_len
+    assert segs * k <= 2048 and plan.scratch_keys == (rows * segs * k if segs > 1 else 0)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert segs == 1 or (rows * segs <= 8 * sms and seg_len >= 4096)
+
+
+@pytest.mark.cuda
+def test_select_plan_fills_the_card_once_at_the_serving_shape(cuda_device):
+    """The serving cell's 128 rows of 384,546: several segments a row, the
+    grid within one wave of resident blocks; 4,106 items take one."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = select_plan(torch.empty(1, device=cuda_device).expand(128, 384_546), 10)
+    assert plan.segments >= 2 and 128 * plan.segments <= 8 * sms
+    assert select_plan(torch.empty(1, device=cuda_device).expand(128, 4106), 10).segments == 1
+
+
+@pytest.mark.cuda
+def test_dense_request_at_the_serving_shape_takes_one_selection(cuda_device):
+    """``build_retrieval_fn`` at the serving cell's shape (384,546 items, D
+    64, 128 users, k 10): the dense path, one selection launch and no
+    top-k kernel launch, ids and scores equal to the stable sort's over the
+    same score block."""
+    from collie_tpu_torch import MatrixFactorizationModel
+    from collie_tpu_torch.data import Interactions
+    from collie_tpu_torch.retrieval import build_retrieval_fn
+
+    rows, n, k = SELECT_SHAPE
+    rng = np.random.default_rng(0)
+    train = Interactions(users=rng.integers(0, 1000, 5000), items=rng.integers(0, n, 5000),
+                         num_users=1000, num_items=n, allow_missing_ids=True, seed=0)
+    model = MatrixFactorizationModel(train=train, embedding_dim=64, seed=0)
+    users = torch.as_tensor(rng.choice(1000, rows, replace=False), device=model.device)
+    retrieve = build_retrieval_fn(model, k=k)
+    selections, kernel = stable_topk.launches, mf_topk_retrieve.launches
+    ids, scores = retrieve(model.params, users)
+    torch.cuda.synchronize()
+    assert stable_topk.launches == selections + 1
+    assert mf_topk_retrieve.launches == kernel
+    with torch.no_grad():
+        block = model.score_item_block(model.params, users,
+                                       torch.arange(n, device=model.device))
+    ref_scores, ref_ids = stable_topk_plain(block, k)
+    assert torch.equal(ids, ref_ids)
+    assert torch.equal(scores.view(torch.int32), ref_scores.contiguous().view(torch.int32))
 
 
 @pytest.mark.cuda

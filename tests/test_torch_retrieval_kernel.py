@@ -12,11 +12,12 @@ import pytest
 import torch
 
 from collie_tpu.ops.pallas.retrieval_kernel import mf_topk_retrieve as jax_mf_topk_retrieve
-from collie_tpu_torch.ops.kernels.retrieval_kernel import (MAX_K, NEG_INF, TILE_ITEMS,
-                                                           USER_CHUNKS, _merge_tiles,
-                                                           mf_topk_retrieve,
-                                                           mf_topk_retrieve_plain,
-                                                           stable_topk, topk_plan,
+from collie_tpu_torch.ops.kernels.retrieval_kernel import (INT32_MAX, MAX_K, NEG_INF,
+                                                           TILE_ITEMS, USER_CHUNKS,
+                                                           _merge_tiles, mf_topk_retrieve,
+                                                           mf_topk_retrieve_plain, select_plan,
+                                                           stable_topk, stable_topk_plain,
+                                                           topk_plan, topk_select_cuda,
                                                            topk_shared_bytes,
                                                            topk_tiles_plain)
 
@@ -81,6 +82,51 @@ def test_stable_topk_keeps_index_order_on_ties():
     values, idx = stable_topk(scores, 3)
     assert idx.tolist() == [[1, 2, 4], [0, 1, 2]]
     assert values.tolist() == [[3.0, 3.0, 3.0], [0.0, 0.0, 0.0]]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize('k', [1, 10, MAX_K + 1])
+def test_cpu_scores_take_the_stable_sort_without_a_selection(dtype, k):
+    """On the CPU ``stable_topk`` is the full stable sort, whatever the dtype
+    or k, equal values in ascending index order, and the selection kernel's
+    count does not move."""
+    before = stable_topk.launches
+    rng = np.random.default_rng(2)
+    scores = torch.from_numpy(rng.integers(0, 3, (6, 300)).astype(np.float32)).to(dtype)
+    for block in (scores, scores[0], scores.T):
+        values, idx = stable_topk(block, k)
+        ref_values, ref_idx = stable_topk_plain(block, k)
+        assert torch.equal(values, ref_values) and torch.equal(idx, ref_idx)
+        assert values.dtype == dtype and idx.dtype == torch.int64
+        rows = block.float().numpy().reshape(-1, block.shape[-1])
+        order = [np.lexsort((np.arange(len(row)), -row))[:k].tolist() for row in rows]
+        assert idx.reshape(len(rows), -1).tolist() == order
+    assert stable_topk.launches == before
+
+
+@pytest.mark.parametrize('call', [topk_select_cuda, select_plan])
+@pytest.mark.parametrize('scores,k,error', [
+    (torch.zeros(4, 10, dtype=torch.float64), 3, TypeError),
+    (torch.zeros(4, 10, dtype=torch.int32), 3, TypeError),
+    (torch.zeros(4, 10, dtype=torch.bool), 3, TypeError),
+    (torch.zeros(()), 1, ValueError),
+    (torch.zeros(4, 10), -1, ValueError),
+    (torch.empty(1, INT32_MAX + 1, device='meta'), 10, ValueError),
+    (torch.zeros(4, 10), 3, ValueError),                 # not on the card
+    (torch.zeros(4, 10, dtype=torch.float16), 3, ValueError),
+    (torch.zeros(4, 10, dtype=torch.bfloat16), 3, ValueError),
+])
+def test_selection_wrapper_rejects_what_the_kernel_does_not_take(call, scores, k, error):
+    before = stable_topk.launches
+    with pytest.raises(error):
+        call(scores, k)
+    assert stable_topk.launches == before
+
+
+def test_stable_topk_runs_on_cuda_or_cpu_only():
+    with pytest.raises(ValueError, match='cuda or cpu'):
+        stable_topk(torch.empty(4, 10, device='meta'), 3)
 
 
 def test_tile_candidates_mask_the_catalog_tail():
