@@ -99,11 +99,12 @@ non-zero before the result line:
    ``torch.profiler``.  ``fused_mf_epoch``'s launch count over the phase
    must equal the donor's epochs and no other kernel may launch;
 8. trainer (run after phase 5, on its ML-10M-scale data): (a) the
-   bucketed, padded and CSR sampler tables on the card (bytes of each); on
-   one epoch's per-position uniforms the padded and CSR negatives are
-   bit-identical, equal a numpy host reference on ``SAMPLER_HOST_CHECKS``
-   positions, and hold no positive; each pass timed (CUDA events, median
-   of 5) beside the bucketed one; (b) a 3-epoch fit with
+   bucketed and CSR sampler tables on the card (bytes of each), the
+   bucketed ones from the device builder and equal to its build on the
+   CPU; on one epoch's per-position uniforms the CSR negatives equal a
+   numpy host reference on ``SAMPLER_HOST_CHECKS`` positions, and neither
+   sampler's negatives hold a positive; the CSR pass timed (CUDA events,
+   median of 5) beside the bucketed one; (b) a 3-epoch fit with
    ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB=0`` (``auto`` takes the CSR
    sampler) through ``fused_mf_epoch``, whose MAP@10 on the 5,000 test
    users must reach 0.85x phase 5(b)'s; (c) a 3-epoch fit with the
@@ -2328,12 +2329,14 @@ def _count_delta(before: dict) -> dict:
 
 
 def check_samplers(train, smi: str) -> dict:
-    """8(a): the bucketed, padded and CSR tables of the ML-10M-scale train
-    set on the card; the padded and CSR samplers on one epoch's per-position
-    uniforms (the engine's reorder layout, 2 rounds with dedup 1),
-    bit-identical to each other, equal to a numpy host reference on
-    ``SAMPLER_HOST_CHECKS`` positions, and never a positive; each sampler's
-    pass timed beside the bucketed pass over the same epoch."""
+    """8(a): the bucketed and CSR tables of the ML-10M-scale train set on
+    the card, the bucketed ones from the device builder and equal to the
+    same builder run on the CPU copies of the ids; the CSR sampler on one
+    epoch's per-position uniforms (the engine's reorder layout, 2 rounds
+    with dedup 1) equal to a numpy host reference on
+    ``SAMPLER_HOST_CHECKS`` positions, and no positive among its or the
+    bucketed sampler's negatives; the CSR pass timed beside the bucketed
+    pass over the same epoch."""
     from collie_tpu_torch.ops import device_sampling as sampling
 
     mat = train.mat.tocsr()
@@ -2343,22 +2346,28 @@ def check_samplers(train, smi: str) -> dict:
     def put(x):
         return torch.as_tensor(np.ascontiguousarray(x), device=DEVICE)
 
-    specs_np, counts_np, users_g_np, pos_of_np = sampling.build_bucketed_complement_tables(
-        mat, train.mat.row)
-    bucket_specs = tuple((put(r), put(t)) for r, t in specs_np)
-    counts, users_g, pos_of = put(counts_np), put(users_g_np), put(pos_of_np)
-    shifted_pad = put(sampling.build_padded_complement_table(mat)[0])
+    ids = (train.mat.row.astype(np.int64), train.mat.col.astype(np.int64))
+    plan = sampling.plan_bucketed_complement_tables(*map(put, ids), *mat.shape)
+    tables = sampling.build_bucketed_complement_tables_torch(*map(put, ids), *mat.shape,
+                                                             plan=plan)
+    ref = sampling.build_bucketed_complement_tables_torch(*map(torch.as_tensor, ids),
+                                                          *mat.shape)
+    flat = [t for spec in tables[0] for t in spec] + list(tables[1:])
+    flat_ref = [t for spec in ref[0] for t in spec] + list(ref[1:])
+    if len(tables[0]) != len(ref[0]) or not all(
+            a.dtype == b.dtype and torch.equal(a.cpu(), b) for a, b in zip(flat, flat_ref)):
+        raise AssertionError('the bucketed tables built on the card differ from the CPU build')
+    bucket_specs, counts, users_g, pos_of = tables
     indptr_np, shifted_np = sampling.build_complement_tables(mat)
     indptr, shifted = put(indptr_np), put(shifted_np)
     keys = sampling.csr_keys(indptr, shifted)
     nbytes = {
         'bucketed': sum(t.numel() * t.element_size() for spec in bucket_specs for t in spec)
         + users_g.numel() * 4 + pos_of.numel() * 4,
-        'padded': shifted_pad.numel() * 4,
         'csr': indptr.numel() * 4 + shifted.numel() * 4 + keys.numel() * 8}
     log(f'trainer (a) sampler tables on the card, {train.num_users} users: bucketed '
         f'{nbytes["bucketed"]:,} B (tables + slot maps; budget rule counts '
-        f'{sampling.bucketed_table_bytes(mat):,} B), padded {nbytes["padded"]:,} B, '
+        f'{plan.table_bytes:,} B; equal to the CPU build), '
         f'CSR {nbytes["csr"]:,} B (indptr, shifted, int64 keys)')
 
     n = train.num_interactions
@@ -2369,11 +2378,9 @@ def check_samplers(train, smi: str) -> dict:
     idx = torch.cat([perm, perm[:steps * ML10M_BATCH - n]])
     users = put(train.mat.row.astype(np.int32))[idx]
     u01 = torch.rand((2, steps * ML10M_BATCH, k), generator=generator, device=DEVICE)
-    u01_grouped = torch.rand((len(users_g_np), k + sampling.SPARES_PER_ROUND),
+    u01_grouped = torch.rand((users_g.shape[0], k + sampling.SPARES_PER_ROUND),
                              generator=generator, device=DEVICE)
     passes = {
-        'padded': lambda: sampling.complement_sample_negatives_padded_impl(
-            u01, users, shifted_pad, counts, num_items, k, dedup_rounds=1),
         'csr': lambda: sampling.complement_sample_negatives_impl(
             u01, users, indptr, shifted, num_items, k, dedup_rounds=1, keys=keys),
         'bucketed': lambda: sampling.complement_sample_negatives_bucketed(
@@ -2381,9 +2388,6 @@ def check_samplers(train, smi: str) -> dict:
             dedup_rounds=1)}
     negs = {name: fn() for name, fn in passes.items()}
     torch.cuda.synchronize()
-    if not torch.equal(negs['padded'], negs['csr']):
-        raise AssertionError(f'padded and CSR negatives differ at '
-                             f'{int((negs["padded"] != negs["csr"]).sum())} positions')
     positives = sampling.csr_keys(put(mat.indptr.astype(np.int64)), put(mat.indices))
     for name in ('csr', 'bucketed'):
         hits = int(sampling.keys_contain(positives, users[:, None], negs[name]).sum())
@@ -2414,13 +2418,12 @@ def check_samplers(train, smi: str) -> dict:
 
     times = {name: cuda_median_ms(fn, warmup=1, runs=5) for name, fn in passes.items()}
     log(f'trainer (a) one epoch of negatives ({steps * ML10M_BATCH} positions x {k}, dedup 1): '
-        f'padded == CSR bit for bit, both equal the host reference on {SAMPLER_HOST_CHECKS} '
-        f'positions, no positive among {negs["csr"].numel():,} CSR or bucketed negatives; '
-        f'pass ms (CUDA events, median of 5): padded {times["padded"]:.3f}, CSR '
-        f'{times["csr"]:.3f}, bucketed {times["bucketed"]:.3f} ({smi})')
+        f'CSR equal to the host reference on {SAMPLER_HOST_CHECKS} positions, no positive '
+        f'among {negs["csr"].numel():,} CSR or bucketed negatives; pass ms (CUDA events, '
+        f'median of 5): CSR {times["csr"]:.3f}, bucketed {times["bucketed"]:.3f} ({smi})')
     del negs, passes, u01, u01_grouped
     torch.cuda.empty_cache()
-    return {'bytes': nbytes, 'ms': times}
+    return {'bytes': nbytes, 'ms': times, 'table_bytes': plan.table_bytes}
 
 
 def _ml10m_fit(model, epochs, label, smi, sub, **trainer_kw):
@@ -2659,8 +2662,8 @@ def check_custom_optimizer(smi) -> None:
 
 
 def phase_trainer(ml10m, smi: str, ml10m_fit: dict) -> dict:
-    """The rest of the single-device trainer on the card: (a) the padded and
-    CSR samplers at the ML-10M scale; (b) a fit there through the CSR
+    """The rest of the single-device trainer on the card: (a) the bucketed
+    tables and the CSR sampler at the ML-10M scale; (b) a fit there through the CSR
     sampler; (c) one with the approximate loader; (d) checkpoint/resume,
     implicit and explicit; (e) the per-step path against the CPU; (f) a
     custom optimizer factory.  Launch counts over the phase: fused_mf_epoch
@@ -2678,7 +2681,7 @@ def phase_trainer(ml10m, smi: str, ml10m_fit: dict) -> dict:
     # (b) above the table budget, auto routes to the CSR sampler
     os.environ['COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB'] = '0'
     try:
-        if select_sampler(train.mat) != 'csr':
+        if select_sampler(samplers['table_bytes']) != 'csr':
             raise AssertionError('a budget of 0 does not route auto to the CSR sampler')
         before = _kernel_counts()
         _, map_csr = _ml10m_fit(ml10m_model(train), ML10M_EPOCHS,

@@ -9,7 +9,7 @@ serving path of ``MatrixFactorizationModel`` (data, model construction and
 npz load, ``recommend``, ``evaluate_in_batches``) and its training paths
 (``CollieTrainer.fit`` on in-memory implicit loaders, exact or approximate,
 and on explicit ratings with MSE/MAE and ``y_range``, through the fused
-epoch kernels on the card, with the bucketed, padded or CSR sampler;
+epoch kernels on the card, with the bucketed or CSR sampler;
 ``explicit_evaluate_in_batches``), the rest of the single-device trainer
 (checkpoint/resume, JAX checkpoints included; the per-step path for
 ``epoch_mode='step'``, ``PrefetchLoader`` and custom loaders;

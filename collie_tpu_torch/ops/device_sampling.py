@@ -1,19 +1,19 @@
 """On-device negative sampling and membership tests against interaction CSRs.
 
-Port of ``collie_tpu/ops/device_sampling.py``, with the host-side table
-builders copied bit-equal (``build_complement_tables`` ``:45``,
-``build_padded_complement_table`` ``:60``, ``build_bucketed_complement_tables``
-``:87``, ``bucketed_table_bytes`` and ``padded_table_bytes`` ``:328``), the
-bucketed builder again on the device (``build_bucketed_complement_tables_torch``,
-the training engine's: the same tables from the interaction ids where they
-already are, one sort of the pairs and one of the examples, with one host
-read of the buckets' sizes) and the samplers:
+Port of ``collie_tpu/ops/device_sampling.py``: the CSR tables' host builder
+copied bit-equal (``build_complement_tables`` ``:45``), the degree-bucketed
+tables' builder (``:87``) rewritten for the ids' device
+(``build_bucketed_complement_tables_torch``, the one builder, on the card
+and on the CPU: one sort of the pairs and one of the examples, with one
+host read of the buckets' sizes) and the samplers:
 
-* the degree-bucketed complement sampler the training engine takes inside
-  its table budget (the grouped sampler of ``:237-325`` with its
-  spare-based dedup, and the reorder wrapper of ``:198``);
-* the padded and CSR complement samplers (``:339``, ``:411``) the engine
-  takes above that budget, bit-identical to each other;
+* the two exact samplers the training engine takes: the degree-bucketed
+  complement sampler inside its table budget (the grouped sampler of
+  ``:237-325`` with its spare-based dedup, and the reorder wrapper of
+  ``:198``), and the CSR complement sampler (``:411``) above it.  The JAX
+  package's padded sampler (``:339``) is bit-identical to its CSR sampler,
+  so the port has none: ``COLLIE_TPU_SAMPLER=padded`` takes the CSR
+  sampler, whose negatives are the padded sampler's;
 * ``distinct_complement_sample_negatives_impl`` (``:461``, K distinct
   values per row; not used by the engine), ``contains_pairs`` (``:525``),
   the redraw-rounds ``sample_negatives_impl`` (``:572``) and
@@ -30,13 +30,16 @@ Complement sampling: for user ``u`` with ``d_u`` positives, draw
 ``r ~ U[0, num_items - d_u)`` and map it to the ``r``-th non-positive item,
 ``item = r + |{j: shifted_j <= r}|`` with ``shifted_j = positives_j - j``.
 The count is one ``torch.searchsorted(..., right=True)``: over each slot's
-table row in the bucketed and padded samplers (the row, shifted values then
-the sentinel ``num_items``, is sorted, so it equals the JAX version's
+table row in the bucketed sampler (the row, shifted values then the
+sentinel ``num_items``, is sorted, so it equals the JAX version's
 ``sum(row <= r)``), and over int64 flat keys ``user << 31 | shifted_j`` in
 the CSR sampler, where ``searchsorted(keys, (user << 31) + r) -
 indptr[user]`` equals the JAX version's segmented binary search.  A user
-who holds every item has ``complement_size - 1 = -1``: the samplers return
-JAX's value (item ``-1``) and the caller clamps it before any gather.
+who holds every item has no complement: the samplers return JAX's values,
+item ``-1`` from the CSR sampler and ``num_items`` (the sentinel that ends
+the row) from the bucketed one, and the engine clamps them before any
+gather, but on the bucketed reorder path, which JAX's does not clamp
+either.
 
 ``pairs_in_csr``: the JAX version runs a segmented binary search over each
 user's sorted columns because int32 flat keys overflow.  PyTorch has int64,
@@ -79,120 +82,6 @@ def build_complement_tables(csr) -> Tuple[np.ndarray, np.ndarray]:
     return indptr, cols - rank_within_row
 
 
-def build_padded_complement_table(csr, lane: int = 128
-                                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-side precompute for the padded complement sampler.
-
-    Returns ``(shifted_pad [num_users, P], row_counts [num_users])``: row
-    ``u`` holds that user's shifted values padded to ``P`` (the max row
-    length rounded up to a multiple of ``lane``) with the sentinel
-    ``num_items``, which no draw reaches.
-    """
-    csr = csr.tocsr()
-    csr.sort_indices()
-    num_users, num_items = csr.shape
-    indptr = csr.indptr.astype(np.int64)
-    counts = np.diff(indptr).astype(np.int32)
-    max_len = int(counts.max()) if num_users else 0
-    P = max(lane, -(-max_len // lane) * lane)
-    shifted_pad = np.full((num_users, P), num_items, dtype=np.int32)
-    cols = csr.indices.astype(np.int32)
-    rank = np.arange(len(cols), dtype=np.int32) - np.repeat(
-        indptr[:-1], counts).astype(np.int32)
-    row_of = np.repeat(np.arange(num_users, dtype=np.int64), counts)
-    shifted_pad[row_of, rank] = cols - rank
-    return shifted_pad, counts
-
-
-def padded_table_bytes(csr, lane: int = 128) -> int:
-    """Size in bytes of the table ``build_padded_complement_table`` would
-    build."""
-    csr = csr.tocsr()
-    num_users = csr.shape[0]
-    counts = np.diff(csr.indptr)
-    max_len = int(counts.max()) if len(counts) else 0
-    P = max(lane, -(-max_len // lane) * lane)
-    return num_users * P * 4
-
-
-def build_bucketed_complement_tables(csr, example_rows, lane: int = 128,
-                                     chunk: int = 8192):
-    """Host-side precompute for the degree-bucketed gather-free sampler.
-
-    Users are partitioned into power-of-two width buckets (128, 256, ...),
-    each with its own ``[users_in_bucket, P_b]`` table of shifted positives
-    padded with ``num_items``; the epoch's examples are laid out in a fixed
-    GROUPED order (bucket-major, user-sorted within each bucket, each bucket
-    padded to its chunk).
-
-    Returns ``(bucket_specs, row_counts, users_g, pos_of)`` as numpy arrays:
-
-    * ``bucket_specs`` — tuple of ``(row_idx [n_b_pad], table [m_b, P_b])``
-      per nonempty bucket; ``row_idx`` is the bucket-local user row of each
-      grouped slot (chunk padding points at row 0).
-    * ``row_counts [num_users]`` — positives per user.
-    * ``users_g [N_g]`` — global user id per grouped slot (pads -> user 0).
-    * ``pos_of [n_canon]`` — grouped slot of each canonical example.
-    """
-    csr = csr.tocsr()
-    csr.sort_indices()
-    num_users, num_items = csr.shape
-    indptr = csr.indptr.astype(np.int64)
-    counts = np.diff(indptr).astype(np.int32)
-    cols = csr.indices.astype(np.int32)
-    rank = np.arange(len(cols), dtype=np.int32) - np.repeat(
-        indptr[:-1], counts).astype(np.int32)
-    shifted = cols - rank
-
-    max_len = int(counts.max()) if num_users else 0
-    widths = []
-    w = lane
-    while True:
-        widths.append(w)
-        if w >= max(max_len, 1):
-            break
-        w *= 2
-    user_bucket = np.searchsorted(np.asarray(widths), counts)  # deg<=P_b
-    example_rows = np.asarray(example_rows, dtype=np.int64)
-    n_canon = len(example_rows)
-    ex_bucket = user_bucket[example_rows]
-
-    specs = []
-    user_local = np.zeros(num_users, dtype=np.int64)
-    pos_of = np.zeros(n_canon, dtype=np.int32)
-    users_g_parts = []
-    offset = 0
-    for b, P in enumerate(widths):
-        users_b = np.where(user_bucket == b)[0]
-        ex_b = np.where(ex_bucket == b)[0].astype(np.int64)
-        if len(users_b) == 0 or len(ex_b) == 0:
-            continue
-        user_local[users_b] = np.arange(len(users_b))
-        table = np.full((len(users_b), P), num_items, dtype=np.int32)
-        lengths = counts[users_b].astype(np.int64)
-        total = int(lengths.sum())
-        rows_rep = np.repeat(np.arange(len(users_b)), lengths)
-        pos = np.arange(total) - np.repeat(np.cumsum(lengths) - lengths,
-                                           lengths)
-        src = np.repeat(indptr[users_b], lengths) + pos
-        table[rows_rep, pos] = shifted[src]
-        ex_b = ex_b[np.argsort(example_rows[ex_b], kind='stable')]
-        users_of_b = example_rows[ex_b]
-        row_b = user_local[users_of_b].astype(np.int32)
-        pad = -len(ex_b) % min(chunk, _ceil_pow2(len(ex_b)))
-        if pad:
-            row_b = np.concatenate([row_b, np.zeros(pad, np.int32)])
-            users_of_b = np.concatenate(
-                [users_of_b, np.zeros(pad, np.int64)])
-        pos_of[ex_b] = offset + np.arange(len(ex_b), dtype=np.int32)
-        users_g_parts.append(users_of_b.astype(np.int32))
-        offset += len(row_b)
-        specs.append((row_b, table))
-    users_g = (np.concatenate(users_g_parts) if users_g_parts
-               else np.zeros(0, np.int32))
-    return specs, counts, users_g, pos_of
-
-
 def _ceil_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -220,8 +109,8 @@ class BucketedPlan:
 
     @property
     def table_bytes(self) -> int:
-        """``bucketed_table_bytes`` of the pairs, counted from the degrees:
-        every user's row at its bucket's width."""
+        """Device bytes of the tables, counted from the degrees: every
+        user's row at its bucket's width (``select_sampler``'s size)."""
         return 4 * sum(m * w for m, w in zip(self.users_per_bucket, self.widths))
 
 
@@ -233,10 +122,10 @@ def plan_bucketed_complement_tables(users: torch.Tensor, items: torch.Tensor,
     pairs' keys (a repeated pair counts once in the degrees and ranks, as
     ``tocsr()`` merges it), the degrees' buckets, one stable sort of the
     examples (``example_rows``, by default ``users``) by ``(bucket, user)``,
-    which is the host builder's per-bucket stable argsort, and one host
+    which is the JAX builder's per-bucket stable argsort, and one host
     read of the buckets' user and example counts.  The widths run up to
     ``num_items``, past the largest degree: the extra buckets are empty and
-    skipped, as the host builder skips empty buckets."""
+    skipped, as the JAX builder skips empty buckets."""
     device = users.device
     users, items = users.long(), items.long()
     keys = torch.sort((users << _ITEM_BITS) | items).values
@@ -279,14 +168,31 @@ def build_bucketed_complement_tables_torch(users: torch.Tensor, items: torch.Ten
                                            lane: int = 128, chunk: int = 8192,
                                            example_rows: Optional[torch.Tensor] = None,
                                            plan: Optional[BucketedPlan] = None):
-    """``build_bucketed_complement_tables`` on the ids' device, from the
-    interaction ids in their COO order (``example_rows``: the examples'
-    users, by default ``users``; ``plan``: ``plan_bucketed_complement_tables``
-    of the same arguments, made here when None).  Returns its four results
-    as tensors on that device, with the same dtypes, buckets, widths,
-    sentinel, chunk padding and grouped order; the host reads only the
-    plan's bucket counts.  The tables are views into one buffer, whose last
-    element takes the writes of repeated pairs and of empty buckets' users."""
+    """The tables of the degree-bucketed sampler, on the ids' device (the
+    CPU included), from the interaction ids in their COO order
+    (``example_rows``: the examples' users, by default ``users``; ``plan``:
+    ``plan_bucketed_complement_tables`` of the same arguments, made here
+    when None): the arrays of collie_tpu's numpy builder
+    (``collie_tpu/ops/device_sampling.py:87``), value by value and dtype by
+    dtype.  Users are partitioned into power-of-two
+    width buckets (128, 256, ...), each with its own ``[users_in_bucket,
+    P_b]`` table of shifted positives padded with ``num_items``; the
+    epoch's examples are laid out in a fixed GROUPED order (bucket-major,
+    user-sorted within each bucket, each bucket padded to its chunk).
+
+    Returns ``(bucket_specs, row_counts, users_g, pos_of)``:
+
+    * ``bucket_specs`` — tuple of ``(row_idx [n_b_pad], table [m_b, P_b])``
+      per bucket with examples; ``row_idx`` is the bucket-local user row of
+      each grouped slot (chunk padding points at row 0).
+    * ``row_counts [num_users]`` int32 — distinct positives per user.
+    * ``users_g [N_g]`` int32 — global user id per grouped slot (pads ->
+      user 0).
+    * ``pos_of [n_canon]`` int32 — grouped slot of each example.
+
+    The host reads only the plan's bucket counts.  The tables are views
+    into one buffer, whose last element takes the writes of repeated pairs
+    and of empty buckets' users."""
     device = users.device
     if plan is None:
         plan = plan_bucketed_complement_tables(users, items, num_users, num_items,
@@ -325,17 +231,6 @@ def build_bucketed_complement_tables_torch(users: torch.Tensor, items: torch.Ten
         specs.append((row_idx, flat[table_at:table_at + m * width].view(m, width)))
         table_at, slot_at, ex_at = table_at + m * width, slot_at + n + pad, ex_at + n
     return tuple(specs), plan.counts, users_g, pos_of
-
-
-def bucketed_table_bytes(csr, lane: int = 128) -> int:
-    """Device bytes the bucketed sampler's tables would occupy."""
-    csr = csr.tocsr()
-    counts = np.diff(csr.indptr)
-    if len(counts) == 0:
-        return 0
-    widths = lane * (2 ** np.ceil(np.log2(np.maximum(counts, 1) / lane))
-                     .clip(min=0)).astype(np.int64)
-    return int(widths.sum()) * 4
 
 
 def count_at_or_below(rows: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -422,53 +317,6 @@ def _check_draws(draws: torch.Tensor, rounds: int, shape, what: str) -> None:
                          f'got {list(draws.shape)}')
 
 
-def _complement_rounds(u01: torch.Tensor, complement_size: torch.Tensor, count,
-                       dedup_rounds: int) -> torch.Tensor:
-    """The padded and CSR samplers' draw and redraw rounds: round 0 draws
-    every position, each dedup round redraws the within-row duplicates from
-    its own block of ``u01``.  ``count(r)`` is ``|{j: shifted_j <= r}|``."""
-    def draw(u):
-        r = torch.minimum((u * complement_size).to(torch.int32), complement_size - 1)
-        return r + count(r)
-
-    negatives = draw(u01[0])
-    for round_idx in range(dedup_rounds):
-        dup = _duplicate_within_row_mask(negatives)
-        negatives = torch.where(dup, draw(u01[1 + round_idx]), negatives)
-    return negatives
-
-
-def complement_sample_negatives_padded_impl(u01: torch.Tensor,
-                                            user_ids: torch.Tensor,
-                                            shifted_pad: torch.Tensor,
-                                            row_counts: torch.Tensor,
-                                            num_items: int,
-                                            num_negative_samples: int,
-                                            dedup_rounds: int = 1) -> torch.Tensor:
-    """Complement sampling through the padded table: negatives
-    ``user_ids.shape + (K,)`` int32 from uniforms ``u01 [1 + dedup_rounds,
-    *user_ids.shape, K]``, bit-identical to
-    ``complement_sample_negatives_impl`` on the same uniforms.  The count
-    gathers table rows for blocks of users and runs a row-wise
-    ``searchsorted`` over each block, so no ``[n, K, P]`` array exists."""
-    K = num_negative_samples
-    shape = tuple(user_ids.shape) + (K,)
-    _check_draws(u01, 1 + dedup_rounds, shape, 'u01')
-    flat_users = user_ids.reshape(-1).long()
-    complement_size = (num_items - row_counts[flat_users])[:, None].to(torch.int32)
-    step = max(1, _COUNT_BLOCK_ELEMENTS // int(shifted_pad.shape[1]))
-
-    def count(r):
-        outs = []
-        for start in range(0, flat_users.shape[0], step):
-            rows = shifted_pad[flat_users[start:start + step]]        # [c, P]
-            outs.append(count_at_or_below(rows, r[start:start + step].contiguous()))
-        return torch.cat(outs, dim=0) if outs else torch.zeros_like(r)
-
-    flat_u01 = u01.reshape(1 + dedup_rounds, -1, K)
-    return _complement_rounds(flat_u01, complement_size, count, dedup_rounds).reshape(shape)
-
-
 def _csr_count(keys: torch.Tensor, indptr: torch.Tensor, users: torch.Tensor,
                r: torch.Tensor) -> torch.Tensor:
     """``|{j in row u: shifted_j <= r}|`` from the flat keys ``user << 31 |
@@ -489,7 +337,10 @@ def complement_sample_negatives_impl(u01: torch.Tensor,
                                      keys: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Complement sampling through the CSR tables of
     ``build_complement_tables``: negatives ``user_ids.shape + (K,)`` int32
-    from uniforms ``u01 [1 + dedup_rounds, *user_ids.shape, K]``.
+    from uniforms ``u01 [1 + dedup_rounds, *user_ids.shape, K]``.  Round 0
+    draws every position, each dedup round redraws the within-row
+    duplicates from its own block of ``u01``; the negatives are those of
+    the JAX package's padded sampler too, given the same uniforms.
     ``keys`` (``csr_keys(indptr, shifted_cols)``) may be passed when the
     tables serve many calls."""
     K = num_negative_samples
@@ -501,9 +352,16 @@ def complement_sample_negatives_impl(u01: torch.Tensor,
     complement_size = (num_items - (indptr[flat_users + 1] - indptr[flat_users])
                        )[:, None].to(torch.int32)
     flat_u01 = u01.reshape(1 + dedup_rounds, -1, K)
-    return _complement_rounds(flat_u01, complement_size,
-                              lambda r: _csr_count(keys, indptr, flat_users, r),
-                              dedup_rounds).reshape(shape)
+
+    def draw(u):
+        r = torch.minimum((u * complement_size).to(torch.int32), complement_size - 1)
+        return r + _csr_count(keys, indptr, flat_users, r)
+
+    negatives = draw(flat_u01[0])
+    for round_idx in range(dedup_rounds):
+        dup = _duplicate_within_row_mask(negatives)
+        negatives = torch.where(dup, draw(flat_u01[1 + round_idx]), negatives)
+    return negatives.reshape(shape)
 
 
 def distinct_complement_sample_negatives_impl(u01: torch.Tensor,

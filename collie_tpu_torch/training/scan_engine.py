@@ -40,10 +40,8 @@ the envelope, its plain version on the CPU, the generic epoch outside it;
 ``0``: the generic epoch) for a trainer's ``fused=None``;
 ``COLLIE_TPU_FUSED_TABLES=0`` keeps the generic epoch on the named table
 layout; ``COLLIE_TPU_SLOT_EPOCH=0`` sends the bucketed sampler down the
-reorder path (below); ``COLLIE_TPU_SHUFFLE`` (``feistel``, the default, or
-``sort``: a ``torch.randperm`` from a generator seeded by the trainer's seed
-and the epoch, whose stream cannot be JAX's, so its parity is
-distributional only).  ``calculate_loss`` reads two more at each call, as
+reorder path (below).  Every epoch shuffles through the Feistel
+permutation.  ``calculate_loss`` reads two more at each call, as
 the JAX package reads them when it traces a step:
 ``COLLIE_TPU_SPARSE_ADAPTIVE=0`` keeps its dense form and
 ``COLLIE_TPU_BF16_SELECT=0`` makes MF's selection pass float32.
@@ -61,19 +59,21 @@ and the batch assembly use no boolean masks or host reads, the learning
 rates and the live flag reach the kernels in device memory, and the epoch's
 time split is kept as CUDA events, read after the caller's next sync.
 
-Exact sampling chooses its sampler as the JAX engine does
-(``scan_engine.py:291-306``): ``COLLIE_TPU_SAMPLER`` (``auto``, ``bucketed``,
-``padded`` or ``csr``; any other value means ``csr``) and, for ``auto``, the
-table budget ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB`` (default 1024): the
-degree-bucketed tables when they fit it, else the padded table when it
-fits, else the CSR tables (a budget of 0 routes ``auto`` to ``csr``).  The
-bucketed tables are built on the model's device from the ids the epoch
-uploads (``build_bucketed_complement_tables_torch``), and sized from the
-degrees that build counts there; the padded and CSR tables are built on the
-host and uploaded.  The
-bucketed tables take at least 512 B a user, so above 2,097,152 users the
-default budget routes to the CSR sampler, whose tables grow with the
-interactions alone.
+Exact sampling takes one of two samplers (``select_sampler``):
+``COLLIE_TPU_SAMPLER`` (``auto``, the default, or ``bucketed``; any other
+value means ``csr``) and, for ``auto``, the table budget
+``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB`` (default 1024): the degree-bucketed
+tables when they fit it, else the CSR tables (a budget of 0 routes
+``auto`` to ``csr``).  The JAX engine's padded sampler
+(``scan_engine.py:291-306``) is bit-identical to its CSR sampler, and its
+``auto`` never takes it, so ``COLLIE_TPU_SAMPLER=padded`` gives the CSR
+sampler's identical negatives here.  The bucketed tables are built on the
+model's device from the ids the epoch uploads
+(``build_bucketed_complement_tables_torch``), and sized from the degrees
+that build counts there (``BucketedPlan.table_bytes``); the CSR tables are
+built on the host and uploaded.  The bucketed tables take at least 512 B a user, so above
+2,097,152 users the default budget routes to the CSR sampler, whose tables
+grow with the interactions alone.
 
 Epoch layouts follow the JAX engine: ``(row, col)`` ids packed into one
 int32 where they fit; the slot-domain one-gather epoch when shuffling
@@ -81,8 +81,8 @@ packable implicit ids with at most 2% bucket-pad slots (``:331-375``,
 ``:409-445``), whose pad slots are clamped into the item range before any
 gather (``_unpack_rows``, ``:496-527``); the reorder path otherwise, and
 always for explicit data (``items`` and ``ratings`` gathered by the same
-permutation, ``:465-467``) and for the padded and CSR samplers, which draw
-per batch position (``:470-487``).
+permutation, ``:465-467``) and for the CSR sampler, which draws per batch
+position (``:470-487``).
 
 Under a mesh (``build_scan_epoch_fns(mesh=)``) every rank draws the whole
 epoch from the seed as one device does, through the same shuffle and
@@ -107,8 +107,8 @@ split, so any count trains.
 Randomness: per epoch one generator stream (seeded from the trainer's seed
 and the epoch) gives the four Feistel keys, then the sampler's draws:
 ``[N_g, K + 2 * dedup_rounds]`` uniforms for the bucketed sampler, ``[1 +
-dedup_rounds, S * B, K]`` (one block per round) for the padded and CSR
-samplers, ``[S * B, K]`` item ids for approximate sampling (an explicit
+dedup_rounds, S * B, K]`` (one block per round) for the CSR sampler,
+``[S * B, K]`` item ids for approximate sampling (an explicit
 epoch draws the keys alone).  It
 cannot reproduce JAX's threefry draws; ``draw_epoch`` is the one place the
 draws are made, so a test can hand it JAX's keys and uniforms instead.
@@ -124,11 +124,9 @@ import torch
 
 from collie_tpu_torch.data import ExplicitInteractions, Interactions, InteractionsDataLoader
 from collie_tpu_torch.ops.device_sampling import (
-    SPARES_PER_ROUND, bucketed_table_bytes, build_bucketed_complement_tables_torch,
-    build_complement_tables, build_padded_complement_table,
+    SPARES_PER_ROUND, build_bucketed_complement_tables_torch, build_complement_tables,
     complement_sample_negatives_bucketed, complement_sample_negatives_bucketed_grouped,
-    complement_sample_negatives_impl, complement_sample_negatives_padded_impl, csr_keys,
-    padded_table_bytes, plan_bucketed_complement_tables)
+    complement_sample_negatives_impl, csr_keys, plan_bucketed_complement_tables)
 from collie_tpu_torch.ops.kernels.fused_mf_epoch import (MAX_DIM, _lr_value, fused_mf_epoch,
                                                          fused_mf_explicit_epoch)
 from collie_tpu_torch.ops.shuffle import draw_feistel_keys, feistel_permutation_from_keys
@@ -214,24 +212,19 @@ def _fused_epoch_config(model, specs, active, loader, mesh=None) -> Optional[dic
             'emb_idx': emb_idx, 'bias_idx': bias_idx}
 
 
-def select_sampler(mat, bucketed_bytes: Optional[int] = None) -> str:
-    """The exact sampler an epoch over ``mat`` takes: ``'bucketed'``,
-    ``'padded'`` or ``'csr'``, chosen by ``COLLIE_TPU_SAMPLER`` and, for
-    ``auto``, ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB`` (the JAX engine's rule,
-    ``scan_engine.py:295-306``).  ``bucketed_bytes``: the bucketed tables'
-    size when known (``BucketedPlan.table_bytes``, counted from the
-    degrees), else ``bucketed_table_bytes(mat)``."""
+def select_sampler(bucketed_bytes: int) -> str:
+    """The exact sampler an epoch takes, ``'bucketed'`` or ``'csr'``, from
+    its bucketed tables' size (``BucketedPlan.table_bytes``):
+    ``COLLIE_TPU_SAMPLER=bucketed`` takes the bucketed tables, ``auto`` (the
+    default) takes them when they fit ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB``,
+    and any other value, ``padded`` included, the CSR sampler (the module
+    docstring says why)."""
     budget = float(os.environ.get('COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB',
                                   _PADDED_SAMPLER_BUDGET_MB)) * 2 ** 20
     kind = os.environ.get('COLLIE_TPU_SAMPLER', 'auto')
-    if kind == 'auto':
-        if bucketed_bytes is None:
-            bucketed_bytes = bucketed_table_bytes(mat)
-        if bucketed_bytes <= budget:
-            return 'bucketed'
-        # never taken by the default budget (bucketed <= padded), as in JAX
-        return 'padded' if padded_table_bytes(mat) <= budget else 'csr'
-    return kind if kind in ('bucketed', 'padded') else 'csr'
+    if kind == 'bucketed' or (kind == 'auto' and bucketed_bytes <= budget):
+        return 'bucketed'
+    return 'csr'
 
 
 def loader_is_scannable(loader) -> bool:
@@ -248,7 +241,7 @@ def draw_epoch(seed: int, epoch_idx: int, training: bool, device,
     ``(seed, epoch, training)``: the four Feistel keys (when ``perm_n`` is
     set), then the sampler's draws of
     ``sample_shape`` — float32 uniforms for exact sampling (a leading axis
-    of draw rounds for the padded and CSR samplers), item ids in
+    of draw rounds for the CSR sampler), item ids in
     ``[0, num_items)`` for approximate sampling."""
     generator = torch.Generator(device=device)
     generator.manual_seed((int(seed) * 1_000_003 + int(epoch_idx) * 2 + int(training))
@@ -531,7 +524,6 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     # explicit data has no negatives (``num_negative_samples`` raises there)
     K = 0 if explicit else inter.num_negative_samples
     exact = not explicit and inter.exact_negative_sampling
-    shuffle_kind = os.environ.get('COLLIE_TPU_SHUFFLE', 'feistel')
     slot_epoch = os.environ.get('COLLIE_TPU_SLOT_EPOCH', '1') != '0'
 
     def put(x):
@@ -553,7 +545,7 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
     sampler = None
     item_mask = (1 << item_bits) - 1
     # the sampler's choice and its complement tables: the bucketed ones built
-    # on the device from the ids uploaded above, the others on the host
+    # on the device from the ids uploaded above, the CSR ones on the host
     with annotate('collie.fit.sampler_tables'):
         if exact:
             if packable:
@@ -561,7 +553,7 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             else:
                 ids = (data['rows'], data['cols'])
             plan = plan_bucketed_complement_tables(*ids, *inter.mat.shape)
-            sampler = select_sampler(inter.mat, plan.table_bytes)
+            sampler = select_sampler(plan.table_bytes)
         if sampler == 'bucketed':
             (data['bucket_specs'], data['row_counts'], data['users_g'],
              pos_of) = build_bucketed_complement_tables_torch(
@@ -585,10 +577,6 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                 slot_tail = S * B - N_g
             else:
                 data['pos_of'] = pos_of
-        elif sampler == 'padded':
-            pad_np, counts_np = build_padded_complement_table(inter.mat)
-            data['shifted_pad'] = put(pad_np)
-            data['row_counts'] = put(counts_np)
         elif sampler == 'csr':
             indptr_np, shifted_np = build_complement_tables(inter.mat)
             data['indptr'] = put(indptr_np)
@@ -644,17 +632,6 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             shape = (S * B, K)
         return draw_epoch(seed, epoch_idx, training, device, perm_n, shape, num_items, exact)
 
-    def _permutation(keys, seed, epoch_idx, size):
-        """The epoch's shuffle of ``arange(size)``: the Feistel cycle-walk
-        under the drawn keys, or for ``COLLIE_TPU_SHUFFLE=sort`` a
-        ``torch.randperm`` from its own generator."""
-        if shuffle_kind != 'sort':
-            return feistel_permutation_from_keys(keys, size)
-        generator = torch.Generator(device=device)
-        generator.manual_seed(int(np.random.SeedSequence(
-            [int(seed), int(epoch_idx), int(training), 5]).generate_state(1, np.uint64)[0]))
-        return torch.randperm(size, generator=generator, device=device)
-
     def _epoch_batches(seed, epoch_idx) -> Dict[str, torch.Tensor]:
         """The whole epoch on the device: ``users``/``pos_items`` ``[S, B]``
         int32, ``neg_items [S, B, K]`` int32 (in the item range), ``mask
@@ -663,7 +640,7 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
         keys, samples = _draws(seed, epoch_idx)
         if 'packed_slots' in data:
             n_slots = S * B - slot_tail
-            sigma = _permutation(keys, seed, epoch_idx, n_slots)
+            sigma = feistel_permutation_from_keys(keys, n_slots)
             sidx = torch.cat([sigma, sigma[:1].repeat(slot_tail)]) if slot_tail else sigma
             clock.mark()
             negs_g = complement_sample_negatives_bucketed_grouped(
@@ -686,7 +663,7 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
                 'neg_items': torch.clamp(rows[..., 2:], max=num_items - 1).contiguous(),
             }
         if keys is not None:
-            perm = _permutation(keys, seed, epoch_idx, n)[:n_used]
+            perm = feistel_permutation_from_keys(keys, n)[:n_used]
         else:
             perm = torch.arange(n_used, device=device)
         idx = torch.cat([perm, perm[:1].repeat(pad)]) if pad else perm
@@ -705,15 +682,10 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             negs = complement_sample_negatives_bucketed(
                 samples, idx, data['pos_of'], data['users_g'], data['bucket_specs'],
                 data['row_counts'], num_items, K, dedup_rounds=dedup_rounds)
-        elif sampler is not None:
-            if sampler == 'padded':
-                negs = complement_sample_negatives_padded_impl(
-                    samples, users_flat, data['shifted_pad'], data['row_counts'],
-                    num_items, K, dedup_rounds=dedup_rounds)
-            else:
-                negs = complement_sample_negatives_impl(
-                    samples, users_flat, data['indptr'], data['shifted_cols'], num_items,
-                    K, dedup_rounds=dedup_rounds, keys=data['csr_keys'])
+        elif sampler == 'csr':
+            negs = complement_sample_negatives_impl(
+                samples, users_flat, data['indptr'], data['shifted_cols'], num_items, K,
+                dedup_rounds=dedup_rounds, keys=data['csr_keys'])
             # a user holding every item draws -1: clamp before any gather
             negs = torch.clamp(negs, 0, num_items - 1)
         else:
@@ -908,11 +880,10 @@ def build_hdf5_chunk_make(model, specs, active: List[bool], loader,
     mask, seed, epoch_idx, chunk_idx) -> (params, opt_states, loss_sum)``
     over flat ``[num_steps * B]`` device tensors (int32 ids, float32 mask):
     the chunk's draws (``draw_chunk``), its in-chunk shuffle (the Feistel
-    permutation, on the card the cycle-walk kernel; ``COLLIE_TPU_SHUFFLE=sort``
-    a ``torch.randperm``) applied to ids and mask together, then one
-    ``train_step`` a batch, on the fused table layout where the model has
-    one (``COLLIE_TPU_FUSED_TABLES``, read here as JAX reads it at
-    ``:751-754``).  ``loss_sum`` is the 0-d sum of the per-step losses on
+    permutation, on the card the cycle-walk kernel) applied to ids and mask
+    together, then one ``train_step`` a batch, on the fused table layout
+    where the model has one (``COLLIE_TPU_FUSED_TABLES``, read here as JAX
+    reads it at ``:751-754``).  ``loss_sum`` is the 0-d sum of the per-step losses on
     the device; the trainer divides the epoch's total by the real step
     count.  Like JAX's chunk tier it trains through the autodiff step and
     never through ``fused_mf_epoch``, and sampling is approximate, as for
@@ -922,7 +893,6 @@ def build_hdf5_chunk_make(model, specs, active: List[bool], loader,
     K = inter.num_negative_samples
     num_items = inter.num_items
     device = model.device
-    shuffle_kind = os.environ.get('COLLIE_TPU_SHUFFLE', 'feistel')
     fuse_tables = (os.environ.get('COLLIE_TPU_FUSED_TABLES', 'auto') != '0'
                    and model.supports_fused_tables())
     with_dropout = not model._score_is_deterministic()
@@ -936,14 +906,7 @@ def build_hdf5_chunk_make(model, specs, active: List[bool], loader,
                                                 C if permute else None, (C, K), num_items,
                                                 num_steps, with_dropout)
             if permute:
-                if shuffle_kind == 'sort':
-                    generator = torch.Generator(device=device)
-                    generator.manual_seed(int(np.random.SeedSequence(
-                        [int(seed), int(epoch_idx), int(chunk_idx), 7]).generate_state(
-                            1, np.uint64)[0]) % (2 ** 63))
-                    perm = torch.randperm(C, generator=generator, device=device)
-                else:
-                    perm = feistel_permutation_from_keys(keys, C)
+                perm = feistel_permutation_from_keys(keys, C)
                 users, items, mask = users[perm], items[perm], mask[perm]
             batches = {'users': users.reshape(num_steps, B),
                        'pos_items': items.reshape(num_steps, B),

@@ -245,14 +245,13 @@ def test_chunked_tier_deterministic(ragged_store):
     assert any(not torch.equal(m1.params[k], m3.params[k]) for k in m1.params)
 
 
-@pytest.mark.parametrize('shuffle_kind,dropout', [('sort', 0.0), ('feistel', 0.2)])
+@pytest.mark.parametrize('shuffle_kind,dropout', [('feistel', 0.0), ('feistel', 0.2)])
 def test_chunked_tier_other_shuffles_and_dropout_are_seeded(ragged_store, monkeypatch,
                                                             shuffle_kind, dropout):
-    """``COLLIE_TPU_SHUFFLE=sort`` (a ``torch.randperm`` a chunk, seeded from
-    ``(seed, epoch, chunk)``) and a model with dropout (one seed a step from
-    ``draw_chunk``) train through the chunk tier, finite, and repeat bit
-    for bit from one seed."""
-    monkeypatch.setenv('COLLIE_TPU_SHUFFLE', shuffle_kind)
+    """A model without dropout and one with dropout (one seed a step from
+    ``draw_chunk``) train through the chunk tier's Feistel shuffle, the one
+    it has (``shuffle_kind``), finite, and repeat bit for bit from one
+    seed."""
     path, *_ = ragged_store
     params = []
     for _ in range(2):

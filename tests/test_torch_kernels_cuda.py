@@ -607,16 +607,15 @@ def test_whole_fit_on_the_card_reads_nothing_back_inside_a_flight(cuda_device, m
 
 @pytest.mark.cuda
 def test_device_bucketed_tables_match_the_numpy_builder(cuda_device):
-    """The bucketed sampler's tables built on the card equal the numpy
-    builder's at ~1M pairs (skewed degrees, a user holding every item,
-    users with none, repeated pairs, a shuffled order), and the build waits
-    on the card once: its read of the buckets' sizes."""
+    """The bucketed sampler's tables built on the card equal the same
+    builder's run on the CPU copies of the ids (which
+    ``tests/test_torch_sampler_tables.py`` holds to collie_tpu's numpy
+    builder) at ~1M pairs (skewed degrees, a user holding every item, users
+    with none, repeated pairs, a shuffled order), and the build waits on the
+    card once: its read of the buckets' sizes."""
     import warnings
 
-    from scipy.sparse import coo_matrix
-
-    from collie_tpu_torch.ops.device_sampling import (build_bucketed_complement_tables,
-                                                      build_bucketed_complement_tables_torch)
+    from collie_tpu_torch.ops.device_sampling import build_bucketed_complement_tables_torch
 
     rng = np.random.default_rng(17)
     num_users, num_items = 20_000, 10_681
@@ -626,8 +625,8 @@ def test_device_bucketed_tables_match_the_numpy_builder(cuda_device):
     items = np.concatenate([items, np.arange(num_items), items[:50_000]])
     order = rng.permutation(users.shape[0])
     users, items = users[order], items[order]
-    mat = coo_matrix((np.ones(users.shape[0]), (users, items)), shape=(num_users, num_items))
-    ref = build_bucketed_complement_tables(mat, users)
+    ref = build_bucketed_complement_tables_torch(torch.as_tensor(users), torch.as_tensor(items),
+                                                 num_users, num_items)
     on_card = torch.as_tensor(users, device=cuda_device), torch.as_tensor(items,
                                                                           device=cuda_device)
     torch.cuda.synchronize()
@@ -643,5 +642,5 @@ def test_device_bucketed_tables_match_the_numpy_builder(cuda_device):
     flat_got = [t for pair in got[0] for t in pair] + list(got[1:])
     flat_ref = [a for pair in ref[0] for a in pair] + list(ref[1:])
     for g, r in zip(flat_got, flat_ref):
-        assert g.device.type == 'cuda' and g.cpu().numpy().dtype == r.dtype
-        np.testing.assert_array_equal(g.cpu().numpy(), r)
+        assert g.device.type == 'cuda' and g.dtype == r.dtype
+        assert torch.equal(g.cpu(), r)

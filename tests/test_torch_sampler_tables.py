@@ -1,9 +1,10 @@
 """The bucketed sampler's tables built on the device
-(``build_bucketed_complement_tables_torch``, here on the CPU) against
-collie_tpu's numpy builder, array by array and dtype by dtype; the
-degree-based sizing ``select_sampler`` is given against
-``bucketed_table_bytes``; and the training engine's epochs, which now take
-the device builder, against the same engine fed the numpy builder's tables.
+(``build_bucketed_complement_tables_torch``, the port's one builder, here on
+the CPU) against collie_tpu's numpy builder, array by array and dtype by
+dtype; the degree-based sizing ``select_sampler`` is given against
+collie_tpu's ``bucketed_table_bytes``; and the training engine's epochs,
+which take the device builder, against the same engine fed collie_tpu's
+tables.
 """
 import numpy as np
 import pytest
@@ -29,8 +30,26 @@ def _skewed_pairs(rng):
     return rows, cols
 
 
+def _skewed_problem():
+    """40 users x 700 items in user order (``tests/test_device_sampling.py``'s
+    skewed problem): one user of degree 400, the boundary degrees 129, 128
+    and 127, the rest 1-59."""
+    rng = np.random.default_rng(5)
+    degrees = rng.integers(1, 60, 40)
+    degrees[:4] = [400, 129, 128, 127]
+    rows = np.repeat(np.arange(40), degrees)
+    cols = np.concatenate([rng.choice(NUM_ITEMS, d, replace=False) for d in degrees])
+    return rows, cols
+
+
 def _case(name):
-    """``(rows, cols, example_rows or None, chunk)`` of one case."""
+    """``(rows, cols, example_rows or None, chunk, num_users)`` of one case."""
+    if name.startswith('skewed_'):           # buckets of 128, 256 and 512
+        return (*_skewed_problem(), None, int(name[len('skewed_'):]), 40)
+    return (*_standard_case(name), NUM_USERS)
+
+
+def _standard_case(name):
     rng = np.random.default_rng(17)
     rows, cols = _skewed_pairs(rng)
     if name == 'user_order':                 # bucket 1 under the chunk, the rest over it
@@ -59,9 +78,9 @@ def _case(name):
 CASES = ['user_order', 'one_chunk', 'shuffled', 'duplicates', 'subset']
 
 
-def _device_tables(rows, cols, example_rows, chunk):
+def _device_tables(rows, cols, example_rows, chunk, num_users=NUM_USERS):
     return T.build_bucketed_complement_tables_torch(
-        torch.as_tensor(rows), torch.as_tensor(cols), NUM_USERS, NUM_ITEMS, chunk=chunk,
+        torch.as_tensor(rows), torch.as_tensor(cols), num_users, NUM_ITEMS, chunk=chunk,
         example_rows=None if example_rows is None else torch.as_tensor(example_rows))
 
 
@@ -75,40 +94,40 @@ def _assert_tables_equal(got, ref):
         np.testing.assert_array_equal(g.numpy(), r)
 
 
-@pytest.mark.parametrize('name', CASES)
+@pytest.mark.parametrize('name', CASES + ['skewed_256', 'skewed_8192'])
 def test_device_builder_equals_jax_builder(name):
-    rows, cols, example_rows, chunk = _case(name)
-    mat = coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(NUM_USERS, NUM_ITEMS))
+    rows, cols, example_rows, chunk, num_users = _case(name)
+    mat = coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(num_users, NUM_ITEMS))
     ex = rows if example_rows is None else example_rows
     ref = J.build_bucketed_complement_tables(mat, ex, chunk=chunk)
-    got = _device_tables(rows, cols, example_rows, chunk)
+    got = _device_tables(rows, cols, example_rows, chunk, num_users)
     _assert_tables_equal(got, ref)
     widths = [int(t.shape[1]) for _, t in got[0]]
     if name == 'subset':
         assert 256 not in widths             # bucket 1 (user 3 alone) has no example
     else:
-        assert widths == [128, 256, 512, 1024]
+        assert widths == ([128, 256, 512] if name.startswith('skewed_')
+                          else [128, 256, 512, 1024])
     if name != 'subset':
         plan = T.plan_bucketed_complement_tables(torch.as_tensor(rows), torch.as_tensor(cols),
-                                                 NUM_USERS, NUM_ITEMS)
+                                                 num_users, NUM_ITEMS)
         sizes = [n for n in plan.examples_per_bucket if n]
         assert min(sizes) < chunk and (chunk == 8192 or max(sizes) > chunk)
 
 
 @pytest.mark.parametrize('name', CASES)
 def test_select_sampler_sizes_from_degrees(name, monkeypatch):
-    rows, cols, example_rows, _ = _case(name)
+    rows, cols, example_rows, _, _ = _case(name)
     mat = coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(NUM_USERS, NUM_ITEMS))
     plan = T.plan_bucketed_complement_tables(
         torch.as_tensor(rows), torch.as_tensor(cols), NUM_USERS, NUM_ITEMS,
         None if example_rows is None else torch.as_tensor(example_rows))
     nbytes = J.bucketed_table_bytes(mat)
-    assert plan.table_bytes == nbytes == T.bucketed_table_bytes(mat)
+    assert plan.table_bytes == nbytes
     # the budget at the tables' size takes them, a byte less does not
     for budget, expected in ((nbytes, 'bucketed'), (nbytes - 1, 'csr')):
         monkeypatch.setenv('COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB', repr(budget / 2 ** 20))
-        assert scan_engine.select_sampler(mat, plan.table_bytes) == expected
-        assert scan_engine.select_sampler(mat) == expected
+        assert scan_engine.select_sampler(plan.table_bytes) == expected
 
 
 def test_device_builder_with_no_examples():

@@ -1,14 +1,16 @@
-"""The padded, CSR, distinct and redraw-rounds samplers of
+"""The CSR, distinct and redraw-rounds samplers of
 ``collie_tpu_torch.ops.device_sampling`` and the engine's sampler routing,
 against collie_tpu on the CPU.
 
 The samplers take their draws as inputs, one block per round; given JAX's
 draws (``jax.random.split`` of the sampler's key, in order) they must
-return JAX's negatives exactly, degenerate users included.  The engine
-chooses its sampler from ``COLLIE_TPU_SAMPLER`` and
-``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB`` as JAX's does, and an engine epoch
-over the padded or CSR sampler, given JAX's epoch draws through the
-patched ``draw_epoch``, holds exactly JAX's sampler output at its batch
+return JAX's negatives exactly, degenerate users included.  The port has
+no padded sampler: its CSR sampler must return what JAX's padded sampler
+returns too.  The engine chooses its sampler from ``COLLIE_TPU_SAMPLER``
+and ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB`` as JAX's does, but for
+``padded``, which takes the CSR sampler; an engine epoch under
+``COLLIE_TPU_SAMPLER=padded`` or ``csr``, given JAX's epoch draws through
+the patched ``draw_epoch``, holds exactly JAX's sampler output at its batch
 positions; the epoch's training then matches JAX's at the tolerance of
 ``tests/test_torch_training.py`` (params within ``5e-4 * max|param|``,
 loss within rtol 1e-4).
@@ -81,8 +83,7 @@ def _split_uniforms(key, rounds, shape):
                                       for k in jax.random.split(key, rounds)]))
 
 
-@pytest.mark.parametrize('builder', ['build_complement_tables',
-                                     'build_padded_complement_table'])
+@pytest.mark.parametrize('builder', ['build_complement_tables'])
 def test_table_builders_are_bit_equal(problem, builder):
     mat, _ = problem
     ref = getattr(jax_sampling, builder)(mat)
@@ -90,32 +91,30 @@ def test_table_builders_are_bit_equal(problem, builder):
     for a, b in zip(out, ref):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    assert sampling.padded_table_bytes(mat) == jax_sampling.padded_table_bytes(mat)
-    assert sampling.bucketed_table_bytes(mat) == jax_sampling.bucketed_table_bytes(mat)
 
 
 @pytest.mark.parametrize('dedup', [0, 1, 2])
 @pytest.mark.parametrize('K', [1, 5])
 @pytest.mark.parametrize('kind', ['padded', 'csr'])
 def test_complement_samplers_equal_jax_given_its_draws(problem, kind, K, dedup):
+    """The port's CSR sampler against JAX's ``kind`` sampler, on its draws."""
     mat, users = problem
     key = jax.random.PRNGKey(10 * K + dedup)
     indptr, shifted = jax_sampling.build_complement_tables(mat)
-    pad, counts = jax_sampling.build_padded_complement_table(mat)
     if kind == 'padded':
+        pad, counts = jax_sampling.build_padded_complement_table(mat)
         ref = jax_sampling.complement_sample_negatives_padded_impl(
             key, jnp.asarray(users), jnp.asarray(pad), jnp.asarray(counts), NUM_ITEMS, K,
             dedup_rounds=dedup)
-        tables = (torch.from_numpy(pad), torch.from_numpy(counts))
-        fn = sampling.complement_sample_negatives_padded_impl
     else:
         ref = jax_sampling.complement_sample_negatives(
             key, jnp.asarray(users), jnp.asarray(indptr), jnp.asarray(shifted), NUM_ITEMS, K,
             dedup_rounds=dedup)
-        tables = (torch.from_numpy(indptr), torch.from_numpy(shifted))
-        fn = sampling.complement_sample_negatives
     u01 = _split_uniforms(key, 1 + dedup, users.shape + (K,))
-    out = fn(u01, torch.from_numpy(users), *tables, NUM_ITEMS, K, dedup_rounds=dedup)
+    out = sampling.complement_sample_negatives(u01, torch.from_numpy(users),
+                                               torch.from_numpy(indptr),
+                                               torch.from_numpy(shifted), NUM_ITEMS, K,
+                                               dedup_rounds=dedup)
     assert out.dtype == torch.int32
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
@@ -163,18 +162,42 @@ def test_rounds_sampler_equals_jax_given_its_draws(problem, K, exact):
         jnp.asarray(keys), jnp.asarray(users)[:, None], jnp.asarray(ref), NUM_ITEMS)))
 
 
-def test_degenerate_users(problem):
-    """User 0 (one non-positive) always draws it; user 1 (no non-positive)
-    gets JAX's -1; user 2 (three non-positives) draws only those, and the
-    distinct sampler gives it its three items then repeats, as JAX does."""
+@pytest.mark.parametrize('kind', ['csr', 'bucketed'])
+def test_degenerate_users(problem, kind):
+    """User 0 (one non-positive) always draws it; user 2 (three
+    non-positives) draws only those; user 1 (no non-positive) draws JAX's
+    value, which the engine clamps before any gather: -1 from the CSR
+    sampler, ``num_items`` (the sentinel that ends its table row) from the
+    bucketed grouped sampler, here on the device builder's tables run on
+    the CPU and JAX's uniforms.  The distinct sampler gives user 2 its
+    three items then repeats, as JAX does."""
     mat, _ = problem
     users = np.repeat(np.arange(3, dtype=np.int32), 64)
+    missing = [np.setdiff1d(np.arange(NUM_ITEMS), mat[u].indices) for u in range(3)]
     indptr, shifted = sampling.build_complement_tables(mat)
+    if kind == 'bucketed':
+        coo = mat.tocoo()
+        specs, counts, users_g, _ = sampling.build_bucketed_complement_tables_torch(
+            torch.as_tensor(coo.row), torch.as_tensor(coo.col), NUM_USERS, NUM_ITEMS,
+            example_rows=torch.from_numpy(users))
+        key = jax.random.PRNGKey(0)
+        out = sampling.complement_sample_negatives_bucketed_grouped(
+            torch.from_numpy(np.array(jax.random.uniform(key, (users_g.shape[0], 7)))),
+            users_g, specs, counts, NUM_ITEMS, 5).numpy()
+        ref = jax_sampling.complement_sample_negatives_bucketed_grouped_impl(
+            key, jnp.asarray(users_g.numpy()),
+            tuple((jnp.asarray(r.numpy()), jnp.asarray(t.numpy())) for r, t in specs),
+            jnp.asarray(counts.numpy()), NUM_ITEMS, 5)
+        np.testing.assert_array_equal(out, np.asarray(ref))
+        slot_users = users_g.numpy()             # pad slots are user 0's
+        assert (out[slot_users == 0] == missing[0][0]).all()
+        assert (out[slot_users == 1] == NUM_ITEMS).all()
+        assert np.isin(out[slot_users == 2], missing[2]).all()
+        return
     u01 = _split_uniforms(jax.random.PRNGKey(0), 2, users.shape + (5,))
     out = sampling.complement_sample_negatives(
         u01, torch.from_numpy(users), torch.from_numpy(indptr), torch.from_numpy(shifted),
         NUM_ITEMS, 5).numpy()
-    missing = [np.setdiff1d(np.arange(NUM_ITEMS), mat[u].indices) for u in range(3)]
     assert (out[users == 0] == missing[0][0]).all()
     assert (out[users == 1] == -1).all()
     assert np.isin(out[users == 2], missing[2]).all()
@@ -220,7 +243,9 @@ TABLE_OF = {'bucketed': 'bucket_specs', 'padded': 'shifted_pad', 'csr': 'indptr'
 @pytest.mark.parametrize('env,kind', SELECTIONS)
 def test_routing_matches_jax(env, kind, monkeypatch):
     """The sampler each package's engine builds tables for, by env and
-    budget (the pattern of ``tests/test_device_sampling.py:206,244``).  The
+    budget (the pattern of ``tests/test_device_sampling.py:206,244``):
+    ``kind`` is JAX's, and the port's too but for ``padded``, which takes
+    the port's CSR sampler (its negatives are the padded sampler's).  The
     bucketed tables take 51,200 B here, as much as the padded table, so
     ``auto`` never takes ``padded`` (bucketed <= padded always): a budget
     of 0.04 MB routes to ``csr``, 0.05 MB to ``bucketed``."""
@@ -231,26 +256,39 @@ def test_routing_matches_jax(env, kind, monkeypatch):
                                         jax_model.train_loader, shuffle=True)
     fn, data, _, _ = scan_engine.build_scan_epoch_fns(
         model, model.optimizer_specs(), [True, True], model.train_loader, shuffle=True)
-    assert fn.sampler == kind
+    port_kind = 'csr' if kind == 'padded' else kind
+    assert fn.sampler == port_kind
     for other, table in TABLE_OF.items():
-        assert (table in data) == (table in jax_data) == (other == kind), table
+        assert (table in jax_data) == (other == kind), table
+        assert (table in data) == (other == port_kind), table
 
 
 @pytest.mark.parametrize('kind', ['padded', 'csr'])
 def test_engine_epoch_equals_jax_given_its_draws(kind, monkeypatch):
+    """Under ``COLLIE_TPU_SAMPLER=kind`` the port's epoch (the CSR sampler
+    for both) holds JAX's ``kind`` sampler's negatives, and its training
+    JAX's engine's under the same setting."""
     monkeypatch.setenv('COLLIE_TPU_SAMPLER', kind)
     monkeypatch.setenv('COLLIE_TPU_SPARSE_ADAPTIVE', '0')
     monkeypatch.setattr(scan_engine, 'draw_epoch', jax_draws)
     jax_model, model = _pair()
     fn, data, S, _ = scan_engine.build_scan_epoch_fns(
         model, model.optimizer_specs(), [True, True], model.train_loader, shuffle=True)
+    assert fn.sampler == 'csr'
     batches = fn.epoch_batches(0, 1)
     # JAX's sampler on the epoch's batch positions, with its own key
     sample_rng = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), 1), 3)[1]
     users = jnp.asarray(batches['users'].reshape(-1).numpy())
-    indptr, shifted = jax_sampling.build_complement_tables(model.train_loader.mat)
-    ref = jax_sampling.complement_sample_negatives_impl(
-        sample_rng, users, jnp.asarray(indptr), jnp.asarray(shifted), 300, 3, dedup_rounds=1)
+    mat = model.train_loader.mat
+    if kind == 'padded':
+        pad, counts = jax_sampling.build_padded_complement_table(mat)
+        ref = jax_sampling.complement_sample_negatives_padded_impl(
+            sample_rng, users, jnp.asarray(pad), jnp.asarray(counts), 300, 3, dedup_rounds=1)
+    else:
+        indptr, shifted = jax_sampling.build_complement_tables(mat)
+        ref = jax_sampling.complement_sample_negatives_impl(
+            sample_rng, users, jnp.asarray(indptr), jnp.asarray(shifted), 300, 3,
+            dedup_rounds=1)
     np.testing.assert_array_equal(batches['neg_items'].reshape(-1, 3).numpy(), np.asarray(ref))
     assert batches['users'].shape == (S, 500)
 

@@ -1,11 +1,12 @@
 """The port's degree-bucketed complement sampler against collie_tpu's.
 
-The host-side table builders must be bit-equal; given JAX's uniforms
-(``jax.random.uniform(rng, (N_g, K + 2 * dedup_rounds))``) the grouped
-sampler must return identical negatives, padding and dedup included; and
-the invariants of ``tests/test_device_sampling.py`` (never a positive,
-uniform over the complement, pad positions repeat the first, dedup reduces
-duplicates) hold for the port on its own draws.
+Given JAX's uniforms (``jax.random.uniform(rng, (N_g, K + 2 *
+dedup_rounds))``) and JAX's tables the grouped sampler must return
+identical negatives, padding and dedup included; and the invariants of
+``tests/test_device_sampling.py`` (never a positive, uniform over the
+complement, pad positions repeat the first, dedup reduces duplicates) hold
+for the port on its own draws and its own tables (the device builder, run
+on the CPU; ``tests/test_torch_sampler_tables.py`` holds it to JAX's).
 """
 import jax
 import jax.numpy as jnp
@@ -41,20 +42,11 @@ def _torch_tables(tables):
             torch.from_numpy(counts), torch.from_numpy(users_g), torch.from_numpy(pos_of))
 
 
-@pytest.mark.parametrize('chunk', [256, 8192])
-def test_bucketed_tables_bit_equal(skewed_problem, chunk):
-    mat, ex_rows, _ = skewed_problem
-    ref = J.build_bucketed_complement_tables(mat, ex_rows, chunk=chunk)
-    got = T.build_bucketed_complement_tables(mat, ex_rows, chunk=chunk)
-    assert len(got[0]) == len(ref[0]) >= 3
-    for (r1, t1), (r2, t2) in zip(ref[0], got[0]):
-        np.testing.assert_array_equal(r2, r1)
-        np.testing.assert_array_equal(t2, t1)
-        assert r2.dtype == r1.dtype and t2.dtype == t1.dtype
-    for a, b in zip(ref[1:], got[1:]):
-        np.testing.assert_array_equal(b, a)
-        assert b.dtype == a.dtype
-    assert T.bucketed_table_bytes(mat) == J.bucketed_table_bytes(mat)
+def _device_tables(mat, ex_rows):
+    """The port's tables: the device builder over the COO pairs, on the CPU."""
+    return T.build_bucketed_complement_tables_torch(
+        torch.as_tensor(mat.row), torch.as_tensor(mat.col), *mat.shape, chunk=256,
+        example_rows=torch.as_tensor(ex_rows))
 
 
 @pytest.mark.parametrize('K,dedup_rounds', [(8, 0), (8, 1), (3, 2), (1, 1)])
@@ -100,10 +92,10 @@ def test_searchsorted_count_equals_the_comparison_count(skewed_problem):
     """``searchsorted(right=True)`` on a sorted table row, padding
     (``num_items``) included, is the JAX version's ``sum(row <= r)``."""
     mat, ex_rows, num_items = skewed_problem
-    specs, *_ = T.build_bucketed_complement_tables(mat, ex_rows, chunk=256)
+    specs, *_ = _device_tables(mat, ex_rows)
     rng = np.random.default_rng(0)
     for row_idx, table in specs:
-        rows = torch.from_numpy(table[row_idx])
+        rows = table[row_idx.long()]
         r = torch.from_numpy(rng.integers(0, num_items + 1, (len(row_idx), 12))
                              .astype(np.int32))
         expected = (rows[:, None, :] <= r[:, :, None]).sum(-1).to(torch.int32)
@@ -111,8 +103,7 @@ def test_searchsorted_count_equals_the_comparison_count(skewed_problem):
 
 
 def _sample(mat, ex_rows, num_items, K, dedup_rounds=1, seed=0, idx=None):
-    specs, counts, users_g, pos_of = _torch_tables(
-        T.build_bucketed_complement_tables(mat, ex_rows, chunk=256))
+    specs, counts, users_g, pos_of = _device_tables(mat, ex_rows)
     generator = torch.Generator().manual_seed(seed)
     u01 = torch.rand((len(users_g), K + T.SPARES_PER_ROUND * dedup_rounds), generator=generator)
     if idx is None:
@@ -145,8 +136,7 @@ def test_port_dedup_reduces_duplicates(skewed_problem):
 
 def test_uniforms_of_the_wrong_shape_raise(skewed_problem):
     mat, ex_rows, num_items = skewed_problem
-    specs, counts, users_g, _ = _torch_tables(
-        T.build_bucketed_complement_tables(mat, ex_rows, chunk=256))
+    specs, counts, users_g, _ = _device_tables(mat, ex_rows)
     with pytest.raises(ValueError, match='u01 must be'):
         T.complement_sample_negatives_bucketed_grouped(
             torch.rand(len(users_g), 8), users_g, specs, counts, num_items, 8, dedup_rounds=1)

@@ -63,15 +63,13 @@ def test_cpu_keys_take_the_plain_version_and_give_int32():
         feistel_permutation_from_keys(keys, 1)
 
 
-def _mf_loader(monkeypatch, slot_epoch=None, shuffle_kind=None):
+def _mf_loader(monkeypatch, slot_epoch=None):
     from collie_tpu_torch import Interactions, InteractionsDataLoader, MatrixFactorizationModel
 
-    for name, value in (('COLLIE_TPU_SLOT_EPOCH', slot_epoch),
-                        ('COLLIE_TPU_SHUFFLE', shuffle_kind)):
-        if value is None:
-            monkeypatch.delenv(name, raising=False)
-        else:
-            monkeypatch.setenv(name, value)
+    if slot_epoch is None:
+        monkeypatch.delenv('COLLIE_TPU_SLOT_EPOCH', raising=False)
+    else:
+        monkeypatch.setenv('COLLIE_TPU_SLOT_EPOCH', slot_epoch)
     # 64 users of degree 64: full buckets, so the slot-domain epoch is eligible
     inter = Interactions(users=np.repeat(np.arange(64), 64), items=np.tile(np.arange(64), 64),
                          num_users=64, num_items=256, num_negative_samples=3,
@@ -100,22 +98,26 @@ def test_slot_epoch_knob(monkeypatch, setting, slots):
     assert torch.equal(torch.sort(pairs).values, torch.sort(expected.to(pairs.dtype)).values)
 
 
-@pytest.mark.parametrize('kind', ['feistel', 'sort'])
-def test_shuffle_knob(monkeypatch, kind):
-    """``COLLIE_TPU_SHUFFLE=sort`` shuffles with a ``torch.randperm`` from
-    the epoch's own generator: another order than the Feistel walk's, the
-    same from run to run, a new one each epoch, every example once."""
-    from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns
+@pytest.mark.parametrize('layout', ['slot', 'reorder'])
+def test_shuffle_knob(monkeypatch, layout):
+    """Both layouts shuffle through the Feistel walk under the keys
+    ``draw_epoch`` gives: the slot-domain epoch over its grouped slots, the
+    reorder epoch over the examples.  The order is the same from run to
+    run, a new one each epoch, every example once."""
+    from collie_tpu_torch.training.scan_engine import build_scan_epoch_fns, draw_epoch
 
-    orders = {}
-    for shuffle_kind in ('feistel', kind):
-        model, loader = _mf_loader(monkeypatch, slot_epoch='0', shuffle_kind=shuffle_kind)
-        fn, *_ = build_scan_epoch_fns(model, model.optimizer_specs(), [True, True], loader,
-                                      shuffle=True)
-        epochs = [fn.epoch_batches(0, e) for e in (1, 1, 2)]
-        orders[shuffle_kind] = [b['users'].reshape(-1)[b['mask'].reshape(-1) > 0]
-                                for b in epochs]
-    first, again, later = orders[kind]
+    model, loader = _mf_loader(monkeypatch, slot_epoch='1' if layout == 'slot' else '0')
+    fn, data, *_ = build_scan_epoch_fns(model, model.optimizer_specs(), [True, True], loader,
+                                        shuffle=True)
+    packed = data['packed_slots' if layout == 'slot' else 'packed']
+    assert ('packed_slots' in data) == (layout == 'slot')
+    orders = []
+    for epoch in (1, 1, 2):
+        users = fn.epoch_batches(0, epoch)['users'].reshape(-1)
+        keys, _ = draw_epoch(0, epoch, True, 'cpu', packed.shape[0], None, 256, True)
+        perm = feistel_permutation_from_keys(keys, packed.shape[0]).long()
+        assert torch.equal(users[:packed.shape[0]], packed[perm] >> 8)   # 8 item bits
+        orders.append(users[:packed.shape[0]])
+    first, again, later = orders
     assert torch.equal(first, again) and not torch.equal(first, later)
     assert torch.equal(torch.sort(first).values, torch.sort(later).values)
-    assert torch.equal(first, orders['feistel'][0]) == (kind == 'feistel')

@@ -397,8 +397,9 @@ def no_host_reads(allowed):
                                    'explicit'])
 @pytest.mark.parametrize('fused', ['0', '1'])
 def test_no_host_read_inside_a_flight(small_sets, monkeypatch, route, fused):
-    """Each sampler route and the explicit route, generic and fused (its
-    plain version), with validation, early stopping and the NaN trip: no
+    """Each sampler route (``COLLIE_TPU_SAMPLER=padded`` takes the CSR
+    sampler) and the explicit route, generic and fused (its plain
+    version), with validation, early stopping and the NaN trip: no
     tensor value is read back while a flight is dispatched.  The cycle-walk
     stands in for its kernel (its plain version reads the host by design)."""
     from collie_tpu_torch import ExplicitInteractions, Interactions
@@ -422,6 +423,10 @@ def test_no_host_read_inside_a_flight(small_sets, monkeypatch, route, fused):
     kwargs = {}
     if route == 'approximate':
         from collie_tpu_torch import ApproximateNegativeSamplingInteractionsDataLoader as Approx
+        # the loader switches the shared Interactions to approximate sampling
+        # in place: restore it for the exact routes after this one
+        monkeypatch.setattr(train, 'max_number_of_samples_to_consider',
+                            train.max_number_of_samples_to_consider)
         kwargs['train'] = Approx(train, batch_size=BATCH, seed=0)
     elif route == 'explicit':
         rng = np.random.default_rng(0)
@@ -458,6 +463,8 @@ def test_no_host_read_inside_a_flight(small_sets, monkeypatch, route, fused):
     epoch_fn = scan_engine.build_scan_epoch_fns(
         model, model.optimizer_specs(), [True, True], model.train_loader, shuffle=True)[0]
     assert epoch_fn.fused == (fused == '1')
+    if route in ('padded', 'csr'):
+        assert epoch_fn.sampler == 'csr'         # ``padded`` takes the CSR sampler
     if route == 'bucketed':
         assert epoch_fn.sampler == 'bucketed'
         assert 'packed_slots' in scan_engine.build_scan_epoch_fns(
