@@ -104,7 +104,10 @@ non-zero before the result line:
    CPU; on one epoch's per-position uniforms the CSR negatives equal a
    numpy host reference on ``SAMPLER_HOST_CHECKS`` positions, and neither
    sampler's negatives hold a positive; the CSR pass timed (CUDA events,
-   median of 5) beside the bucketed one; (b) a 3-epoch fit with
+   median of 5) beside the bucketed one; the bucketed sampler's kernel
+   (``csrc/bucketed_sample.cu``) equal to its plain version on one epoch's
+   grouped uniforms (K = 10, one dedup round), one launch, both timed
+   beside the kernel's bytes bound; (b) a 3-epoch fit with
    ``COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB=0`` (``auto`` takes the CSR
    sampler) through ``fused_mf_epoch``, whose MAP@10 on the 5,000 test
    users must reach 0.85x phase 5(b)'s; (c) a 3-epoch fit with the
@@ -122,8 +125,11 @@ non-zero before the result line:
    losses within ``STEP_RTOL``; no kernel launches); (f) a momentum-SGD
    optimizer factory at the gate configuration for 2 epochs (the generic
    epoch; the train loss falls).  Over the phase ``fused_mf_epoch`` must
-   launch 3 + 3 + 5 + 2 times, ``fused_mf_explicit_epoch`` 15, the others 0
-   but the cycle-walk (every scan-mode epoch shuffles through it);
+   launch 3 + 3 + 5 + 2 times, ``fused_mf_explicit_epoch`` 15, the bucketed
+   sampler kernel (a)'s 14 + 5 + 2 + 2, the others 0 but the cycle-walk
+   (every scan-mode epoch shuffles through it).  From phase 5 on, every
+   phase that fits through the bucketed sampler holds the sampler kernel's
+   launches to one for each epoch drawn (``SAMPLER_WRAPPER``);
 9. whole_fit (``phase_whole_fit``; every fit above already took the whole
    fit, ``CollieTrainer``'s default, unless it checkpoints or steps): (a)
    the Feistel cycle-walk kernel (``csrc/shuffle.cu``) against its plain
@@ -225,7 +231,8 @@ non-zero before the result line:
    comment) and one mesh step's collectives, counted by kind.
    ``tools/mesh_training.py`` runs the configuration across the cards of
    one host;
-15. the kernels line (one JSON object, six kernels), the card's name and
+15. the kernels line (one JSON object, seven kernels: the sampler kernel's
+   launches are those of every phase, its times 8(a)'s), the card's name and
    power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--epoch-times`` runs phases 1-2 and times one epoch call of each epoch
@@ -466,6 +473,7 @@ def log(*args):
 
 def kernel_wrappers():
     """Every kernel wrapper of the port, each with its ``launches`` count."""
+    from collie_tpu_torch.ops.device_sampling import complement_sample_negatives_bucketed_grouped
     from collie_tpu_torch.ops.kernels.fused_mf_epoch import (fused_mf_epoch,
                                                              fused_mf_explicit_epoch)
     from collie_tpu_torch.ops.kernels.gather_scatter import binned_gather_scatter
@@ -473,7 +481,8 @@ def kernel_wrappers():
     from collie_tpu_torch.ops.shuffle import feistel_permutation_from_keys
 
     return (mf_topk_retrieve, fused_mf_epoch, fused_mf_explicit_epoch, binned_gather_scatter,
-            feistel_permutation_from_keys, stable_topk)
+            feistel_permutation_from_keys, stable_topk,
+            complement_sample_negatives_bucketed_grouped)
 
 
 def reset_launch_counts():
@@ -1798,8 +1807,10 @@ def phase_training(ml10m, record: dict):
     epochs += trainer.num_epochs_completed
     launches = fused_mf_epoch.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != epochs or trainer.num_epochs_completed != ML10M_EPOCHS:
-        raise AssertionError(f'{launches} kernel launches for {epochs} epochs')
+    sampled = _kernel_counts()[SAMPLER_WRAPPER]
+    if launches != epochs or trainer.num_epochs_completed != ML10M_EPOCHS or sampled != epochs:
+        raise AssertionError(f'{launches} kernel launches, {sampled} sampler kernel launches '
+                             f'for {epochs} epochs')
     log(f'ML-10M-scale fit ({train.num_interactions} train interactions, batch {ML10M_BATCH}, '
         f'{ML10M_EPOCHS} epochs): {fit_s:.2f}s incl. epoch-data build, '
         f'{trainer.last_fit_examples_per_sec:,.0f} examples/s, peak device memory '
@@ -1819,14 +1830,14 @@ def phase_training(ml10m, record: dict):
     torch.cuda.synchronize()
     log(f'  {ML10M_EVAL_USERS} test users: MAP@{K}={map_k:.5f} MRR={mrr_v:.5f} AUC={auc_v:.5f} '
         f'(untrained MAP@{K}={untrained_map:.5f}); fused_mf_epoch launches over both fits '
-        f'{launches} for {epochs} epochs')
+        f'{launches}, the bucketed sampler kernel {sampled}, for {epochs} epochs')
     if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in (map_k, mrr_v, auc_v)):
         raise AssertionError(f'metrics out of range: {map_k}, {mrr_v}, {auc_v}')
     if not map_k > untrained_map:
         raise AssertionError(f'trained MAP@{K} {map_k} does not beat untrained {untrained_map}')
     record['launches'] = launches
     record['shuffle_launches'] = _kernel_counts()[SHUFFLE_WRAPPER]
-    return {'mapk': map_k, 'untrained_mapk': untrained_map}
+    return {'mapk': map_k, 'untrained_mapk': untrained_map, 'sampler_launches': sampled}
 
 
 def ml10m_eval_users(test):
@@ -1993,7 +2004,8 @@ def phase_zoo(smi: str, zoo: dict) -> dict:
     """The single-stage zoo and embedding dropout: each model of
     ``ZOO_MODELS`` built on the card at the zoo-scale configuration, fit for
     ``ZOO_EPOCHS`` through ``CollieTrainer`` (the generic autograd epoch: no
-    zoo model, nor an MF with dropout, is in a kernel's envelope),
+    zoo model, nor an MF with dropout, is in an epoch kernel's envelope;
+    each epoch draws through the bucketed sampler kernel),
     evaluated before and after, and asked for one ``recommend`` of
     ``REQUEST_USERS`` users with seen filtering (the blockwise path for the
     zoo), held against a stable top-k of ``score_item_block`` over the
@@ -2045,11 +2057,13 @@ def phase_zoo(smi: str, zoo: dict) -> dict:
     log(f'zoo phase: kernel launches {launches} (the zoo and MF with dropout train through '
         f'the generic epoch, shuffled by the cycle-walk kernel, and serve through the dense '
         f'and blockwise paths)')
+    sampled = ZOO_EPOCHS * len(ZOO_MODELS) + len(ZOO_PROFILED)
     if launches.pop(SHUFFLE_WRAPPER) < 1 or launches.pop('stable_topk') != selections \
-            or any(launches.values()):
+            or launches.pop(SAMPLER_WRAPPER) != sampled or any(launches.values()):
         raise AssertionError(f'zoo path: kernel launches {_kernel_counts()}, expected '
-                             f'{selections} selections')
+                             f'{selections} selections, {sampled} sampler launches')
     results['selections'] = selections
+    results['sampler_launches'] = sampled
     return results
 
 
@@ -2281,9 +2295,13 @@ def phase_multi_stage(smi: str, zoo: dict) -> dict:
     expected['fused_mf_epoch'] = MULTI_STAGE_DONOR_EPOCHS
     expected[SHUFFLE_WRAPPER] = launches[SHUFFLE_WRAPPER]
     expected['stable_topk'] = selections
+    # the donor's epoch, every stage's epochs and HybridModel's profiled one
+    expected[SAMPLER_WRAPPER] = MULTI_STAGE_DONOR_EPOCHS + 1 + sum(
+        epochs for _, _, plan in MULTI_STAGE_MODELS for _, epochs in plan)
     if launches != expected or not launches[SHUFFLE_WRAPPER]:
         raise AssertionError(f'multi_stage kernel launches {launches}, expected {expected}')
     results['selections'] = selections
+    results['sampler_launches'] = expected[SAMPLER_WRAPPER]
     return results
 
 
@@ -2318,6 +2336,14 @@ class _MomentumSGD:
 
 #: the cycle-walk's wrapper in ``_kernel_counts``
 SHUFFLE_WRAPPER = 'feistel_permutation_from_keys'
+#: the bucketed sampler kernel's dispatcher in ``_kernel_counts``: one
+#: launch for each epoch a fit draws through the bucketed sampler, training
+#: and validation alike (a whole fit draws every epoch of the blocks it
+#: dispatched, also those after an early stop)
+SAMPLER_WRAPPER = 'complement_sample_negatives_bucketed_grouped'
+#: 8(a)'s launches of the sampler kernel: its pass through the reorder
+#: wrapper and its held launch, each checked once and timed (1 + 5 calls)
+SAMPLER_CHECK_LAUNCHES = 2 * (1 + 1 + 5)
 
 
 def _kernel_counts() -> dict:
@@ -2326,6 +2352,49 @@ def _kernel_counts() -> dict:
 
 def _count_delta(before: dict) -> dict:
     return {k: v - before[k] for k, v in _kernel_counts().items()}
+
+
+def drawn_epochs(fit: dict) -> int:
+    """The epochs a ``record_fit`` of an implicit model drew, each through
+    the bucketed sampler kernel once: every epoch its blocks dispatched (the
+    per-epoch loop: every epoch it ran), twice with a validation loader."""
+    return len(fit['ran']) * (2 if fit['model'].val_loader is not None else 1)
+
+
+def sampler_problem(chunk: int, device):
+    """The bucketed tables of interactions whose degrees fill every bucket
+    from width 128 to 16,384 on 9,000 items: a user holding every item,
+    users of degree 5,000, 3,000, 1,500, 700, 300, 129, 128 and 127, 400 of
+    1 to 60, and an odd number of pairs; built on ``device`` with
+    ``chunk``.  Returns ``(bucket_specs, row_counts, users_g, num_items)``."""
+    from collie_tpu_torch.ops.device_sampling import build_bucketed_complement_tables_torch
+
+    rng = np.random.default_rng(chunk)
+    num_items = 9_000
+    degrees = [num_items, 5_000, 3_000, 1_500, 700, 300, 129, 128, 127]
+    degrees += rng.integers(1, 61, 400).tolist()
+    degrees += [1] * (1 - sum(degrees) % 2)
+    users = np.repeat(np.arange(len(degrees)), degrees)
+    items = np.concatenate([rng.choice(num_items, d, replace=False) for d in degrees])
+    order = rng.permutation(users.shape[0])
+    specs, counts, users_g, _ = build_bucketed_complement_tables_torch(
+        torch.as_tensor(users[order], device=device), torch.as_tensor(items[order], device=device),
+        len(degrees), num_items, chunk=chunk)
+    return specs, counts, users_g, num_items
+
+
+def sampler_uniforms(n_slots: int, width: int, seed: int) -> np.ndarray:
+    """Float32 uniforms ``[n_slots, width]`` built to repeat values within a
+    row: every third row's first four from one uniform, every ninth row's
+    all of them (so spares collide again and duplicates remain), and the
+    ends of the range, 0 and the largest float32 below 1."""
+    rng = np.random.default_rng(seed)
+    u = rng.random((n_slots, width), dtype=np.float32)
+    u[::3, 1:4] = u[::3, :1]
+    u[::9] = u[::9, :1]
+    u[5::7, -1] = np.nextafter(np.float32(1), np.float32(0))
+    u[6::7, 0] = 0
+    return u
 
 
 def check_samplers(train, smi: str) -> dict:
@@ -2421,9 +2490,58 @@ def check_samplers(train, smi: str) -> dict:
         f'CSR equal to the host reference on {SAMPLER_HOST_CHECKS} positions, no positive '
         f'among {negs["csr"].numel():,} CSR or bucketed negatives; pass ms (CUDA events, '
         f'median of 5): CSR {times["csr"]:.3f}, bucketed {times["bucketed"]:.3f} ({smi})')
-    del negs, passes, u01, u01_grouped
+    del negs, passes, u01
     torch.cuda.empty_cache()
-    return {'bytes': nbytes, 'ms': times, 'table_bytes': plan.table_bytes}
+    grouped = check_sampler_kernel(u01_grouped, users_g, bucket_specs, counts, num_items, k, smi)
+    del u01_grouped
+    torch.cuda.empty_cache()
+    return {'bytes': nbytes, 'ms': times, 'table_bytes': plan.table_bytes, 'kernel': grouped}
+
+
+def check_sampler_kernel(u01, users_g, bucket_specs, counts, num_items, k, smi) -> dict:
+    """8(a): the bucketed sampler's kernel against its plain version on one
+    epoch's grouped uniforms at the main path's shape (one dedup round),
+    value for value in one launch; both timed (CUDA events, median of 5)
+    beside the kernel's bound, the bytes it must move over 3.35 TB/s: the
+    uniforms, each slot's user, row index and count read, its negatives
+    written, the tables read once."""
+    from collie_tpu_torch.ops import device_sampling as sampling
+
+    fns = {'kernel': lambda: sampling.complement_sample_negatives_bucketed_grouped_cuda(
+               u01, users_g, bucket_specs, counts, num_items, k, dedup_rounds=1),
+           'plain': lambda: sampling.complement_sample_negatives_bucketed_grouped_plain(
+               u01, users_g, bucket_specs, counts, num_items, k, dedup_rounds=1)}
+    before = sampling.complement_sample_negatives_bucketed_grouped.launches
+    got, want = fns['kernel'](), fns['plain']()
+    torch.cuda.synchronize()
+    launches = sampling.complement_sample_negatives_bucketed_grouped.launches - before
+    differ = int((got != want).sum())
+    if launches != 1 or differ:
+        raise AssertionError(f'sampler kernel: {launches} launches, {differ} of {got.numel():,} '
+                             f'negatives differ from the plain version')
+    n_slots, width = u01.shape
+    nbytes = (n_slots * (4 * width + 12 + 4 * k)
+              + sum(table.numel() * 4 for _, table in bucket_specs))
+    ms = {name: cuda_median_ms(fn, warmup=1, runs=5) for name, fn in fns.items()}
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f'trainer (a) sampler kernel, {n_slots:,} grouped slots x {width} uniforms, '
+        f'{len(bucket_specs)} buckets: equal to the plain version in all {got.numel():,} '
+        f'negatives, 1 launch; ms (CUDA events, median of 5): kernel {ms["kernel"]:.4f}, '
+        f'bound {bound_ms:.4f} ({nbytes:,} B), plain {ms["plain"]:.3f} ({smi})')
+    return {
+        'name': 'bucketed_sample',
+        'route': 'cuda',
+        'source': 'collie_tpu_torch/csrc/bucketed_sample.cu',
+        'replaces': 'collie_tpu/ops/device_sampling.py:237',
+        'launches': 0,
+        'max_abs_err': 0.0,
+        'ms': ms['kernel'],
+        'plain_ms': ms['plain'],
+        'bound_ms': bound_ms,
+        'bound_by': 'bytes',
+        'library_ms': None,
+        'checked': True,
+    }
 
 
 def _ml10m_fit(model, epochs, label, smi, sub, **trainer_kw):
@@ -2667,7 +2785,10 @@ def phase_trainer(ml10m, smi: str, ml10m_fit: dict) -> dict:
     sampler; (c) one with the approximate loader; (d) checkpoint/resume,
     implicit and explicit; (e) the per-step path against the CPU; (f) a
     custom optimizer factory.  Launch counts over the phase: fused_mf_epoch
-    3 + 3 + 5 + 2, fused_mf_explicit_epoch 10 + 5, the others 0."""
+    3 + 3 + 5 + 2, fused_mf_explicit_epoch 10 + 5, the bucketed sampler
+    kernel ``SAMPLER_CHECK_LAUNCHES`` + 5 + 2 + 2 (the fits through the CSR
+    sampler and the approximate loader draw none), the others 0 but the
+    cycle-walk."""
     from collie_tpu_torch import (ApproximateNegativeSamplingInteractionsDataLoader,
                                   MatrixFactorizationModel)
     from collie_tpu_torch.training.scan_engine import select_sampler
@@ -2688,7 +2809,8 @@ def phase_trainer(ml10m, smi: str, ml10m_fit: dict) -> dict:
                                 '(b) ML-10M-scale fit through the CSR sampler', smi, sub)
     finally:
         del os.environ['COLLIE_TPU_PADDED_SAMPLER_BUDGET_MB']
-    if _count_delta(before)['fused_mf_epoch'] != ML10M_EPOCHS:
+    if _count_delta(before)['fused_mf_epoch'] != ML10M_EPOCHS \
+            or _count_delta(before)[SAMPLER_WRAPPER]:
         raise AssertionError(f'CSR fit: launches {_count_delta(before)}')
     if not map_csr >= 0.85 * ml10m_fit['mapk']:
         raise AssertionError(f'CSR-sampled MAP@{K} {map_csr} < 0.85 x {ml10m_fit["mapk"]}')
@@ -2706,7 +2828,8 @@ def phase_trainer(ml10m, smi: str, ml10m_fit: dict) -> dict:
                                    '(c) ML-10M-scale fit with the approximate loader', smi, sub)
     finally:
         train.max_number_of_samples_to_consider = saved
-    if _count_delta(before)['fused_mf_epoch'] != ML10M_EPOCHS:
+    if _count_delta(before)['fused_mf_epoch'] != ML10M_EPOCHS \
+            or _count_delta(before)[SAMPLER_WRAPPER]:
         raise AssertionError(f'approximate fit: launches {_count_delta(before)}')
     if not map_approx > ml10m_fit['untrained_mapk']:
         raise AssertionError(f'approximate MAP@{K} {map_approx} does not beat untrained '
@@ -2723,7 +2846,9 @@ def phase_trainer(ml10m, smi: str, ml10m_fit: dict) -> dict:
     expected = {'mf_topk_retrieve': 0,
                 'fused_mf_epoch': 2 * ML10M_EPOCHS + 2 * RESUME_EPOCHS - RESUME_FROM,
                 'fused_mf_explicit_epoch': 15, 'binned_gather_scatter': 0,
-                SHUFFLE_WRAPPER: launches[SHUFFLE_WRAPPER], 'stable_topk': 0}
+                SHUFFLE_WRAPPER: launches[SHUFFLE_WRAPPER], 'stable_topk': 0,
+                # 8(a), the checkpointed fit and its resumed tail, (f)'s 2 epochs
+                SAMPLER_WRAPPER: SAMPLER_CHECK_LAUNCHES + 2 * RESUME_EPOCHS - RESUME_FROM + 2}
     log(f'trainer phase: kernel launches {launches} (expected {expected}); '
         f'{time.perf_counter() - start:.1f}s')
     if launches != expected or not launches[SHUFFLE_WRAPPER]:
@@ -2911,7 +3036,7 @@ def phase_whole_fit(ml10m: dict, smi: str) -> dict:
     ml_whole = record_fit(lambda: ml10m_model(train), True, 'ML-10M', smi, guard=sync_errors,
                           epochs=ML10M_EPOCHS, seed=7)
     launches = _kernel_counts()
-    if launches['fused_mf_epoch'] != GATE_EPOCHS + ML10M_EPOCHS:
+    if not launches['fused_mf_epoch'] == launches[SAMPLER_WRAPPER] == GATE_EPOCHS + ML10M_EPOCHS:
         raise AssertionError(f'whole fits under sync errors: launches {launches}')
     log(f'whole_fit (c) the gate fit ({GATE_EPOCHS} epochs) and the ML-10M fit '
         f'({ML10M_EPOCHS}) ran with set_sync_debug_mode("error") around every flight: no '
@@ -2923,7 +3048,7 @@ def phase_whole_fit(ml10m: dict, smi: str) -> dict:
 
     # (e) examples/s of each tier, in the order per-epoch, whole, whole,
     # per-epoch, so that neither tier alone pays for a cold first fit
-    rates = {}
+    rates, before = {}, _kernel_counts()
     for label, build, kw, epochs in (
             ('gate config', lambda: gate_model()[0], dict(seed=42), GATE_EPOCHS),
             ('explicit gate config', lambda: explicit_gate_model()[0], dict(seed=0),
@@ -2944,6 +3069,11 @@ def phase_whole_fit(ml10m: dict, smi: str) -> dict:
         log(f'whole_fit (e) {label}, examples/s (per-epoch, whole, whole, per-epoch): '
             f'whole fit {[round(r) for r in rates[label]["whole fit"]]}, per-epoch loop '
             f'{[round(r) for r in rates[label]["per-epoch loop"]]} ({smi})')
+    sampled = _count_delta(before)[SAMPLER_WRAPPER]
+    if sampled != 4 * (GATE_EPOCHS + ML10M_EPOCHS):
+        raise AssertionError(f'(e): {sampled} sampler kernel launches for the implicit fits\' '
+                             f'{4 * (GATE_EPOCHS + ML10M_EPOCHS)} epochs')
+    sampled += launches[SAMPLER_WRAPPER]
     torch.cuda.empty_cache()
 
     # (d) whole fit against the per-epoch loop; (e) the gate pairs
@@ -2969,12 +3099,14 @@ def phase_whole_fit(ml10m: dict, smi: str) -> dict:
              ('gate config, early stop in a flight', val_gate_model,
               dict(seed=42, early_stopping_patience=1))]
     before = _kernel_counts()
-    pairs = {}
+    pairs, drawn = {}, 0
     for label, build, kw in cases:
         whole = record_fit(build, True, label, smi, epochs=GATE_EPOCHS, **kw)
         per_epoch = record_fit(build, False, label, smi, epochs=GATE_EPOCHS, **kw)
         compare_fits(label, whole, per_epoch, smi)
         pairs[label] = (whole, per_epoch)
+        if label != 'explicit gate config':
+            drawn += drawn_epochs(whole) + drawn_epochs(per_epoch)
     stop = pairs['gate config, early stop in a flight'][0]['epochs']
     if not stop < GATE_EPOCHS:
         raise AssertionError(f'the early-stopping fit ran all {stop} epochs')
@@ -2983,6 +3115,9 @@ def phase_whole_fit(ml10m: dict, smi: str) -> dict:
     delta = _count_delta(before)
     if not (delta['fused_mf_epoch'] and delta['fused_mf_explicit_epoch']):
         raise AssertionError(f'(d): the whole fits did not launch both epoch kernels: {delta}')
+    if delta[SAMPLER_WRAPPER] != drawn:
+        raise AssertionError(f'(d): {delta[SAMPLER_WRAPPER]} sampler kernel launches for '
+                             f'{drawn} epochs drawn')
     with open(os.path.join('benchmarks', 'gates.json')) as f:
         gates = {name: spec['gate'] for name, spec in json.load(f).items()}
     # the implicit gate metrics are phase 5(a)'s, whose fit at lr 0.1 is a whole fit
@@ -3001,6 +3136,7 @@ def phase_whole_fit(ml10m: dict, smi: str) -> dict:
         'source': 'collie_tpu_torch/csrc/shuffle.cu',
         'replaces': 'collie_tpu/ops/shuffle.py:65',
         'launches': launches[SHUFFLE_WRAPPER] + delta[SHUFFLE_WRAPPER],
+        'sampler_launches': sampled + delta[SAMPLER_WRAPPER],
         'max_abs_err': 0.0,
         'ms': big['ms'],
         'plain_ms': big['plain_ms'],
@@ -3306,12 +3442,12 @@ def _state_line(run: dict) -> str:
             f'device launches a step, card busy {run["busy_share"]:.1%} of the span')
 
 
-def phase_generic_epoch(ml10m: dict, zoo: dict, smi: str) -> int:
+def phase_generic_epoch(ml10m: dict, zoo: dict, smi: str) -> dict:
     """Phase 10 (module docstring): the generic epoch in each route of
     ``calculate_loss`` and the table layout at the ML-10M-scale and zoo-scale
     configurations; a NeuMF whole fit with every host sync an error; no
-    epoch kernel launched, the cycle-walk once an epoch.  Returns the
-    cycle-walk's launches."""
+    epoch kernel launched, the cycle-walk and the bucketed sampler kernel
+    once an epoch.  Returns the kernels' launches."""
     import collie_tpu_torch
 
     start = time.perf_counter()
@@ -3410,14 +3546,16 @@ def phase_generic_epoch(ml10m: dict, zoo: dict, smi: str) -> int:
     del fit
     torch.cuda.empty_cache()
 
-    # (d) no epoch kernel on these paths; the cycle-walk once an epoch
+    # (d) no epoch kernel on these paths; the cycle-walk once an epoch, the
+    # bucketed sampler kernel once an epoch
     launches = _kernel_counts()
     log(f'generic_epoch (d) kernel launches {launches} over {epochs} epochs; '
         f'{time.perf_counter() - start:.1f}s')
-    if launches.pop(SHUFFLE_WRAPPER) < epochs or any(launches.values()):
+    if launches.pop(SHUFFLE_WRAPPER) < epochs or launches.pop(SAMPLER_WRAPPER) != epochs \
+            or any(launches.values()):
         raise AssertionError(f'generic_epoch kernel launches {_kernel_counts()}, '
                              f'{epochs} epochs')
-    return _kernel_counts()[SHUFFLE_WRAPPER]
+    return _kernel_counts()
 
 
 def ooc_data():
@@ -3661,8 +3799,8 @@ def ooc_timed_fit(label, build, smi, epoch_mode='auto', guard=None) -> dict:
 def phase_out_of_core(smi: str) -> dict:
     """Phase 11 (module docstring): the out-of-core chunk tier at
     ``benchmarks/bench_outofcore.py``'s configuration.  Returns the
-    launches of the cycle-walk and of ``fused_mf_epoch`` (the in-memory
-    label's) over the phase."""
+    launches of the cycle-walk, and of ``fused_mf_epoch`` and the bucketed
+    sampler kernel (the in-memory label's, one an epoch) over the phase."""
     from collie_tpu_torch import Interactions, MatrixFactorizationModel, PrefetchLoader
     from collie_tpu_torch.ops.kernels.fused_mf_epoch import fused_mf_epoch
     from collie_tpu_torch.ops.shuffle import feistel_permutation_from_keys
@@ -3733,7 +3871,10 @@ def phase_out_of_core(smi: str) -> dict:
                                allow_missing_ids=True),
             embedding_dim=OOC_DIM, lr=OOC_LR, loss='adaptive_hinge', seed=0), smi)['examples_per_s']
     in_memory = {'walks': feistel_permutation_from_keys.launches,
-                 'fused': fused_mf_epoch.launches}
+                 'fused': fused_mf_epoch.launches, 'sampled': _kernel_counts()[SAMPLER_WRAPPER]}
+    if in_memory['sampled'] != OOC_EPOCHS:
+        raise AssertionError(f'out_of_core (d) in_memory: {in_memory["sampled"]} sampler kernel '
+                             f'launches for {OOC_EPOCHS} epochs')
     log(f'out_of_core (d) examples/s an epoch: '
         + ', '.join(f'{k} {v:,.0f}' for k, v in rates.items())
         + f'; chunk tier / in-memory {rates["hdf5_chunk"] / rates["in_memory"]:.3f}, '
@@ -3742,7 +3883,8 @@ def phase_out_of_core(smi: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return {'shuffle': walks + in_memory['walks'], 'fused': in_memory['fused'],
-            'max_abs_err': worst, 'rates': rates, 'activity': activity}
+            'sampled': in_memory['sampled'], 'max_abs_err': worst, 'rates': rates,
+            'activity': activity}
 
 
 def serving_data(seed: int):
@@ -4089,8 +4231,8 @@ def phase_mesh_training(ml10m, smi: str) -> dict:
     equal to the single-card calls) and ``evaluate_in_batches(mesh=)``
     (within rtol 1e-5 of the single-card values); (d) the elements each
     collective of one mesh step moves (at world size 1 the calls' pattern,
-    not the bytes).  Returns the launches of the top-k kernel and the
-    cycle-walk on the paths driven here."""
+    not the bytes).  Returns the launches of the top-k kernel, the
+    cycle-walk and the bucketed sampler kernel on the paths driven here."""
     import torch.distributed as dist
 
     from collie_tpu_torch import CollieTrainer, auc, evaluate_in_batches, mapk, mrr
@@ -4101,7 +4243,7 @@ def phase_mesh_training(ml10m, smi: str) -> dict:
     train, _, test = ml10m
     sub = ml10m_eval_users(test)
     build = lambda: ml10m_model(train)              # noqa: E731
-    out = {'mf_topk_retrieve': 0, SHUFFLE_WRAPPER: 0, 'stable_topk': 0}
+    out = {'mf_topk_retrieve': 0, SHUFFLE_WRAPPER: 0, 'stable_topk': 0, SAMPLER_WRAPPER: 0}
     start = time.perf_counter()
     with tempfile.TemporaryDirectory() as directory:
         dist.init_process_group('nccl', init_method=f'file://{directory}/rendezvous',
@@ -4120,10 +4262,11 @@ def phase_mesh_training(ml10m, smi: str) -> dict:
                                 mesh=mesh)
             launches = _kernel_counts()
             expected = dict.fromkeys(launches, 0)
-            expected[SHUFFLE_WRAPPER] = meshed['epochs']
+            expected[SHUFFLE_WRAPPER] = expected[SAMPLER_WRAPPER] = meshed['epochs']
             if launches != expected:
                 raise AssertionError(f'mesh fit launches {launches}, expected {expected}')
             out[SHUFFLE_WRAPPER] += launches[SHUFFLE_WRAPPER]
+            out[SAMPLER_WRAPPER] += launches[SAMPLER_WRAPPER]
             os.environ['COLLIE_TPU_FUSED_EPOCH'] = '0'
             try:
                 single = record_fit(build, True, 'single card, generic', smi,
@@ -4181,8 +4324,8 @@ def phase_mesh_training(ml10m, smi: str) -> dict:
             torch.cuda.synchronize()
             launches = _count_delta(before)
             expected = dict.fromkeys(launches, 0)
-            expected[SHUFFLE_WRAPPER] = (MESH_TRAIN_RESUME_FROM
-                                         + 2 * (MESH_TRAIN_EPOCHS - MESH_TRAIN_RESUME_FROM))
+            expected[SHUFFLE_WRAPPER] = expected[SAMPLER_WRAPPER] = (
+                MESH_TRAIN_RESUME_FROM + 2 * (MESH_TRAIN_EPOCHS - MESH_TRAIN_RESUME_FROM))
             if launches != expected:
                 raise AssertionError(f'checkpointed fits launched {launches}, expected {expected}')
             tail = [float(x) for x in meshed['losses'][MESH_TRAIN_RESUME_FROM:]]
@@ -4199,6 +4342,7 @@ def phase_mesh_training(ml10m, smi: str) -> dict:
                 raise AssertionError(f'resumed fits apart from the uninterrupted: '
                                      f'{resumed_losses} vs {tail}')
             out[SHUFFLE_WRAPPER] += launches[SHUFFLE_WRAPPER]
+            out[SAMPLER_WRAPPER] += launches[SAMPLER_WRAPPER]
 
             # (c) the model as the fit left it serves through the mesh
             rng = np.random.default_rng(MESH_SEED)
@@ -4369,10 +4513,15 @@ def phase_movielens(smi: str) -> dict:
         for name, value in model.params.items():
             if not torch.equal(value, reloaded.params[name]):
                 raise AssertionError(f'the saved npz does not reload {name}')
-        if launches['feistel_permutation_from_keys'] < 1 or any(
-                n for name, n in launches.items() if name != 'feistel_permutation_from_keys'):
+        # every epoch the whole fit dispatched shuffles its training batches
+        # and draws them and the validation batches through the sampler kernel
+        if launches[SHUFFLE_WRAPPER] < 1 or launches[SAMPLER_WRAPPER] != 2 * launches[
+                SHUFFLE_WRAPPER] or any(n for name, n in launches.items()
+                                        if name not in (SHUFFLE_WRAPPER, SAMPLER_WRAPPER)):
             raise AssertionError(f'the example launched {launches}: the generic epoch must '
-                                 'shuffle through the cycle-walk and launch no other kernel')
+                                 'shuffle through the cycle-walk, draw its training and '
+                                 'validation epochs through the sampler kernel and launch no '
+                                 'other kernel')
         log(f'movielens (a) run_movielens_example() on {model.device}: '
             f'{len(losses)} epochs in {seconds:.2f}s, train loss {losses[0]:.5f} -> '
             f'{losses[-1]:.5f}, AUC {metrics["auc"]:.6f} MRR {metrics["mrr"]:.6f} '
@@ -4465,28 +4614,41 @@ def main(argv=None):
     del serving
     ml10m_fit = phase_training(ml10m['implicit'], fused)
     phase_explicit_training(ml10m['explicit'], explicit)
-    trainer_launches = phase_trainer(ml10m['implicit'], smi, ml10m_fit)['launches']
-    fused['launches'] += trainer_launches['fused_mf_epoch']
-    explicit['launches'] += trainer_launches['fused_mf_explicit_epoch']
+    trainer = phase_trainer(ml10m['implicit'], smi, ml10m_fit)
+    fused['launches'] += trainer['launches']['fused_mf_epoch']
+    explicit['launches'] += trainer['launches']['fused_mf_explicit_epoch']
+    sampler = trainer['samplers']['kernel']
+    sampler['launches'] = ml10m_fit['sampler_launches'] + trainer['launches'][SAMPLER_WRAPPER]
     zoo = zoo_data()
-    select['launches'] += phase_zoo(smi, zoo)['selections']
+    zoo_fits = phase_zoo(smi, zoo)
+    select['launches'] += zoo_fits['selections']
+    sampler['launches'] += zoo_fits['sampler_launches']
     multi_stage = phase_multi_stage(smi, zoo)
     select['launches'] += multi_stage['selections']
+    sampler['launches'] += multi_stage['sampler_launches']
     fused['max_abs_err'] = max(fused['max_abs_err'], multi_stage['donor']['max_abs_err'])
     shuffle = phase_whole_fit(ml10m['implicit'], smi)
+    sampler['launches'] += shuffle.pop('sampler_launches')
     shuffle['launches'] += fused['shuffle_launches'] + explicit['shuffle_launches']
-    shuffle['launches'] += phase_generic_epoch(ml10m['implicit'], zoo, smi)
+    generic = phase_generic_epoch(ml10m['implicit'], zoo, smi)
+    shuffle['launches'] += generic[SHUFFLE_WRAPPER]
+    sampler['launches'] += generic[SAMPLER_WRAPPER]
     out_of_core = phase_out_of_core(smi)
     shuffle['launches'] += out_of_core['shuffle']
     fused['launches'] += out_of_core['fused']
-    shuffle['launches'] += phase_movielens(smi)['feistel_permutation_from_keys']
+    sampler['launches'] += out_of_core['sampled']
+    movielens = phase_movielens(smi)
+    shuffle['launches'] += movielens[SHUFFLE_WRAPPER]
+    sampler['launches'] += movielens[SAMPLER_WRAPPER]
     mesh_training = phase_mesh_training(ml10m['implicit'], smi)
     topk['launches'] += mesh_training['mf_topk_retrieve']
     select['launches'] += mesh_training['stable_topk']
     shuffle['launches'] += mesh_training[SHUFFLE_WRAPPER]
+    sampler['launches'] += mesh_training[SAMPLER_WRAPPER]
 
     log(f'total_seconds={time.perf_counter() - t0:.1f}')
-    print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter, shuffle, select]}))
+    print(json.dumps({'kernels': [topk, fused, explicit, gather_scatter, shuffle, select,
+                                  sampler]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

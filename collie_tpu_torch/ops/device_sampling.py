@@ -10,7 +10,12 @@ host read of the buckets' sizes) and the samplers:
 * the two exact samplers the training engine takes: the degree-bucketed
   complement sampler inside its table budget (the grouped sampler of
   ``:237-325`` with its spare-based dedup, and the reorder wrapper of
-  ``:198``), and the CSR complement sampler (``:411``) above it.  The JAX
+  ``:198``), and the CSR complement sampler (``:411``) above it.  On CUDA
+  tensors the grouped sampler is one launch of the hand-written kernel
+  ``collie_tpu_torch/csrc/bucketed_sample.cu`` (draw, count and dedup of
+  every slot in registers), which equals its plain torch version
+  (``complement_sample_negatives_bucketed_grouped_plain``, the CPU's path)
+  value for value.  The JAX
   package's padded sampler (``:339``) is bit-identical to its CSR sampler,
   so the port has none: ``COLLIE_TPU_SAMPLER=padded`` takes the CSR
   sampler, whose negatives are the padded sampler's;
@@ -46,16 +51,21 @@ user's sorted columns because int32 flat keys overflow.  PyTorch has int64,
 so each CSR entry becomes the flat key ``user << 31 | item`` and one
 ``torch.searchsorted`` answers the whole batch.
 """
+import ctypes
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from collie_tpu_torch.ops.kernels import _build
+
 _ITEM_BITS = 31
 SPARES_PER_ROUND = 2
 #: elements of one gathered ``[chunk, P_b]`` table block in the count pass
 _COUNT_BLOCK_ELEMENTS = 1 << 25
+SAMPLE_SOURCE = 'bucketed_sample.cu'
+SAMPLE_ABI = 2
 
 
 def _duplicate_within_row_mask(negatives: torch.Tensor) -> torch.Tensor:
@@ -256,7 +266,12 @@ def _count_grouped(r: torch.Tensor, bucket_specs) -> torch.Tensor:
     return torch.cat(outs, dim=0)
 
 
-def complement_sample_negatives_bucketed_grouped(
+def _check_uniforms(u01: torch.Tensor, users_g: torch.Tensor, width: int) -> None:
+    if tuple(u01.shape) != (users_g.shape[0], width):
+        raise ValueError(f'u01 must be [{users_g.shape[0]}, {width}], got {tuple(u01.shape)}')
+
+
+def complement_sample_negatives_bucketed_grouped_plain(
         u01: torch.Tensor,
         users_g: torch.Tensor,
         bucket_specs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
@@ -264,17 +279,10 @@ def complement_sample_negatives_bucketed_grouped(
         num_items: int,
         num_negative_samples: int,
         dedup_rounds: int = 1) -> torch.Tensor:
-    """The bucketed sampler's core: negatives ``[N_g, K]`` int32 in GROUPED
-    order, from iid uniforms ``u01 [N_g, K + 2 * dedup_rounds]`` (float32).
-
-    Each dedup round pre-draws two spare complement values per row in the
-    same count pass and puts the i-th within-row duplicate's place to the
-    i-th spare; a spare that collides again leaves a residual duplicate.
-    """
+    """``complement_sample_negatives_bucketed_grouped`` in torch operations,
+    on any device: the CPU's path and the sampler kernel's reference."""
     K = num_negative_samples
-    W = K + SPARES_PER_ROUND * dedup_rounds
-    if tuple(u01.shape) != (users_g.shape[0], W):
-        raise ValueError(f'u01 must be [{users_g.shape[0]}, {W}], got {tuple(u01.shape)}')
+    _check_uniforms(u01, users_g, K + SPARES_PER_ROUND * dedup_rounds)
     sizes = torch.clamp(
         (num_items - row_counts[users_g.long()])[:, None].to(torch.int32), min=1)
     r = torch.minimum((u01 * sizes).to(torch.int32), sizes - 1)
@@ -289,6 +297,110 @@ def complement_sample_negatives_bucketed_grouped(
         use = dup & (dup_rank < SPARES_PER_ROUND)
         negatives = torch.where(use, subst, negatives)
     return negatives
+
+
+def _sample_library() -> ctypes.CDLL:
+    lib = _build.load(SAMPLE_SOURCE, abi=('collie_bucketed_sample_abi', SAMPLE_ABI))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.collie_bucketed_sample.argtypes = [p, p, p, ll, i, i, i, i, p, p, p, p, p, p]
+    lib.collie_bucketed_sample.restype = i
+    return lib
+
+
+def _check_sample(u01: torch.Tensor, users_g: torch.Tensor, bucket_specs,
+                  row_counts: torch.Tensor, width: int) -> None:
+    """What the sampler kernel takes: float32 uniforms, int32 ids, rows and
+    tables, each contiguous, the buckets' slots adding up to ``N_g``, all on
+    one CUDA device."""
+    _check_uniforms(u01, users_g, width)
+    tensors = {'u01': u01, 'users_g': users_g, 'row_counts': row_counts}
+    for b, (row_idx, table) in enumerate(bucket_specs):
+        tensors[f'row_idx[{b}]'], tensors[f'table[{b}]'] = row_idx, table
+    for name, x in tensors.items():
+        want = torch.float32 if name == 'u01' else torch.int32
+        if x.dtype != want:
+            raise TypeError(f'the sampler kernel takes {name} as {want}, got {x.dtype}')
+        if x.dim() != (2 if name == 'u01' or name.startswith('table') else 1):
+            raise ValueError(f'the sampler kernel takes {name} of another rank, '
+                             f'got shape {tuple(x.shape)}')
+        if not x.is_contiguous():
+            raise ValueError(f'the sampler kernel takes {name} contiguous')
+    slots = sum(int(row_idx.shape[0]) for row_idx, _ in bucket_specs)
+    if slots != users_g.shape[0]:
+        raise ValueError(f'the buckets hold {slots} slots, users_g {users_g.shape[0]}')
+    devices = {x.device for x in tensors.values()}
+    if len(devices) != 1 or u01.device.type != 'cuda':
+        raise ValueError(f'the sampler kernel takes tensors on one CUDA device, got '
+                         f'{sorted(map(str, devices))}')
+
+
+def complement_sample_negatives_bucketed_grouped_cuda(
+        u01: torch.Tensor,
+        users_g: torch.Tensor,
+        bucket_specs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+        row_counts: torch.Tensor,
+        num_items: int,
+        num_negative_samples: int,
+        dedup_rounds: int = 1) -> torch.Tensor:
+    """Launch the sampler kernel (``csrc/bucketed_sample.cu``) on the
+    current stream: the plain version's ``[N_g, K]`` int32, value for
+    value, in one launch over every bucket (none for no slot).  Reads
+    nothing back from the card; raises on what the kernel does not take
+    (``_check_sample``)."""
+    K = num_negative_samples
+    if K < 1 or dedup_rounds < 0:
+        raise ValueError(f'the sampler kernel takes num_negative_samples >= 1 and '
+                         f'dedup_rounds >= 0, got {K} and {dedup_rounds}')
+    _check_sample(u01, users_g, bucket_specs, row_counts, K + SPARES_PER_ROUND * dedup_rounds)
+    device = u01.device
+    n_slots = u01.shape[0]
+    out = torch.empty((n_slots, K), dtype=torch.int32, device=device)
+    if n_slots == 0:
+        return out
+    nb = len(bucket_specs)
+    starts = np.cumsum([0] + [int(row_idx.shape[0]) for row_idx, _ in bucket_specs[:-1]])
+    tables = (ctypes.c_longlong * nb)(*[table.data_ptr() for _, table in bucket_specs])
+    rows = (ctypes.c_longlong * nb)(*[row_idx.data_ptr() for row_idx, _ in bucket_specs])
+    firsts = (ctypes.c_longlong * nb)(*starts.tolist())
+    widths = (ctypes.c_int * nb)(*[int(table.shape[1]) for _, table in bucket_specs])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _sample_library().collie_bucketed_sample(
+            u01.data_ptr(), users_g.data_ptr(), row_counts.data_ptr(), n_slots, num_items, K,
+            dedup_rounds, nb, tables, rows, firsts, widths, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f'collie_bucketed_sample launch failed: cudaError_t {err}')
+    complement_sample_negatives_bucketed_grouped.launches += 1
+    return out
+
+
+def complement_sample_negatives_bucketed_grouped(
+        u01: torch.Tensor,
+        users_g: torch.Tensor,
+        bucket_specs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+        row_counts: torch.Tensor,
+        num_items: int,
+        num_negative_samples: int,
+        dedup_rounds: int = 1) -> torch.Tensor:
+    """The bucketed sampler's core: negatives ``[N_g, K]`` int32 in GROUPED
+    order, from iid uniforms ``u01 [N_g, K + 2 * dedup_rounds]`` (float32).
+
+    Each dedup round pre-draws two spare complement values per row in the
+    same count pass and puts the i-th within-row duplicate's place to the
+    i-th spare; a spare that collides again leaves a residual duplicate.
+
+    CUDA tensors go through the sampler kernel, which raises on what it
+    does not take; other tensors through the plain version.
+    ``complement_sample_negatives_bucketed_grouped.launches`` counts the
+    kernel's launches.
+    """
+    fn = (complement_sample_negatives_bucketed_grouped_cuda if u01.device.type == 'cuda'
+          else complement_sample_negatives_bucketed_grouped_plain)
+    return fn(u01, users_g, bucket_specs, row_counts, num_items, num_negative_samples,
+              dedup_rounds)
+
+
+complement_sample_negatives_bucketed_grouped.launches = 0
 
 
 def complement_sample_negatives_bucketed(

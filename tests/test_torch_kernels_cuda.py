@@ -7,7 +7,9 @@ the binned gather/scatter's inputs, shapes and tolerance, the selection's
 shapes and bit-for-bit check against the stable sort, the cycle-walk's
 key sets and bit-for-bit check, the skipped-launch check and the guard that
 turns a host sync inside a whole fit's flight into an error; the bucketed
-sampler's tables built on the card against the numpy builder.  The file
+sampler's tables built on the card against their CPU build, and its
+kernel (``csrc/bucketed_sample.cu``) against its plain version at
+``SAMPLE_CASES`` and through whole fits.  The file
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -17,17 +19,25 @@ import pytest
 import torch
 
 from chip_smoke import (EPOCH_EDGES, EXPLICIT_EDGES, EXPLICIT_STATE, GS_ATOL_SCALE,
-                        GS_OVERSIZE, GS_SHAPE, IMPLICIT_STATE, SELECT_KS, SELECT_LARGE,
-                        SELECT_LENGTHS, SELECT_ROWS, SELECT_SHAPE, SHUFFLE_KEY_SETS, TOPK_EDGES,
-                        check_cycle_walk, check_repeatable, check_skipped_launch,
-                        compare_epoch, compare_select,
+                        GS_OVERSIZE, GS_SHAPE, IMPLICIT_STATE, SELECT_KS,
+                        SELECT_LARGE, SELECT_LENGTHS, SELECT_ROWS, SELECT_SHAPE,
+                        SHUFFLE_KEY_SETS, TOPK_EDGES, check_cycle_walk, check_repeatable,
+                        check_skipped_launch, compare_epoch, compare_select,
                         compare_topk_kernel, epoch_inputs, explicit_epoch_inputs,
-                        gather_scatter_inputs, special_rows, sync_errors)
+                        gather_scatter_inputs, sampler_problem, sampler_uniforms, special_rows,
+                        sync_errors)
 from collie_tpu_torch.ops.kernels.retrieval_kernel import (mf_topk_retrieve,
                                                            mf_topk_retrieve_plain, select_plan,
                                                            stable_topk, stable_topk_plain)
 
 EDGE_ENVELOPES = [(37, 257, 10), (1, 64, 5), (9, 4096, 10), (16, 128, 128)]
+# (K, dedup_rounds, chunk) of the bucketed sampler kernel's cases: each of
+# its register kernel's compile-time widths (up to 8, 16, 32 and 64
+# uniforms a slot), the widest rows there with one and two dedup rounds, no
+# dedup, chunk-pad slots (chunk 256) and none (chunk 1: N_g odd), and rows
+# past 64 uniforms (65, 100 and 132), which take its wide kernel
+SAMPLE_CASES = [(1, 1, 256), (4, 1, 256), (10, 1, 256), (10, 2, 1), (10, 0, 256), (20, 1, 1),
+                (62, 1, 256), (60, 2, 1), (63, 1, 1), (100, 0, 1), (128, 2, 256)]
 
 
 def _inputs(seed, B, num_items=611, dim=12):
@@ -644,3 +654,115 @@ def test_device_bucketed_tables_match_the_numpy_builder(cuda_device):
     for g, r in zip(flat_got, flat_ref):
         assert g.device.type == 'cuda' and g.dtype == r.dtype
         assert torch.equal(g.cpu(), r)
+
+
+def _sample_both(problem, K, rounds, seed, device, specs=None):
+    """The sampler kernel and its plain version on one set of uniforms
+    (``sampler_uniforms``), the kernel's launches beside them."""
+    from collie_tpu_torch.ops import device_sampling as sampling
+
+    bucket_specs, counts, users_g, num_items = problem
+    specs = bucket_specs if specs is None else specs
+    width = K + sampling.SPARES_PER_ROUND * rounds
+    u01 = torch.from_numpy(sampler_uniforms(users_g.shape[0], width, seed)).to(device)
+    before = sampling.complement_sample_negatives_bucketed_grouped.launches
+    got = sampling.complement_sample_negatives_bucketed_grouped(u01, users_g, specs, counts,
+                                                                num_items, K, rounds)
+    want = sampling.complement_sample_negatives_bucketed_grouped_plain(u01, users_g, specs,
+                                                                       counts, num_items, K,
+                                                                       rounds)
+    torch.cuda.synchronize()
+    return got, want, sampling.complement_sample_negatives_bucketed_grouped.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K,rounds,chunk', SAMPLE_CASES)
+def test_sampler_kernel_matches_plain_version(cuda_device, K, rounds, chunk):
+    """Every slot's negatives value for value, in one launch over buckets of
+    width 128 to 16,384: chunk-pad slots (chunk 256) and an odd N_g (chunk
+    1), a user holding every item (the sentinel ``num_items``), rows built
+    with three and more equal draws, so that duplicates remain."""
+    problem = sampler_problem(chunk, cuda_device)
+    specs, _, users_g, num_items = problem
+    assert [t.shape[1] for _, t in specs] == [128 << b for b in range(8)]
+    assert (users_g.shape[0] % 2 == 1) == (chunk == 1)
+    got, want, launches = _sample_both(problem, K, rounds, K * 100 + rounds, cuda_device)
+    assert launches == 1
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert int((got == num_items).sum()) >= K          # the full user's sentinel
+    if rounds and K >= 4:
+        residual = sum(int(row.numel() - row.unique().numel()) for row in got[::9].cpu())
+        assert residual > 0                              # duplicates the spares left
+
+
+@pytest.mark.cuda
+def test_sampler_kernel_skips_an_empty_bucket(cuda_device):
+    problem = sampler_problem(256, cuda_device)
+    specs = problem[0]
+    empty = (torch.empty(0, dtype=torch.int32, device=cuda_device), specs[1][1])
+    with_empty = (empty,) + specs[:3] + (empty,) + specs[3:] + (empty,)
+    got, want, launches = _sample_both(problem, 10, 1, 5, cuda_device, specs=with_empty)
+    assert launches == 1 and torch.equal(got, want)
+    assert torch.equal(got, _sample_both(problem, 10, 1, 5, cuda_device)[0])
+
+
+@pytest.mark.cuda
+def test_sampler_kernel_without_slots_launches_nothing(cuda_device):
+    from collie_tpu_torch.ops import device_sampling as sampling
+
+    empty = torch.empty(0, dtype=torch.int32, device=cuda_device)
+    before = sampling.complement_sample_negatives_bucketed_grouped.launches
+    got = sampling.complement_sample_negatives_bucketed_grouped(
+        torch.empty((0, 12), device=cuda_device), empty, (), torch.zeros(3, dtype=torch.int32,
+                                                                          device=cuda_device),
+        500, 10, 1)
+    assert got.shape == (0, 10) and got.dtype == torch.int32 and got.device.type == 'cuda'
+    assert sampling.complement_sample_negatives_bucketed_grouped.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('slot_epoch', ['1', '0'])
+def test_card_fit_with_the_sampler_kernel_equals_the_plain_sampler(cuda_device, monkeypatch,
+                                                                   slot_epoch):
+    """A 3-epoch MF fit on the card through the slot epoch (``1``: 256 users
+    x 64 items, 16,384 pairs, no bucket pad) and through the reorder path
+    (``COLLIE_TPU_SLOT_EPOCH=0``): bit-identical parameters with the
+    sampler kernel and with the plain version forced in its place, and one
+    kernel launch an epoch."""
+    from collie_tpu_torch import CollieTrainer, Interactions, MatrixFactorizationModel
+    from collie_tpu_torch.ops import device_sampling as sampling
+    from collie_tpu_torch.training import scan_engine
+
+    monkeypatch.setenv('COLLIE_TPU_SLOT_EPOCH', slot_epoch)
+    rng = np.random.default_rng(3)
+    users = np.repeat(np.arange(256), 64)
+    items = np.concatenate([rng.choice(500, 64, replace=False) for _ in range(256)])
+    train = Interactions(users=users, items=items, num_users=256, num_items=500,
+                         num_negative_samples=10, seed=1)
+    reorders = []
+    reorder = scan_engine.complement_sample_negatives_bucketed
+    monkeypatch.setattr(scan_engine, 'complement_sample_negatives_bucketed',
+                        lambda *a, **kw: reorders.append(1) or reorder(*a, **kw))
+
+    def fit():
+        model = MatrixFactorizationModel(train=train, embedding_dim=8, lr=1e-1,
+                                         loss='adaptive', seed=0)
+        CollieTrainer(model, max_epochs=3, verbosity=0, seed=7).fit(model)
+        torch.cuda.synchronize()
+        return {k: v.detach().clone() for k, v in model.params.items()}
+
+    dispatch = sampling.complement_sample_negatives_bucketed_grouped
+    before = dispatch.launches
+    kernel = fit()
+    assert dispatch.launches - before == 3
+    assert (len(reorders) == 3) == (slot_epoch == '0')
+    plain = sampling.complement_sample_negatives_bucketed_grouped_plain
+    monkeypatch.setattr(sampling, 'complement_sample_negatives_bucketed_grouped', plain)
+    monkeypatch.setattr(scan_engine, 'complement_sample_negatives_bucketed_grouped', plain)
+    before = dispatch.launches
+    reference = fit()
+    assert dispatch.launches == before
+    assert set(kernel) == set(reference)
+    for name, value in kernel.items():
+        assert torch.equal(value, reference[name]), name

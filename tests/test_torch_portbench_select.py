@@ -53,4 +53,5 @@ def test_declared_on_the_serving_cell_alone():
     declared = {m['name']: m for m in loaded['per_layer']}[METRIC]
     assert declared['workloads'] == ['mf_msd.recommend_batch']
     assert declared['moves'] == 'recommend_users_per_s' and declared['layer'] == 'Kernels'
-    assert loaded['per_layer'][-1]['name'] == METRIC
+    names = [m['name'] for m in loaded['per_layer']]
+    assert names.index(METRIC) == names.index('step_host_ms.neumf') + 1
