@@ -12,7 +12,10 @@ plus ``item_metadata.npy`` / ``user_metadata.npy``, the JAX package's
 layout, so a directory written by either package loads in the other.
 
 Metadata lives on the model's device as ``[num_ids, F]`` float32 tensors
-and is gathered with ids clamped into its rows.  Dropout masks are drawn
+and is gathered with ids clamped into its rows.  The gathers, towers and
+the concatenation of a score are one ``collie.hybrid.metadata`` span, and
+the rows gathered the program counter ``collie.hybrid.metadata_rows``
+(``training/profiler.py``).  Dropout masks are drawn
 from one generator in the JAX package's program order and at its shapes:
 the user tower's layers, the item tower's, then the combined layers'.
 """
@@ -28,6 +31,7 @@ import torch
 from collie_tpu_torch.config import DATA_PATH
 from collie_tpu_torch.ops.embeddings import dropout, embedding_lookup
 from collie_tpu_torch.ops.nn import add_linear, leaky_relu, linear
+from collie_tpu_torch.training.profiler import annotate, count
 
 
 def as_float_array(metadata) -> Optional[np.ndarray]:
@@ -88,7 +92,9 @@ def metadata_tower_layers(params: Dict, out: torch.Tensor, metadata_type: str,
 
 
 def gather_metadata(metadata: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Metadata rows of ``ids`` (any shape), ids clamped into its rows."""
+    """Metadata rows of ``ids`` (any shape), ids clamped into its rows;
+    counted in the program counter ``collie.hybrid.metadata_rows``."""
+    count('collie.hybrid.metadata_rows', ids.numel())
     return metadata[ids.clamp(0, metadata.shape[0] - 1)]
 
 
@@ -124,17 +130,19 @@ def hybrid_score(model, params, users, items, training, generator,
     item_emb = embedding_lookup(params['item_embeddings'], items)
     if detach_embeddings:
         user_emb, item_emb = user_emb.detach(), item_emb.detach()
-    pieces = []
-    if model.user_metadata is not None:
-        pieces.append(metadata_tower_output(
-            params, model.user_metadata, users, 'user', model._n_meta_layers('user'), p,
-            training, generator))
-    pieces += [user_emb, item_emb]
-    if model.item_metadata is not None:
-        pieces.append(metadata_tower_output(
-            params, model.item_metadata, items, 'item', model._n_meta_layers('item'), p,
-            training, generator))
-    return combined_prediction(params, torch.cat(pieces, dim=-1),
+    with annotate('collie.hybrid.metadata'):
+        pieces = []
+        if model.user_metadata is not None:
+            pieces.append(metadata_tower_output(
+                params, model.user_metadata, users, 'user', model._n_meta_layers('user'), p,
+                training, generator))
+        pieces += [user_emb, item_emb]
+        if model.item_metadata is not None:
+            pieces.append(metadata_tower_output(
+                params, model.item_metadata, items, 'item', model._n_meta_layers('item'), p,
+                training, generator))
+        combined = torch.cat(pieces, dim=-1)
+    return combined_prediction(params, combined,
                                params['user_biases'][users], params['item_biases'][items],
                                model.n_combined_layers, p, training, generator)
 
@@ -157,19 +165,21 @@ def hybrid_pairwise_scores(model, params, users, items, training, generator,
     if detach_embeddings:
         user_emb, item_emb = user_emb.detach(), item_emb.detach()
 
-    pieces = []
-    if model.user_metadata is not None:
-        rows = gather_metadata(model.user_metadata, users)            # [B, F]
-        pieces.append(metadata_tower_layers(
-            params, rows[None].expand((R,) + rows.shape), 'user', model._n_meta_layers('user'),
-            p, training, generator))
-    pieces.append(user_emb[None].expand((R,) + user_emb.shape))
-    pieces.append(item_emb)
-    if model.item_metadata is not None:
-        pieces.append(metadata_tower_output(
-            params, model.item_metadata, items, 'item', model._n_meta_layers('item'), p,
-            training, generator))
-    return combined_prediction(params, torch.cat(pieces, dim=-1),
+    with annotate('collie.hybrid.metadata'):
+        pieces = []
+        if model.user_metadata is not None:
+            rows = gather_metadata(model.user_metadata, users)        # [B, F]
+            pieces.append(metadata_tower_layers(
+                params, rows[None].expand((R,) + rows.shape), 'user',
+                model._n_meta_layers('user'), p, training, generator))
+        pieces.append(user_emb[None].expand((R,) + user_emb.shape))
+        pieces.append(item_emb)
+        if model.item_metadata is not None:
+            pieces.append(metadata_tower_output(
+                params, model.item_metadata, items, 'item', model._n_meta_layers('item'), p,
+                training, generator))
+        combined = torch.cat(pieces, dim=-1)
+    return combined_prediction(params, combined,
                                params['user_biases'][users][None, :],
                                params['item_biases'][items],
                                model.n_combined_layers, p, training, generator)

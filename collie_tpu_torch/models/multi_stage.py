@@ -18,6 +18,7 @@ from typing import Callable, Dict, List, Optional, Union
 
 from collie_tpu_torch.models.base import INTERACTIONS_LIKE_INPUT, BasePipeline
 from collie_tpu_torch.training.optimizers import OptimizerSpec, build_transform
+from collie_tpu_torch.training.profiler import annotate
 from collie_tpu_torch.utils import get_init_arguments, merge_docstrings
 
 
@@ -82,15 +83,17 @@ class MultiStagePipeline(BasePipeline):
             self.set_stage(stage_list[stage_idx + 1])
 
     def set_stage(self, stage: str) -> None:
-        """Jump to a stage (reference ``:147-155``).  Subclasses hook
-        transitions (e.g. cold-start weight copying) by overriding."""
-        stage_list = self.hparams['stage_list']
-        if stage not in stage_list:
-            raise ValueError(
-                f'{stage} is not a valid stage, please choose one of {stage_list}'
-            )
-        self.hparams['stage'] = stage
-        print(f'Set ``stage`` to "{stage}"')
+        """Jump to a stage (reference ``:147-155``), a ``collie.fit.stage``
+        span.  Subclasses hook transitions (e.g. cold-start weight copying)
+        by overriding."""
+        with annotate('collie.fit.stage'):
+            stage_list = self.hparams['stage_list']
+            if stage not in stage_list:
+                raise ValueError(
+                    f'{stage} is not a valid stage, please choose one of {stage_list}'
+                )
+            self.hparams['stage'] = stage
+            print(f'Set ``stage`` to "{stage}"')
 
     def optimizer_specs(self) -> List[OptimizerSpec]:
         """One spec per optimizer config, owning the params matching its

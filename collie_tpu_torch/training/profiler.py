@@ -16,10 +16,18 @@ it:
   (``collie.fit.epoch_tables`` > ``collie.fit.sampler_tables``,
   ``collie.fit.opt_states``), ``collie.fit.epochs`` (in the generic epoch
   ``collie.fit.step`` a step, holding ``collie.loss.select``, the sparse
-  loss's selection pass) and ``collie.fit.finish``; ``collie.recommend`` >
-  ``collie.recommend.prepare`` (> ``collie.recommend.seen``); and ``collie.sync`` around each deliberate
+  loss's selection pass) and ``collie.fit.finish``; ``collie.fit.stage``
+  around a multi-stage model's ``set_stage``; ``collie.hybrid.metadata``
+  around each metadata gather, tower and concatenation of the hybrid
+  models' scores; ``collie.recommend`` > ``collie.recommend.prepare`` (>
+  ``collie.recommend.seen``); and ``collie.sync`` around each deliberate
   host wait on the card (a flight's transfer, a CUDA-event read, a loss
   read back, a recommendation's copy to the host);
+* ``count(name, n)``: a program counter.  Inside an active trace it adds
+  ``n`` to ``name`` in every open ``counting()`` region; outside a trace it
+  costs one check, as ``annotate`` does.  The port counts
+  ``collie.hybrid.metadata_rows``, the metadata rows the hybrid models
+  gather (every row of each gather, pad rows of a batch included);
 * ``device_memory_stats()``: the CUDA caching allocator's statistics;
 * ``EpochTimer``: per-epoch wall-clock and loss collector usable as a
   trainer logger.
@@ -27,6 +35,7 @@ it:
 A submodule only, as in ``collie_tpu``: ``training/__init__.py`` does not
 export it.
 """
+import collections
 import contextlib
 import os
 import time
@@ -62,6 +71,31 @@ def annotate(name: str):
     if not torch._C._autograd._profiler_enabled():
         return _OFF
     return record_function(name)
+
+
+#: the ``counting()`` regions open now, innermost last
+_COUNTING: List[collections.Counter] = []
+
+
+@contextlib.contextmanager
+def counting():
+    """A region that collects the program's counters (``count``) while a
+    trace runs inside it; yields the ``collections.Counter`` they add to."""
+    counts = collections.Counter()
+    _COUNTING.append(counts)
+    try:
+        yield counts
+    finally:
+        _COUNTING.remove(counts)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` of each open ``counting()`` region
+    inside an active trace; outside a trace, one check and nothing else."""
+    if not torch._C._autograd._profiler_enabled():
+        return
+    for counts in _COUNTING:
+        counts[name] += n
 
 
 def device_memory_stats() -> Optional[Dict[str, int]]:

@@ -682,6 +682,9 @@ def build_scan_epoch_fns(model, specs, active: List[bool], loader, shuffle: bool
             negs = complement_sample_negatives_bucketed(
                 samples, idx, data['pos_of'], data['users_g'], data['bucket_specs'],
                 data['row_counts'], num_items, K, dedup_rounds=dedup_rounds)
+            # a user holding every item draws the sentinel ``num_items``
+            # that ends its table row: clamp before any gather
+            negs = torch.clamp(negs, max=num_items - 1)
         elif sampler == 'csr':
             negs = complement_sample_negatives_impl(
                 samples, users_flat, data['indptr'], data['shifted_cols'], num_items, K,

@@ -47,7 +47,8 @@ def test_declared_on_the_implicit_cells():
     loaded = spec.load_spec()
     assert spec.validate(loaded) == []
     declared = {m['name']: m for m in loaded['per_layer']}[METRIC]
-    assert declared['workloads'] == ['mf_ml10m.fit_implicit', 'neumf_ml20m.fit_implicit']
+    assert declared['workloads'] == ['mf_ml10m.fit_implicit', 'neumf_ml20m.fit_implicit',
+                                     'hybrid_ml20m.fit_staged']
     assert declared['moves'] == 'train_examples_per_s' and declared['layer'] == 'Epoch build'
     assert declared['source'] == 'device_trace' and declared['unit'] == 'ms'
     assert [m['name'] for m in loaded['per_layer']].count(METRIC) == 1

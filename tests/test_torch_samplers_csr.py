@@ -302,3 +302,37 @@ def test_engine_epoch_equals_jax_given_its_draws(kind, monkeypatch):
         ref = np.asarray(ref)
         np.testing.assert_allclose(model.params[k].numpy(), ref,
                                    atol=5e-4 * max(np.abs(ref).max(), 1e-3), rtol=0)
+
+
+def test_a_user_holding_every_item_trains_on_the_bucketed_reorder_path(monkeypatch):
+    """User 0 holds all 30 items, so the bucketed sampler hands it the
+    sentinel ``num_items``; the bucket pads pass 2% of the examples, so the
+    epoch takes the reorder path, which clamps the sentinel into the item
+    range before any gather, as the slot-domain epoch does.  (The JAX
+    package's reorder path passes it on and fits this data to NaN, so no
+    parity is held here.)"""
+    rng = np.random.default_rng(0)
+    users = np.concatenate([np.zeros(30, np.int64), np.repeat(np.arange(1, 40), 5)])
+    items = np.concatenate([np.arange(30)] + [rng.choice(30, 5, replace=False)
+                                              for _ in range(39)])
+    inter = Interactions(users=users, items=items, num_users=40, num_items=30,
+                         num_negative_samples=3, check_num_negative_samples_is_valid=False,
+                         seed=0)
+    model = MatrixFactorizationModel(
+        train=InteractionsDataLoader(inter, batch_size=64, shuffle=True), embedding_dim=8,
+        map_location='cpu')
+    seen, real = [], scan_engine.train_steps
+
+    def recording(model, specs, active, params, opt_states, batches, *args, **kwargs):
+        seen.append(batches['neg_items'].clone())
+        return real(model, specs, active, params, opt_states, batches, *args, **kwargs)
+
+    monkeypatch.setattr(scan_engine, 'train_steps', recording)
+    fn, data, _, _ = scan_engine.build_scan_epoch_fns(
+        model, model.optimizer_specs(), [True, True], model.train_loader, shuffle=True)
+    assert fn.sampler == 'bucketed' and 'pos_of' in data          # the reorder path
+    CollieTrainer(model, max_epochs=1, seed=0, verbosity=0, logger=False).fit(model)
+    assert seen
+    negs = torch.cat([s.reshape(-1) for s in seen])
+    assert int(negs.min()) >= 0 and int(negs.max()) < 30
+    assert all(bool(torch.isfinite(v).all()) for v in model.params.values())

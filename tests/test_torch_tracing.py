@@ -225,3 +225,45 @@ def test_generic_epoch_steps_each_hold_one_selection(model_kind, monkeypatch):
     assert len(steps) == calls[0] and len(selects) == len(steps)
     assert all(_inside(step, _named(spans, 'collie.fit.epochs')) for step in steps)
     assert all(sum(_inside(select, [step]) for select in selects) == 1 for step in steps)
+
+
+def test_hybrid_stage_and_metadata_spans_and_the_metadata_row_counter():
+    """A staged hybrid fit: each ``set_stage`` (``advance_stage`` too) is a
+    ``collie.fit.stage`` span; the metadata stages' steps each hold two
+    ``collie.hybrid.metadata`` spans (the selection's scores and the
+    gradient pass's), the MF stage's none; the program counter
+    ``collie.hybrid.metadata_rows`` counts ``K + 2`` rows a batch row
+    inside a traced ``counting()`` region, and nothing outside a trace."""
+    from collie_tpu_torch import HybridModel, InteractionsDataLoader
+
+    B = 64
+    inter = _implicit()
+    K = inter.num_negative_samples
+    loader = InteractionsDataLoader(interactions=inter, batch_size=B, shuffle=True, seed=0)
+    meta = np.random.default_rng(0).random((NI, 5)).astype(np.float32)
+    model = HybridModel(train=loader, item_metadata=meta, embedding_dim=4,
+                        combined_layers_dims=[8], loss='adaptive', seed=0, map_location='cpu')
+    trainer = CollieTrainer(model, max_epochs=0, verbosity=0, seed=0)
+    steps = -(-inter.num_interactions // B)
+    with profiler.counting() as untraced:
+        model.advance_stage()
+        trainer.max_epochs += 1
+        trainer.fit(model)
+    assert not untraced
+    model.set_stage('matrix_factorization')
+    with profile(activities=[ProfilerActivity.CPU]) as prof, profiler.counting() as counts:
+        for n in range(3):
+            if n:
+                model.advance_stage()
+            trainer.max_epochs += 1
+            trainer.fit(model)
+    spans = _collie_spans(prof)
+    assert len(_named(spans, 'collie.fit.stage')) == 2
+    fits = _named(spans, 'collie.fit')
+    meta_spans = _named(spans, 'collie.hybrid.metadata')
+    assert not any(_inside(m, fits[:1]) for m in meta_spans)
+    for fit in fits[1:]:
+        fit_steps = [s for s in _named(spans, 'collie.fit.step') if _inside(s, [fit])]
+        assert len(fit_steps) == steps
+        assert all(sum(_inside(m, [s]) for m in meta_spans) == 2 for s in fit_steps)
+    assert counts == {'collie.hybrid.metadata_rows': 2 * steps * B * (K + 2)}
